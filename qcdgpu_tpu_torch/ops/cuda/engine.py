@@ -1,0 +1,273 @@
+"""The packed engine: state layout, start states, sweeps and measurements.
+
+Port of qcdgpu_tpu/ops/pallas/engine.py (the threefry heat-bath path).
+
+Engine state is the reference's flat 8-tuple ``us[2*mu + parity]`` of f32
+tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py for the layout).  A sweep
+is 8 heat-bath stages (parity 0, 1 x mu 0..3, stage ids 0..7, each keyed
+``rng.stage_key(base, sweep, stage_id)``), then on every reunit_every-th
+sweep the reunitarization of all 8 arrays.  Stages and reunitarization
+update the state IN PLACE; a runner returns the same tuple it was given.
+
+Every kernel wrapper dispatches on the tensors' device (CPU: plain PyTorch
+version; CUDA: the hand-written kernel), so the same sweep serves both.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...config import SimConfig
+from .. import rng, sun
+from . import core
+from . import measure as cmeasure
+from . import update as cupdate
+from .reunit import reunitarize_dir
+
+NDIM = 4
+# stage-id namespace of the hot start (the reference's sim._STAGE_INIT)
+STAGE_INIT = 0xF0
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for 'cpu' or 'cuda[:i]'; raises for a CUDA device when
+    no card is present (no silent fallback to the CPU)."""
+    if device is None:
+        raise ValueError("device is required: 'cpu' or 'cuda'")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={device!r}, but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def check_supported(cfg: SimConfig) -> None:
+    """Raise NotImplementedError for configuration values the port does not
+    run yet, naming the ROADMAP item that brings them."""
+    todo = []
+    if cfg.group != 3:
+        todo.append("group=2 (queue 1: SU(2) instantiations of K1 and K2)")
+    if cfg.algorithm != "heatbath":
+        todo.append("algorithm='metropolis' (queue 1: overrelax and "
+                    "Metropolis kinds)")
+    if cfg.n_or > 0:
+        todo.append("n_or>0 (queue 1: overrelax and Metropolis kinds)")
+    if cfg.track_acceptance or cfg.track_kp_exhaust:
+        todo.append("track_* (queue 1: track_acc)")
+    if cfg.get_fmunu or cfg.wilson_loops or cfg.get_qtop:
+        todo.append("get_fmunu / wilson_loops / get_qtop (M12)")
+    if cfg.rng_mode == "hw":
+        todo.append("rng_mode='hw' (M9, Philox)")
+    elif cfg.rng_mode != "threefry":
+        todo.append(f"rng_mode={cfg.rng_mode!r} (M14, PRNGCL streams)")
+    if tuple(cfg.mesh) != (1, 1, 1, 1):
+        todo.append(f"mesh={tuple(cfg.mesh)} (M15, multi-GPU)")
+    if cfg.dtype != "complex64" or cfg.meas_dtype != "same":
+        todo.append("dtype='complex128' / meas_dtype='double' (M11)")
+    if cfg.engine == "xla":
+        todo.append("engine='xla' (M11, dense engine)")
+    if todo:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP.md): " + "; ".join(todo)
+        )
+
+
+# ---------------------------------------------------------------------------
+# layout conversion
+# ---------------------------------------------------------------------------
+
+
+def _sigma(dims, device):
+    """(x+y+z) % 2 over [X, Y, Z, 1]."""
+    x, y, z, _ = dims
+    g = (torch.arange(x, device=device).reshape(x, 1, 1, 1)
+         + torch.arange(y, device=device).reshape(1, y, 1, 1)
+         + torch.arange(z, device=device).reshape(1, 1, z, 1))
+    return g % 2
+
+
+def split_links(u):
+    """Complex [4, N, N, X, Y, Z, T] -> 8-tuple us[2*mu+p] of
+    [2, N, 2, X, Y, Z*T/2] f32 (packed, two-row codec)."""
+    dims = tuple(u.shape[3:])
+    x, y, z, t = dims
+    sig = _sigma(dims, u.device)
+    out = []
+    for mu in range(NDIM):
+        m = u[mu][:2]
+        s = torch.stack([m.real, m.imag], dim=2).to(torch.float32)
+        even, odd = s[..., 0::2], s[..., 1::2]
+        for p in range(2):
+            pk = torch.where((sig + p) % 2 == 0, even, odd)
+            out.append(pk.reshape(pk.shape[:3] + (x, y, z * (t // 2)))
+                       .contiguous())
+    return tuple(out)
+
+
+def join_dir(pk_pair, dims, n):
+    """(us[2mu], us[2mu+1]) back to complex64 [N, N, X, Y, Z, T]."""
+    x, y, z, t = dims
+    t2 = t // 2
+    sig = _sigma(dims, pk_pair[0].device)
+    dense = []
+    for p in (0, 1):
+        s = pk_pair[p].reshape(2, n, 2, x, y, z, t2)
+        dense.append(torch.complex(s[:, :, 0], s[:, :, 1]))
+    even = torch.where(sig == 0, dense[0], dense[1])
+    odd = torch.where(sig == 0, dense[1], dense[0])
+    inter = torch.stack([even, odd], dim=-1).reshape(2, n, x, y, z, t)
+    if n == 3:
+        # row 2 through the kernels' real-pair codec (core._codec_rows),
+        # not torch's complex product, which may fuse multiply-adds
+        rows = [tuple((c.real, c.imag) for c in inter[r]) for r in range(2)]
+        r2 = core._codec_rows(rows, 3)[2]
+        inter = torch.cat([inter, torch.stack(
+            [torch.complex(re, im) for re, im in r2])[None]], dim=0)
+    return inter
+
+
+def join_links(us, dims):
+    n = us[0].shape[1]
+    return torch.stack(
+        [join_dir((us[2 * mu], us[2 * mu + 1]), dims, n) for mu in range(NDIM)]
+    )
+
+
+def from_reference(arrays, device):
+    """The JAX package's state, as numpy, -> the port's 8-tuple on device.
+
+    Takes either the canonical complex field [4, N, N, X, Y, Z, T] (packed
+    here through split_links) or the JAX engine's packed 8-tuple of f32
+    arrays (adopted as is)."""
+    dev = resolve_device(device)
+    if isinstance(arrays, (tuple, list)):
+        if len(arrays) != 2 * NDIM:
+            raise ValueError("a packed state is an 8-tuple us[2*mu+parity]")
+        return tuple(
+            torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+            for a in arrays
+        )
+    a = np.asarray(arrays)
+    if a.ndim != 7 or a.shape[0] != NDIM or not np.iscomplexobj(a):
+        raise ValueError(
+            f"expected complex [4, N, N, X, Y, Z, T], got {a.dtype} {a.shape}"
+        )
+    u = torch.from_numpy(np.array(a, dtype=np.complex64)).to(dev)
+    return split_links(u)
+
+
+# ---------------------------------------------------------------------------
+# packed-direct start constructors
+# ---------------------------------------------------------------------------
+
+
+def packed_cold_start(cfg: SimConfig, device):
+    """Unit links in the engine layout (8 separate tensors: the stages
+    update them in place)."""
+    dev = resolve_device(device)
+    n = cfg.group
+    x, y, z, t = cfg.dims
+    eye = torch.zeros((2, n, 2, 1, 1, 1), dtype=torch.float32, device=dev)
+    eye[0, 0, 0] = 1.0
+    eye[1, 1, 0] = 1.0
+    shape = (2, n, 2, x, y, z * (t // 2))
+    return tuple(eye.expand(shape).contiguous() for _ in range(2 * NDIM))
+
+
+def packed_hot_start(cfg: SimConfig, base_key, device):
+    """Disordered (exactly Haar) start in the engine layout: the reference's
+    per-site threefry normals, keyed by the global dense site index, and
+    the same per-site Gram–Schmidt, one (mu, parity) array at a time."""
+    dev = resolve_device(device)
+    n = cfg.group
+    dims = tuple(cfg.dims)
+    key2 = rng.stage_key(base_key, 0, STAGE_INIT)
+    out = []
+    for mu in range(NDIM):
+        kmu = rng.stage_key(key2, mu, STAGE_INIT + 1)
+        for p in range(2):
+            sidx = core.site_index_packed(p, dims, dev)
+            zn = rng.site_normals(kmu, sidx, 2 * n * n, slot0=0)
+            re = zn[0: 2 * n * n: 2].reshape((n, n) + tuple(sidx.shape))
+            im = zn[1: 2 * n * n: 2].reshape((n, n) + tuple(sidx.shape))
+            m = sun.reunitarize(torch.complex(re, im))[:2]
+            out.append(torch.stack([m.real, m.imag], dim=2)
+                       .to(torch.float32).contiguous())
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# sweep / measurement on packed state
+# ---------------------------------------------------------------------------
+
+
+def make_sweep(cfg: SimConfig):
+    """sweep(us, base_key, sweep_idx) -> us, in place.  Stage order, stage
+    ids and the reunit condition are the reference's
+    (ops/pallas/engine.py make_pallas_sweep)."""
+    dims = tuple(cfg.dims)
+
+    def sweep(us, base_key, sweep_idx):
+        stage_id = 0
+        for parity in (0, 1):
+            for mu in range(NDIM):
+                key2 = rng.stage_key(base_key, sweep_idx, stage_id)
+                cupdate.stage_update(us, mu, parity, cfg.beta, key2, dims,
+                                     cfg.kp_trials)
+                stage_id += 1
+        if (cfg.reunit_every > 0
+                and sweep_idx % cfg.reunit_every == cfg.reunit_every - 1):
+            for s in us:
+                reunitarize_dir(s, dims)
+        return us
+
+    return sweep
+
+
+def obs_base_from_sums(sums, poly, n, dims):
+    """The standard 6-observable vector (f32) from the global f64 plane sums
+    [6] and Polyakov sums [2]; normalised in f64."""
+    vol = dims[0] * dims[1] * dims[2] * dims[3]
+    s = sums / (n * vol)
+    # PLANES order: (0,1),(0,2),(0,3),(1,2),(1,3),(2,3); temporal = nu == 3
+    plq_s = (s[0] + s[1] + s[3]) / 3.0
+    plq_t = (s[2] + s[4] + s[5]) / 3.0
+    plq = 0.5 * (plq_s + plq_t)
+    pl = poly / (n * (vol // dims[3]))
+    return torch.stack([plq, plq_s, plq_t, 1.0 - plq, pl[0], pl[1]]
+                       ).to(torch.float32)
+
+
+def measure_all_split(us, dims):
+    """Observable vector (ops.measure.OBS_NAMES) from packed state, through
+    the plane-sum and Polyakov-sum kernels; stays on the state's device."""
+    n = us[0].shape[1]
+    return obs_base_from_sums(cmeasure.plane_sums(us, dims),
+                              cmeasure.polyakov_sums(us, dims), n, tuple(dims))
+
+
+def make_chunk_runner(cfg: SimConfig, device):
+    """Runner for the packed engine on ``device`` (same contract as the
+    reference's make_pallas_chunk_runner): run(u, key, sweep0, n, me),
+    run.packed, run.pack / run.unpack, and the packed-direct start and
+    measurement entry points."""
+    from ...runner import build_chunk_runner
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dims = tuple(cfg.dims)
+    meas = lambda us: measure_all_split(us, dims)  # noqa: E731
+    run = build_chunk_runner(
+        cfg, make_sweep(cfg), meas,
+        pack=lambda u: split_links(u.to(dev)),
+        unpack=lambda us: join_links(us, dims),
+    )
+    run.packed_cold_start = lambda: packed_cold_start(cfg, dev)
+    run.packed_hot_start = lambda key: packed_hot_start(cfg, key, dev)
+    run.measure_packed = meas
+    return run

@@ -1,0 +1,28 @@
+"""4D lattice geometry on the dense site grid [X, Y, Z, T].
+
+Port of qcdgpu_tpu/ops/lattice.py (parity masks and global site indices).
+"""
+
+from __future__ import annotations
+
+import torch
+
+NDIM = 4
+
+
+def _coords(dims, device):
+    return torch.meshgrid(
+        *[torch.arange(d, dtype=torch.int64, device=device) for d in dims],
+        indexing="ij",
+    )
+
+
+def parity_mask(dims, parity, device):
+    """Boolean [X, Y, Z, T] mask of sites with (x+y+z+t) % 2 == parity."""
+    return (sum(_coords(dims, device)) % 2) == parity
+
+
+def site_index(dims, device):
+    """int64 [X, Y, Z, T] global linear site index (row-major over dims)."""
+    x, y, z, t = _coords(dims, device)
+    return ((x * dims[1] + y) * dims[2] + z) * dims[3] + t

@@ -1,0 +1,113 @@
+"""Counter-based, site-keyed random numbers (threefry2x32-20).
+
+Port of qcdgpu_tpu/ops/rng.py, bit for bit:
+
+  bits(site, slot) = threefry2x32(stage_key, (global_site_index, slot))
+  stage_key        = threefry2x32(base_key, (sweep_index, stage_id))
+
+Two forms of the same function:
+
+* ``threefry2x32`` works on int64 tensors holding u32 values (torch's CPU
+  ``uint32`` has no shift operators); every result is masked back to 32
+  bits.
+* ``threefry2x32_host`` works on Python ints.  Keys (``make_base_key``,
+  ``stage_key``) are computed on the host with it and handed to the kernels
+  as two ints, so deriving a stage key costs no device round trip.
+
+No ``torch.Generator`` is used anywhere: a run's randomness is a pure
+function of (seed, sweep index, stage id, site, slot).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
+_PARITY = 0x1BD11BDA
+_M32 = 0xFFFFFFFF
+
+# f32 scale of the 24-bit uniform grid (exact power of two)
+_INV_2_24 = 1.0 / (1 << 24)
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """20-round Threefry-2x32 on int64 tensors (or ints) holding u32 values.
+
+    Arguments broadcast; returns a pair of int64 tensors in [0, 2**32).
+    """
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    inject = 0
+    for r in range(20):
+        x0 = (x0 + x1) & _M32
+        x1 = _rotl(x1, _ROT[r % 8])
+        x1 = x1 ^ x0
+        if (r + 1) % 4 == 0:
+            inject += 1
+            x0 = (x0 + ks[inject % 3]) & _M32
+            x1 = (x1 + ks[(inject + 1) % 3] + inject) & _M32
+    return x0, x1
+
+
+def threefry2x32_host(k0: int, k1: int, x0: int, x1: int):
+    """threefry2x32 on Python ints (u32 values) -> (int, int)."""
+    return threefry2x32(int(k0) & _M32, int(k1) & _M32,
+                        int(x0) & _M32, int(x1) & _M32)
+
+
+def make_base_key(seed: int):
+    """(k0, k1) u32 pair, as Python ints, from a Python int seed."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    # pi digits — arbitrary domain constant (same as the reference)
+    return threefry2x32_host(s & _M32, s >> 32, 0x243F6A88, 0x85A308D3)
+
+
+def stage_key(base_key, sweep_idx: int, stage_id: int):
+    """Per-(sweep, stage) derived key, as a pair of Python ints."""
+    return threefry2x32_host(base_key[0], base_key[1], sweep_idx, stage_id)
+
+
+def bits_to_uniform(bits):
+    """u32 (in int64) -> f32 in the OPEN interval (0, 1), 24-bit grid.
+
+    The +0.5 is added in f32 (it rounds for h >= 2**23), as the reference
+    does."""
+    h = (bits >> 8).to(torch.float32)
+    return (h + 0.5) * _INV_2_24
+
+
+def site_uniforms(key2, site_idx, n, slot0=0):
+    """n uniforms per site: f32 [n, *site_idx.shape] in (0, 1).
+
+    site_idx: int64 tensor of GLOBAL dense site indices.  Pair p of the
+    output comes from counter (site, slot0 + p): b0 -> u[2p], b1 -> u[2p+1].
+    """
+    npairs = (n + 1) // 2
+    slots = (torch.arange(npairs, dtype=torch.int64, device=site_idx.device)
+             + slot0).reshape((npairs,) + (1,) * site_idx.ndim)
+    b0, b1 = threefry2x32(int(key2[0]), int(key2[1]), site_idx[None], slots)
+    u = torch.stack([bits_to_uniform(b0), bits_to_uniform(b1)], dim=1)
+    u = u.reshape((2 * npairs,) + tuple(site_idx.shape))
+    return u[:n]
+
+
+def normals_from_uniforms(u):
+    """[2k, ...] uniforms in (0, 1) -> [2k, ...] standard normals
+    (Box–Muller, the reference's pairing and ordering)."""
+    r = torch.sqrt(-2.0 * torch.log(u[0::2]))
+    th = (2.0 * math.pi) * u[1::2]
+    return torch.cat([r * torch.cos(th), r * torch.sin(th)], dim=0)
+
+
+def site_normals(key2, site_idx, n, slot0=0):
+    """n standard normals per site via Box–Muller (for hot starts)."""
+    m = 2 * ((n + 1) // 2)
+    u = site_uniforms(key2, site_idx, m, slot0=slot0)
+    return normals_from_uniforms(u)[:n]

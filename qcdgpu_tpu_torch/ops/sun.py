@@ -1,0 +1,76 @@
+"""SU(N) algebra on complex fields with matrix indices LEADING.
+
+Port of the parts of qcdgpu_tpu/ops/sun.py that the port's hot start and
+``Simulation.unitarity_defect`` use.  A field is a complex tensor
+``[N, N, *sites]``; products are unrolled over the matrix indices so that
+site dimensions stay contiguous.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def mul(a, b):
+    """Matrix product over the leading matrix dims, broadcast over sites."""
+    n, kk, m = a.shape[0], a.shape[1], b.shape[1]
+    rows = []
+    for i in range(n):
+        row = []
+        for k in range(m):
+            acc = a[i, 0] * b[0, k]
+            for j in range(1, kk):
+                acc = acc + a[i, j] * b[j, k]
+            row.append(acc)
+        rows.append(torch.stack(row, dim=0))
+    return torch.stack(rows, dim=0)
+
+
+def dagger(a):
+    """Hermitian conjugate."""
+    return torch.conj(a.transpose(0, 1)).resolve_conj()
+
+
+def identity_like(a):
+    n = a.shape[0]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    return eye.reshape((n, n) + (1,) * (a.ndim - 2)).expand(a.shape)
+
+
+def unitarity_defect(a):
+    """max |U U^dag - I| over the field, as a 0-d real tensor."""
+    d = mul(a, dagger(a)) - identity_like(a)
+    return torch.max(torch.abs(d))
+
+
+def _normalize_row(r):
+    """r: [N, *sites] complex -> unit norm along the leading dim."""
+    nrm = torch.sqrt(torch.sum(torch.real(r * torch.conj(r)), dim=0))
+    return r / nrm
+
+
+def cross3(u, v):
+    """Complex cross product of two [3, *sites] row fields."""
+    return torch.stack(
+        [
+            u[1] * v[2] - u[2] * v[1],
+            u[2] * v[0] - u[0] * v[2],
+            u[0] * v[1] - u[1] * v[0],
+        ],
+        dim=0,
+    )
+
+
+def reunitarize(a):
+    """Project a near-SU(3) field back to SU(3): Gram–Schmidt on rows 0-1,
+    row 2 = conj(r0 x r1), so det = +1 exactly."""
+    if a.shape[0] != 3:
+        raise NotImplementedError(
+            "SU(2) reunitarization is not ported yet (ROADMAP queue 1, "
+            "SU(2) instantiations)"
+        )
+    r0 = _normalize_row(a[0])
+    r1 = a[1] - torch.sum(torch.conj(r0) * a[1], dim=0) * r0
+    r1 = _normalize_row(r1)
+    r2 = torch.conj(cross3(r0, r1))
+    return torch.stack([r0, r1, r2], dim=0)
