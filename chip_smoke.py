@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and run its main path on one GPU.
+"""Build the port's CUDA kernels and run its main paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -7,41 +7,95 @@ Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and nvcc.  Phases, each timed:
 
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
-  2. build      — nvcc builds csrc/*.cu into build/ (register and spill
-                  counts printed);
-  3. kernels    — each kernel against its plain PyTorch version on the card
-                  (hot start, seed 1), at a small size and at 32^4;
-  4. timing     — each kernel and its plain version at 32^4, CUDA events,
-                  in the order plain, kernel, kernel, plain;
-  5. main path  — the library API at the slice configuration (SU(3) 32^4,
-                  beta=6.0, heat-bath, reunit_every=10, cold start,
-                  threefry): warmup(), thermalize(20), run(20, 1), with the
-                  kernels' launch counters read around it; before that, the
-                  same API on a small hot start against the CPU path;
-  6. physics    — SU(3) 16^4 beta=6.0: <plaquette> within 0.5937 +- 5e-4.
+  2. build      — nvcc builds csrc/*.cu into build/; registers, stack frame
+                  and spills of every kernel instantiation;
+  3. kernels    — every kernel instantiation against its plain PyTorch
+                  version on the card (hot starts, seed 1): K1 for each
+                  kind x group x tracking, every (mu, parity), at (4,4,2,4)
+                  and 32^4, tracked counts included; K2-K4 for SU(3) and
+                  SU(2) at (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4;
+  4. timing     — each instantiation and its plain version at 32^4, CUDA
+                  events, in the order plain, kernel, kernel, plain (K2
+                  over the 8 arrays in turn, per array), beside its bound
+                  from bytes and f32 operations;
+  5. main paths — first small hot starts through the library API, CUDA
+                  against the CPU path.  Then Simulation(cfg) with no device
+                  argument at 32^4 (cold start, reunit_every=10, threefry):
+                  warmup(), thermalize(20), run(20, 1), with the launch
+                  counters zeroed before and read after each run, for the
+                  bench's SU(3) heat-bath configuration (bench.py), the three slice
+                  configurations (SU(3) heat-bath + 1 overrelaxation with
+                  track_kp_exhaust; SU(3) Metropolis with track_acceptance;
+                  SU(2) heat-bath + 1 overrelaxation) and four more that
+                  drive the remaining instantiations; for the slice
+                  configurations the device idle share from torch.profiler;
+  6. physics    — SU(3) 16^4 beta=6.0 heat-bath (window 0.5937 +- 5e-4);
+                  SU(3) 16^4 beta=6.0 heat-bath + 1 overrelaxation with
+                  track_kp_exhaust, seed 7, and SU(2) 8^4 beta=2.4
+                  heat-bath, seed 42, each with the reference's literature
+                  and self-anchor gates (qcdgpu_tpu/validate.py); SU(2) 8^4
+                  beta=2.4 Metropolis with track_acceptance in the
+                  literature window.
 
-Any failed check raises and the script exits non-zero.  The last two lines
-are the card's `nvidia-smi` name/power line and
-{"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record.  Without a CUDA device, or without the package beside it, it exits
-non-zero and prints no result.
+Any failed check raises and the script exits non-zero.  The last three
+lines are the kernels' JSON record, the card's `nvidia-smi` name/power
+line and {"ok": true, "device": {...}}.  Without a CUDA device, or without
+the package beside it, it exits non-zero and prints no result.
 """
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 SMALL = (4, 4, 2, 4)
+ODD_T2 = (8, 8, 8, 6)
 BIG = (32, 32, 32, 32)
+GROUPS = (3, 2)
+BETA_HOT = {3: 5.5, 2: 2.3}  # couplings of the kernel-vs-plain comparisons
+BETA_RUN = {3: 6.0, 2: 2.4}
 STAGE_TOL = 2e-5
 REUNIT_TOL = 1e-6
 PLANE_TOL = 1e-7  # |d sum| / (N * volume)
 POLY_TOL = 2e-6   # |d sum| / (N * spatial volume)
-FLIP_FRACTION = 1e-5  # KP accept flips at a rounding boundary, per link
+FLIP_FRACTION = 1e-5  # accept flips at a rounding boundary, per link
+# CUDA vs CPU at (4,4,2,4): first series row (plaquette/action, Polyakov),
+# and the tracked column, which a few accept flips may move
+ROW_TOL = (5e-5, 2e-4)
+RATE_TOL = 2e-3
+THERM, RUN = 20, 20
+
+# One H100 SXM, NVIDIA's data sheet: HBM bandwidth and f32 rate outside the
+# tensor cores (the bound of every kernel here).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+# Main-path runs of phase 5: (label, is a slice configuration, SimConfig
+# fields beyond dims=32^4, cold start, reunit_every=10, seed 0, threefry).
+MAIN_PATHS = (
+    ("bench: SU(3) heat-bath", False, dict(group=3, beta=6.0)),
+    ("slice 1: SU(3) heat-bath + 1 OR, track_kp_exhaust", True,
+     dict(group=3, beta=6.0, n_or=1, track_kp_exhaust=True)),
+    ("slice 2: SU(3) Metropolis, track_acceptance", True,
+     dict(group=3, beta=6.0, algorithm="metropolis", n_hit=3,
+          metro_delta=0.35, track_acceptance=True)),
+    ("slice 3: SU(2) heat-bath + 1 OR", True,
+     dict(group=2, beta=2.4, n_or=1)),
+    ("SU(3) Metropolis", False,
+     dict(group=3, beta=6.0, algorithm="metropolis")),
+    ("SU(2) heat-bath, track_kp_exhaust", False,
+     dict(group=2, beta=2.4, track_kp_exhaust=True)),
+    ("SU(2) Metropolis", False,
+     dict(group=2, beta=2.4, algorithm="metropolis")),
+    ("SU(2) Metropolis, track_acceptance", False,
+     dict(group=2, beta=2.4, algorithm="metropolis", track_acceptance=True)),
+)
 
 
 class Phase:
@@ -95,6 +149,150 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# ---------------------------------------------------------------------------
+# ptxas summary
+# ---------------------------------------------------------------------------
+
+
+def kernel_label(mangled, kinds):
+    """Readable name of a mangled qg:: kernel; stage instantiations get
+    their launch-counter names (kinds: the update kinds in qg::Kind
+    order)."""
+    m = re.search(r"stage_kernelILi(\d)ELi(\d)ELb([01])E", mangled)
+    if m:
+        n, kind, track = int(m[1]), kinds[int(m[2])], m[3] == "1"
+        return f"stage_{kind}_su{n}" + ("_track" if track else "")
+    m = re.match(r"_ZN2qg(\d+)", mangled)  # qg::<length-prefixed name>
+    if not m:
+        return mangled
+    end = m.end() + int(m[1])
+    t = re.match(r"ILi(\d)E", mangled[end:])
+    return mangled[m.end():end] + (f"<{t[1]}>" if t else "")
+
+
+def ptxas_summary(log, kinds):
+    """[(kernel, 'N registers, S bytes stack frame, spills')] from nvcc's
+    -Xptxas -v output."""
+    rows, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, frame = kernel_label(m[1], kinds), ""
+            continue
+        if "stack frame" in line and name:
+            frame = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, f"{m[1]} registers; {frame}"))
+            name = None
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# bounds: bytes each call must move and f32 operations it must do
+# ---------------------------------------------------------------------------
+
+
+def mmul_ops(n):
+    """f32 operations of one complex n x n product: n^2 entries of n
+    complex multiplies (6 each) and n - 1 complex adds (2 each)."""
+    return n * n * (8 * n - 2)
+
+
+def codec_ops(n):
+    """SU(3) rebuilds row 2 on every load: 3 x (2 complex multiplies + 1
+    complex subtract); SU(2) stores its whole matrix."""
+    return 42 if n == 3 else 0
+
+
+# f32 operations per subgroup touch, counted from csrc/stage.cu: the
+# heat-bath's set-up, one Kennedy-Pendleton trial and its direction +
+# product; the overrelaxation flip; one Metropolis hit.  Threefry's integer
+# operations are not counted: the data sheet gives no int32 rate.
+HB_SETUP, HB_TRIAL, HB_FINISH = 19, 97, 89
+OR_FLIP = 42
+METRO_HIT = 134
+
+
+def stage_ops_per_site(n, kind, k_trials, n_hit):
+    staples = 13 * mmul_ops(n) + 5 * 2 * n * n + 19 * codec_ops(n)
+    flip = {"heatbath": HB_SETUP + k_trials * HB_TRIAL + HB_FINISH,
+            "overrelax": OR_FLIP, "metropolis": n_hit * METRO_HIT}[kind]
+    n_sg = 3 if n == 3 else 1
+    # per subgroup: the quaternion (8) and two left multiplications (28 n)
+    return staples + n_sg * (8 + 56 * n + flip)
+
+
+def work(name, dims, k_trials=4, n_hit=3):
+    """(bytes, f32 operations) of one call of kernel `name` at dims: each
+    input read once, each output written once."""
+    n = int(re.search(r"_su(\d)", name)[1])
+    v2 = int(np.prod(dims)) // 2
+    arr = 16 * n * v2  # one packed (direction, parity) array
+    if name.startswith("stage_"):
+        # 8 arrays read, the target written
+        kind = name.split("_")[1]
+        return 9 * arr, v2 * stage_ops_per_site(n, kind, k_trials, n_hit)
+    if name.startswith("reunit_"):
+        return 2 * arr, v2 * (84 if n == 3 else 23)
+    if name.startswith("plane_sums_"):
+        per_site = 6 * (2 * mmul_ops(n) + 4 * n * n + 4 * codec_ops(n))
+        return 8 * arr + 6 * 8, 2 * v2 * per_site
+    x, y, z, t = dims  # polyakov_sums: the temporal arrays only
+    per_col = (t - 1) * mmul_ops(n) + t * codec_ops(n) + 2 * (n - 1)
+    return 2 * arr + 2 * 8, x * y * z * per_col
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# device idle share
+# ---------------------------------------------------------------------------
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def profile_window(sim, n_sweeps):
+    """thermalize(n) + run(n, 1) twice: on the host clock alone, then under
+    torch.profiler.  Returns (host wall ms, host wall ms under the
+    profiler, device busy ms, {kernel name: (ms, calls)}) with busy from
+    the trace's device events; busy is None when the trace holds none.
+    The profiler slows the host loop, not the kernels, so the idle share
+    is taken against the unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window():
+        sim.sync()
+        t0 = time.perf_counter()
+        sim.thermalize(n_sweeps)
+        sim.run(n_sweeps, 1)
+        sim.sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall = window()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = window()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev_events = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if not dev_events:
+        return wall, wall_prof, None, {}
+    by_name = {}
+    for e in dev_events:
+        ms, calls = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, calls + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    return wall, wall_prof, busy, by_name
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -106,27 +304,33 @@ def main():
     from qcdgpu_tpu_torch.ops.cuda import measure as cmeasure
     from qcdgpu_tpu_torch.ops.cuda import reunit as creunit
     from qcdgpu_tpu_torch.ops.cuda import update as cupdate
-    from qcdgpu_tpu_torch.utils.stats import analyze_series
 
     dev = torch.device("cuda", 0)
-    record = {
-        "stage_heatbath_su3": {
-            "name": "stage_heatbath_su3", "route": "cuda",
-            "source": "qcdgpu_tpu_torch/csrc/stage.cu",
-            "replaces": "qcdgpu_tpu/ops/pallas/update.py:460"},
-        "reunit_su3": {
-            "name": "reunit_su3", "route": "cuda",
-            "source": "qcdgpu_tpu_torch/csrc/reunit.cu",
-            "replaces": "qcdgpu_tpu/ops/pallas/reunit.py:22"},
-        "plane_sums_su3": {
-            "name": "plane_sums_su3", "route": "cuda",
-            "source": "qcdgpu_tpu_torch/csrc/measure.cu",
-            "replaces": "qcdgpu_tpu/ops/pallas/measure.py:67"},
-        "polyakov_sums_su3": {
-            "name": "polyakov_sums_su3", "route": "cuda",
-            "source": "qcdgpu_tpu_torch/csrc/measure.cu",
-            "replaces": "qcdgpu_tpu/ops/pallas/measure.py:155"},
-    }
+    counters = (cupdate.LAUNCHES, creunit.LAUNCHES, cmeasure.LAUNCHES)
+    k1_cases = [(n, kind, track) for n in GROUPS for kind in cupdate.KINDS
+                for track in (False, True)
+                if not (track and kind == "overrelax")]
+    src = "qcdgpu_tpu_torch/csrc/"
+    tpu = "qcdgpu_tpu/ops/pallas/"
+    record = {}
+    for n, kind, track in k1_cases:
+        name = cupdate.instance_name(kind, n, track)
+        record[name] = (name, "stage.cu", "update.py:460")
+    for n in GROUPS:
+        record[f"reunit_su{n}"] = (f"reunit_su{n}", "reunit.cu",
+                                   "reunit.py:22")
+        record[f"plane_sums_su{n}"] = (f"plane_sums_su{n}", "measure.cu",
+                                       "measure.py:67")
+        record[f"polyakov_sums_su{n}"] = (f"polyakov_sums_su{n}",
+                                          "measure.cu", "measure.py:155")
+    for key, (name, source, replaces) in record.items():
+        record[key] = {
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": tpu + replaces, "launches": 0, "max_abs_err": 0.0,
+            "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+            "library_ms": None}
+    require(set(record) == {k for c in counters for k in c},
+            "launch counters and kernel record disagree")
 
     with Phase("1 device"):
         smi = nvidia_smi_line()
@@ -142,170 +346,287 @@ def main():
         info = build.build()
         print(f"library {info['path'].name}: built={info['built']} "
               f"in {info['seconds']:.1f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "Function properties" in line:
-                print("  ptxas:", line.strip())
+        for name, line in ptxas_summary(info["log"], cupdate.KINDS):
+            print(f"  ptxas {name}: {line}")
         build.library()
 
-    def hot(dims, seed=1):
-        cfg = SimConfig(dims=dims, seed=seed)
-        return engine.packed_hot_start(cfg, rng.make_base_key(seed), dev)
+    hots = {}
 
-    def stage_pair(us, mu, p, key, dims):
-        got = cupdate.stage_update(clone(us), mu, p, 5.5, key, dims)
-        ref = cupdate.stage_update_ref(clone(us), mu, p, 5.5, key, dims)
-        return got, ref
+    def hot(dims, n):
+        if (dims, n) not in hots:
+            cfg = SimConfig(group=n, dims=dims, seed=1)
+            hots[(dims, n)] = engine.packed_hot_start(
+                cfg, rng.make_base_key(1), dev)
+        return hots[(dims, n)]
+
+    def note_err(name, err):
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+
+    def k1_compare(n, kind, track, dims, k_trials):
+        """Every (parity, mu) stage of one instantiation on copies of one
+        hot start, kernel against plain version: (max |d|, links beyond
+        STAGE_TOL, links, kernel count, plain count)."""
+        us = hot(dims, n)
+        base = rng.make_base_key(1)
+        worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
+        for p in (0, 1):
+            for mu in range(4):
+                key = rng.stage_key(base, 0, 4 * p + mu)
+                ck, cp = (
+                    (torch.zeros(1, dtype=torch.int64, device=dev)
+                     for _ in range(2)) if track else (None, None))
+                got = cupdate.stage_update(
+                    clone(us), mu, p, BETA_HOT[n], key, dims, k_trials,
+                    kind=kind, count=ck)
+                ref = cupdate.stage_update_ref(
+                    clone(us), mu, p, BETA_HOT[n], key, dims, k_trials,
+                    kind=kind, count=cp)
+                d = (got - ref).abs().reshape(4 * n, -1).amax(dim=0)
+                worst = max(worst, float(d.max()))
+                bad += int((d > STAGE_TOL).sum())
+                links += d.numel()
+                if track:
+                    cnt_k += int(ck)
+                    cnt_p += int(cp)
+        return worst, bad, links, cnt_k, cnt_p
 
     with Phase("3 kernels vs plain versions"):
-        base = rng.make_base_key(1)
-        # K1 at the small size: every (mu, parity)
-        us = hot(SMALL)
-        worst = 0.0
-        for p in (0, 1):
-            for mu in range(4):
-                key = rng.stage_key(base, 0, 4 * p + mu)
-                got, ref = stage_pair(us, mu, p, key, SMALL)
-                err = float((got - ref).abs().max())
-                worst = max(worst, err)
-                require(err < STAGE_TOL, f"K1 {SMALL} mu={mu} p={p}: {err}")
-        record["stage_heatbath_su3"]["max_abs_err"] = worst
-        print(f"K1 {SMALL}: max |d| over 8 stages {worst:.3e} (< {STAGE_TOL})")
-        # K1 at 32^4: count links beyond the tolerance (KP flips)
-        us = hot(BIG)
-        n_links = bad = 0
-        big_worst = 0.0
-        for p in (0, 1):
-            for mu in range(4):
-                key = rng.stage_key(base, 0, 4 * p + mu)
-                got, ref = stage_pair(us, mu, p, key, BIG)
-                d = (got - ref).abs().reshape(12, -1).amax(dim=0)
-                bad += int((d > STAGE_TOL).sum())
-                n_links += d.numel()
-                big_worst = max(big_worst, float(d.max()))
-        print(f"K1 {BIG}: {bad} of {n_links} links beyond {STAGE_TOL} "
-              f"(max |d| {big_worst:.3e})")
-        require(bad <= FLIP_FRACTION * n_links,
-                f"K1 {BIG}: {bad} links beyond tolerance")
-        # K2 on drifted links (hot start + seeded noise)
-        noise = np.random.default_rng(1)
-        drift = tuple(
-            a + torch.from_numpy(noise.standard_normal(a.shape)
-                                 .astype(np.float32)).to(dev) * 1e-3
-            for a in us)
-        k2 = 0.0
-        for a in drift:
-            got = creunit.reunitarize_dir(a.clone(), BIG)
-            ref = creunit.reunitarize_dir_ref(a.clone(), BIG)
-            k2 = max(k2, float((got - ref).abs().max()))
-        record["reunit_su3"]["max_abs_err"] = k2
-        print(f"K2 {BIG}: max |d| {k2:.3e} (< {REUNIT_TOL})")
-        require(k2 < REUNIT_TOL, f"K2: {k2}")
-        # K3
-        for dims, u_ in ((SMALL, hot(SMALL)), (BIG, us)):
-            norm = 3 * np.prod(dims)
-            d3 = float((cmeasure.plane_sums(u_, dims)
-                        - cmeasure.plane_sums_ref(u_, dims)).abs().max()) / norm
-            print(f"K3 {dims}: max |d sum|/(N vol) {d3:.3e} (< {PLANE_TOL})")
-            require(d3 < PLANE_TOL, f"K3 {dims}: {d3}")
-        record["plane_sums_su3"]["max_abs_err"] = d3
-        # K4, including T/2 odd
-        for dims, u_ in (((8, 8, 8, 6), hot((8, 8, 8, 6))), (BIG, us)):
-            norm = 3 * np.prod(dims[:3])
-            d4 = float((cmeasure.polyakov_sums(u_, dims)
-                        - cmeasure.polyakov_sums_ref(u_, dims)).abs().max()) / norm
-            print(f"K4 {dims}: max |d sum|/(N spatial vol) {d4:.3e} (< {POLY_TOL})")
-            require(d4 < POLY_TOL, f"K4 {dims}: {d4}")
-        record["polyakov_sums_su3"]["max_abs_err"] = d4
+        for n, kind, track in k1_cases:
+            name = cupdate.instance_name(kind, n, track)
+            # tracked heat-bath with one KP trial, so that exhaustions occur
+            k_trials = 1 if (track and kind == "heatbath") else 4
+            per_link = 3 if kind == "metropolis" else 1  # decisions/subgroup
+            for dims in (SMALL, BIG):
+                worst, bad, links, ck, cp = k1_compare(n, kind, track, dims,
+                                                       k_trials)
+                note_err(name, worst)
+                msg = (f"K1 {name} {dims}: max |d| {worst:.3e}, {bad} of "
+                       f"{links} links beyond {STAGE_TOL}")
+                if track:
+                    msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
+                print(msg)
+                if dims == SMALL:
+                    require(worst < STAGE_TOL and ck == cp, msg)
+                else:
+                    n_sg = 3 if n == 3 else 1
+                    require(bad <= FLIP_FRACTION * links, msg)
+                    require(abs(ck - cp) <= bad * n_sg * per_link, msg)
+        for n in GROUPS:
+            for dims in (SMALL, ODD_T2, BIG):
+                u_ = hot(dims, n)
+                # K2 on drifted links (hot start + seeded noise)
+                noise = np.random.default_rng(1)
+                k2 = 0.0
+                for a in u_:
+                    drift = a + torch.from_numpy(
+                        noise.standard_normal(a.shape).astype(np.float32)
+                    ).to(dev) * 1e-3
+                    got = creunit.reunitarize_dir(drift.clone(), dims)
+                    ref = creunit.reunitarize_dir_ref(drift.clone(), dims)
+                    k2 = max(k2, float((got - ref).abs().max()))
+                note_err(f"reunit_su{n}", k2)
+                d3 = float((cmeasure.plane_sums(u_, dims)
+                            - cmeasure.plane_sums_ref(u_, dims)).abs().max())
+                d3 /= n * np.prod(dims)
+                note_err(f"plane_sums_su{n}", d3)
+                d4 = float((cmeasure.polyakov_sums(u_, dims)
+                            - cmeasure.polyakov_sums_ref(u_, dims)
+                            ).abs().max())
+                d4 /= n * np.prod(dims[:3])
+                note_err(f"polyakov_sums_su{n}", d4)
+                msg = (f"SU({n}) {dims}: K2 max |d| {k2:.3e} (< {REUNIT_TOL})"
+                       f"; K3 max |d sum|/(N vol) {d3:.3e} (< {PLANE_TOL})"
+                       f"; K4 max |d sum|/(N spatial vol) {d4:.3e} "
+                       f"(< {POLY_TOL})")
+                print(msg)
+                require(k2 < REUNIT_TOL and d3 < PLANE_TOL and d4 < POLY_TOL,
+                        msg)
 
     with Phase("4 kernel timing at 32^4"):
         key = rng.stage_key(rng.make_base_key(1), 0, 0)
-        work = clone(us)
-        pairs = {
-            "stage_heatbath_su3": (
-                lambda: cupdate.stage_update_ref(work, 1, 0, 6.0, key, BIG),
-                lambda: cupdate.stage_update(work, 1, 0, 6.0, key, BIG), 3, 50),
-            "reunit_su3": (
-                lambda: creunit.reunitarize_dir_ref(work[3], BIG),
-                lambda: creunit.reunitarize_dir(work[3], BIG), 5, 200),
-            "plane_sums_su3": (
-                lambda: cmeasure.plane_sums_ref(work, BIG),
-                lambda: cmeasure.plane_sums(work, BIG), 3, 100),
-            "polyakov_sums_su3": (
-                lambda: cmeasure.polyakov_sums_ref(work, BIG),
-                lambda: cmeasure.polyakov_sums(work, BIG), 3, 100),
-        }
-        for name, (plain, kern, r_plain, r_kern) in pairs.items():
-            p1 = event_ms(plain, r_plain)
-            k1 = event_ms(kern, r_kern)
-            k2_ = event_ms(kern, r_kern)
-            p2 = event_ms(plain, r_plain)
-            record[name]["ms"] = (k1 + k2_) / 2
-            record[name]["plain_ms"] = (p1 + p2) / 2
-            print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms  [{smi}]")
-        del work
+        for n in GROUPS:
+            w = clone(hot(BIG, n))
+            cnt = torch.zeros(1, dtype=torch.int64, device=dev)
+            beta = BETA_RUN[n]
+            pairs = {}
+            for n_, kind, track in k1_cases:
+                if n_ != n:
+                    continue
+                c = cnt if track else None
+                pairs[cupdate.instance_name(kind, n, track)] = (
+                    lambda kind=kind, c=c: cupdate.stage_update_ref(
+                        w, 1, 0, beta, key, BIG, kind=kind, count=c),
+                    lambda kind=kind, c=c: cupdate.stage_update(
+                        w, 1, 0, beta, key, BIG, kind=kind, count=c),
+                    3, 50, 1)
+            # K2 as the sweep runs it: the 8 arrays in turn (one array
+            # alone would stay in the 50 MB L2 from call to call)
+            pairs[f"reunit_su{n}"] = (
+                lambda: [creunit.reunitarize_dir_ref(a, BIG) for a in w],
+                lambda: [creunit.reunitarize_dir(a, BIG) for a in w], 2, 25,
+                len(w))
+            pairs[f"plane_sums_su{n}"] = (
+                lambda: cmeasure.plane_sums_ref(w, BIG),
+                lambda: cmeasure.plane_sums(w, BIG), 3, 100, 1)
+            pairs[f"polyakov_sums_su{n}"] = (
+                lambda: cmeasure.polyakov_sums_ref(w, BIG),
+                lambda: cmeasure.polyakov_sums(w, BIG), 3, 100, 1)
+            for name, (plain, kern, r_plain, r_kern, calls) in pairs.items():
+                p1 = event_ms(plain, r_plain) / calls
+                k1 = event_ms(kern, r_kern) / calls
+                k2_ = event_ms(kern, r_kern) / calls
+                p2 = event_ms(plain, r_plain) / calls
+                rec = record[name]
+                rec["ms"] = (k1 + k2_) / 2
+                rec["plain_ms"] = (p1 + p2) / 2
+                rec["bound_ms"], rec["bound_by"] = bound(*work(name, BIG))
+                print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
+                      f"{p1:.4f} / {p2:.4f} ms, bound {rec['bound_ms']:.4f} "
+                      f"ms ({rec['bound_by']})  [{smi}]")
+            del w
+        hots.clear()
 
-    with Phase("5 main path"):
-        # the library API on a small hot start: CUDA kernels vs CPU plain
-        small = SimConfig(dims=SMALL, beta=5.5, seed=1, start="hot",
-                          reunit_every=2)
-        obs_gpu = Simulation(small, device="cuda").run(2, 1)
-        obs_cpu = Simulation(small, device="cpu").run(2, 1)
-        d_plq = np.abs(obs_gpu[0, :4] - obs_cpu[0, :4]).max()
-        d_pol = np.abs(obs_gpu[0, 4:] - obs_cpu[0, 4:]).max()
-        print(f"small run: row 0 |d| plq/action {d_plq:.2e}, poly {d_pol:.2e}")
-        require(d_plq < 5e-5 and d_pol < 2e-4, "small run: GPU != CPU")
+    with Phase("5 main paths"):
+        # the library API on small hot starts: CUDA kernels vs CPU plain
+        for label, _, kw in MAIN_PATHS[:4]:
+            small = SimConfig(**kw, dims=SMALL, seed=1, start="hot",
+                              reunit_every=2)
+            obs_gpu = Simulation(small, device="cuda").run(2, 1)
+            obs_cpu = Simulation(small, device="cpu").run(2, 1)
+            d_plq = np.abs(obs_gpu[0, :4] - obs_cpu[0, :4]).max()
+            d_pol = np.abs(obs_gpu[0, 4:6] - obs_cpu[0, 4:6]).max()
+            d_rate = np.abs(obs_gpu[:, 6:] - obs_cpu[:, 6:]).max(initial=0.0)
+            msg = (f"{label}, {SMALL}: row 0 |d| plq/action {d_plq:.2e}, "
+                   f"poly {d_pol:.2e}; tracked column |d| {d_rate:.2e}")
+            print(msg)
+            require(d_plq < ROW_TOL[0] and d_pol < ROW_TOL[1]
+                    and d_rate <= RATE_TOL, msg)
 
-        cfg = SimConfig(group=3, dims=BIG, beta=6.0, algorithm="heatbath",
-                        n_or=0, reunit_every=10, start="cold", seed=0,
-                        rng_mode="threefry")
-        for counts in (cupdate.LAUNCHES, creunit.LAUNCHES, cmeasure.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
-        t0 = time.perf_counter()
-        sim = Simulation(cfg, device="cuda")
-        sim.warmup()
-        t1 = time.perf_counter()
-        sim.thermalize(20).sync()
-        t2 = time.perf_counter()
-        obs = sim.run(20, 1)
-        t3 = time.perf_counter()
-        launches = {"stage_heatbath_su3": cupdate.LAUNCHES["stage"],
-                    "reunit_su3": creunit.LAUNCHES["reunit"],
-                    "plane_sums_su3": cmeasure.LAUNCHES["plane_sums"],
-                    "polyakov_sums_su3": cmeasure.LAUNCHES["polyakov_sums"]}
-        for name, n in launches.items():
-            record[name]["launches"] = n
-        therm_ms = (t2 - t1) / 20 * 1e3
-        run_ms = (t3 - t2) / 20 * 1e3
-        n_links = 4 * int(np.prod(BIG))
-        plq = float(obs[-1, 0])
-        defect = sim.unitarity_defect()
-        print(f"warmup {t1 - t0:.2f} s; thermalize {therm_ms:.3f} ms/sweep "
-              f"({n_links / therm_ms * 1e3:.4e} link-updates/s); run with "
-              f"measurement {run_ms:.3f} ms/sweep "
-              f"({n_links / run_ms * 1e3:.4e} link-updates/s)  [{smi}]")
-        print(f"plaquette {plq:.6f} (measure() {sim.measure()['plq']:.6f}); "
-              f"unitarity defect {defect:.3e}; launches {launches}")
-        require(obs.shape == (20, 6) and np.isfinite(obs).all(), "bad series")
-        require(0.3 < plq < 1.0, f"plaquette {plq}")
-        require(defect < 1e-5, f"unitarity defect {defect}")
-        require(launches["stage_heatbath_su3"] >= 8 * 41, launches)
-        require(launches["reunit_su3"] >= 32, launches)
-        require(launches["plane_sums_su3"] >= 21, launches)
-        require(launches["polyakov_sums_su3"] >= 21, launches)
-        del sim
+        n_sweeps = 2 + THERM + RUN  # warmup() runs 1 sweep + 1 measured
+        n_reunit = sum(1 for i in range(THERM + RUN) if i % 10 == 9)
+        for label, is_slice, kw in MAIN_PATHS:
+            cfg = SimConfig(**kw, dims=BIG, reunit_every=10, start="cold",
+                            seed=0, rng_mode="threefry")
+            n = cfg.group
+            tracked = cfg.track_acceptance or cfg.track_kp_exhaust
+            expect = {
+                cupdate.instance_name(cfg.algorithm, n, tracked): 8 * n_sweeps,
+                f"reunit_su{n}": 8 * n_reunit,
+                f"plane_sums_su{n}": 1 + RUN,
+                f"polyakov_sums_su{n}": 1 + RUN,
+            }
+            if cfg.n_or:
+                expect[cupdate.instance_name("overrelax", n)] = (
+                    8 * cfg.n_or * n_sweeps)
+            for c in counters:
+                for k in c:
+                    c[k] = 0
+            t0 = time.perf_counter()
+            sim = Simulation(cfg)  # the card, by default
+            sim.warmup()
+            t1 = time.perf_counter()
+            sim.thermalize(THERM).sync()
+            t2 = time.perf_counter()
+            obs = sim.run(RUN, 1)
+            t3 = time.perf_counter()
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            for k, v in launches.items():
+                record[k]["launches"] += v
+            therm_ms = (t2 - t1) / THERM * 1e3
+            run_ms = (t3 - t2) / RUN * 1e3
+            n_links = 4 * int(np.prod(BIG))
+            plq = float(obs[-1, 0])
+            defect = sim.unitarity_defect()
+            print(f"{label}: warmup {t1 - t0:.2f} s; thermalize "
+                  f"{therm_ms:.3f} ms/sweep "
+                  f"({n_links / therm_ms * 1e3:.4e} link-updates/s); run "
+                  f"with measurement {run_ms:.3f} ms/sweep "
+                  f"({n_links / run_ms * 1e3:.4e} link-updates/s)  [{smi}]")
+            tail = ""
+            if tracked:
+                col = obs[:, -1]
+                tail = (f"; {sim.obs_names[-1]} mean {col.mean():.6e} "
+                        f"(min {col.min():.6e}, max {col.max():.6e})")
+                require(np.isfinite(col).all() and (col >= 0).all()
+                        and (col <= 1).all(), f"{label}: tracked column")
+            print(f"  plaquette {plq:.6f}; unitarity defect {defect:.3e}; "
+                  f"launches {launches}{tail}")
+            require(obs.shape == (RUN, len(sim.obs_names))
+                    and np.isfinite(obs).all(), f"{label}: bad series")
+            require(0.3 < plq < 1.0, f"{label}: plaquette {plq}")
+            require(defect < 1e-5, f"{label}: unitarity defect {defect}")
+            require(launches == expect,
+                    f"{label}: launches {launches}, expected {expect}")
+            if is_slice:
+                wall, wall_prof, busy, by_name = profile_window(sim, 5)
+                if busy is None:
+                    print("  idle share: not measured (the profiler saw no "
+                          "device event)")
+                else:
+                    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+                    print(f"  thermalize(5) + run(5, 1): wall {wall:.3f} ms "
+                          f"({wall_prof:.3f} ms under the profiler), device "
+                          f"busy {busy:.3f} ms, idle share "
+                          f"{1 - busy / wall:.4f} "
+                          f"({1 - busy / wall_prof:.4f} under the "
+                          f"profiler)  [{smi}]")
+                    for kname, (ms, calls) in top[:6]:
+                        print(f"    {ms:9.3f} ms {calls:5d} calls  "
+                              f"{kname[:90]}")
+            del sim
 
-    with Phase("6 physics: SU(3) 16^4 beta=6.0"):
-        cfg = SimConfig(group=3, dims=(16, 16, 16, 16), beta=6.0,
-                        algorithm="heatbath", n_or=0, start="cold", seed=0)
-        sim = Simulation(cfg, device="cuda")
-        sim.thermalize(200)
-        obs = sim.run(400, 1)
-        st = analyze_series(obs[:, 0])
-        print(f"<plq> = {st.mean:.7f} +- {st.err:.7f} (tau_int {st.tau_int:.2f}); "
-              f"window 0.5937 +- 5e-4")
+    def chain(therm, sweeps, **kw):
+        sim = Simulation(SimConfig(**kw))
+        sim.thermalize(therm)
+        sim.run(sweeps, 1)
+        return sim.analysis()
+
+    def self_gate(st, anchor, anchor_err, window):
+        """|mean - anchor| and the reference's tolerance
+        max(window, 3 sigma_comb) (validate.py:_self_gate)."""
+        return (abs(st.mean - anchor),
+                max(window, 3.0 * float(np.hypot(st.err, anchor_err))))
+
+    with Phase("6 physics"):
+        st = chain(200, 400, group=3, dims=(16,) * 4, beta=6.0)["plq"]
+        print(f"SU(3) 16^4 beta=6.0 HB: <plq> = {st.mean:.7f} +- "
+              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); window 0.5937 +- "
+              f"5e-4")
         require(abs(st.mean - 0.5937) < 5e-4, f"<plq> {st.mean}")
+
+        a = chain(300, 600, group=3, dims=(16,) * 4, beta=6.0, n_or=1,
+                  track_kp_exhaust=True, seed=7)
+        st = a["plq"]
+        dev_, tol = self_gate(st, 0.5937234, 4.2e-5, 1e-4)
+        print(f"SU(3) 16^4 beta=6.0 HB + 1 OR, seed 7: <plq> = "
+              f"{st.mean:.7f} +- {st.err:.7f} (tau_int {st.tau_int:.2f}); "
+              f"|d| from 0.5937: {abs(st.mean - 0.5937):.2e} (< 5e-4); "
+              f"from anchor 0.5937234: {dev_:.2e} (< {tol:.2e}); "
+              f"kp_exhaust_rate {a['kp_exhaust_rate'].mean:.3e}")
+        require(abs(st.mean - 0.5937) < 5e-4 and dev_ < tol,
+                f"SU(3) HB + OR <plq> {st.mean}")
+
+        st = chain(300, 1000, group=2, dims=(8,) * 4, beta=2.4,
+                   seed=42)["plq"]
+        lit = max(5 * st.err, 0.002)
+        dev_, tol = self_gate(st, 0.6304030, 2.7e-4, 2.5e-4)
+        print(f"SU(2) 8^4 beta=2.4 HB, seed 42: <plq> = {st.mean:.7f} +- "
+              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); |d| from 0.6300: "
+              f"{abs(st.mean - 0.63):.2e} (< {lit:.2e}); from anchor "
+              f"0.6304030: {dev_:.2e} (< {tol:.2e})")
+        require(abs(st.mean - 0.63) < lit and dev_ < tol,
+                f"SU(2) HB <plq> {st.mean}")
+
+        a = chain(500, 1000, group=2, dims=(8,) * 4, beta=2.4,
+                  algorithm="metropolis", track_acceptance=True, seed=42)
+        st = a["plq"]
+        lit = max(5 * st.err, 0.002)
+        acc = a["acc_rate"].mean
+        print(f"SU(2) 8^4 beta=2.4 Metropolis: <plq> = {st.mean:.7f} +- "
+              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); |d| from 0.6300: "
+              f"{abs(st.mean - 0.63):.2e} (< {lit:.2e}); acc_rate {acc:.4f}")
+        require(abs(st.mean - 0.63) < lit, f"SU(2) Metropolis <plq> {st.mean}")
+        require(0.0 < acc < 1.0, f"acc_rate {acc}")
 
     print(json.dumps({"kernels": list(record.values())}))
     print(smi)

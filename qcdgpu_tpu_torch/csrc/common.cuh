@@ -1,6 +1,7 @@
 // Device helpers shared by the qcdgpu_tpu_torch kernels: (re, im) complex
-// and 3x3 matrix algebra, the two-row SU(3) codec, direct packed-neighbour
-// addressing, threefry2x32-20 and the sampler's polynomial transcendentals.
+// and N x N matrix algebra (Mat<2>, Mat<3>), the two-row codec, direct
+// packed-neighbour addressing, threefry2x32-20, the sampler's polynomial
+// transcendentals and the block reductions.
 // They replace the TPU kernels' inlined helpers (qcdgpu_tpu/ops/pallas/
 // core.py: threefry2x32, bits_to_uniform, _codec_rows, shift_comp_packed,
 // slab_site_index_packed; qcdgpu_tpu/ops/fastmath.py), which worked on whole
@@ -14,7 +15,7 @@
 // the twin's does: no multiply-add contraction, IEEE sqrt and division.
 //
 // Packed layout (one array per (direction mu, parity p), us[2*mu + p]):
-// f32 [2 rows, 3 cols, 2 (re/im), X, Y, Z*T/2], site-minor.  The array of
+// f32 [2 rows, N cols, 2 (re/im), X, Y, Z*T/2], site-minor.  The array of
 // parity p holds the links whose base site (x, y, z, t) has
 // (x+y+z+t) % 2 == p, at slot ((x*Y + y)*Z + z)*(T/2) + t/2.  Component c of
 // a matrix lies at c*V2 + slot (V2 = X*Y*Z*T/2), so threads on neighbouring
@@ -44,11 +45,12 @@ struct Links {
 };
 
 // ---------------------------------------------------------------------------
-// complex numbers and 3x3 matrices
+// complex numbers and N x N matrices (N = 2 or 3)
 // ---------------------------------------------------------------------------
 
 struct C { float re, im; };
-struct M3 { C a[3][3]; };
+template <int N> struct Mat { C a[N][N]; };
+using M3 = Mat<3>;
 
 __device__ __forceinline__ C cmul(C a, C b) {
   return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
@@ -60,55 +62,60 @@ __device__ __forceinline__ C cmul_conj(C a, C b) {
 __device__ __forceinline__ C cadd(C a, C b) { return {a.re + b.re, a.im + b.im}; }
 __device__ __forceinline__ C cconj(C a) { return {a.re, -a.im}; }
 
-__device__ __forceinline__ M3 mmul(const M3& a, const M3& b) {
-  M3 o;
+template <int N>
+__device__ __forceinline__ Mat<N> mmul(const Mat<N>& a, const Mat<N>& b) {
+  Mat<N> o;
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int k = 0; k < N; ++k) {
       C acc = cmul(a.a[i][0], b.a[0][k]);
-      acc = cadd(acc, cmul(a.a[i][1], b.a[1][k]));
-      acc = cadd(acc, cmul(a.a[i][2], b.a[2][k]));
+#pragma unroll
+      for (int j = 1; j < N; ++j) acc = cadd(acc, cmul(a.a[i][j], b.a[j][k]));
       o.a[i][k] = acc;
     }
   return o;
 }
 
 // a @ b^dagger
-__device__ __forceinline__ M3 mmul_bdag(const M3& a, const M3& b) {
-  M3 o;
+template <int N>
+__device__ __forceinline__ Mat<N> mmul_bdag(const Mat<N>& a, const Mat<N>& b) {
+  Mat<N> o;
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int k = 0; k < N; ++k) {
       C acc = cmul_conj(a.a[i][0], b.a[k][0]);
-      acc = cadd(acc, cmul_conj(a.a[i][1], b.a[k][1]));
-      acc = cadd(acc, cmul_conj(a.a[i][2], b.a[k][2]));
+#pragma unroll
+      for (int j = 1; j < N; ++j) acc = cadd(acc, cmul_conj(a.a[i][j], b.a[k][j]));
       o.a[i][k] = acc;
     }
   return o;
 }
 
-__device__ __forceinline__ M3 mdag(const M3& a) {
-  M3 o;
+template <int N>
+__device__ __forceinline__ Mat<N> mdag(const Mat<N>& a) {
+  Mat<N> o;
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) o.a[i][j] = cconj(a.a[j][i]);
+    for (int j = 0; j < N; ++j) o.a[i][j] = cconj(a.a[j][i]);
   return o;
 }
 
-__device__ __forceinline__ M3 madd(const M3& a, const M3& b) {
-  M3 o;
+template <int N>
+__device__ __forceinline__ Mat<N> madd(const Mat<N>& a, const Mat<N>& b) {
+  Mat<N> o;
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) o.a[i][j] = cadd(a.a[i][j], b.a[i][j]);
+    for (int j = 0; j < N; ++j) o.a[i][j] = cadd(a.a[i][j], b.a[i][j]);
   return o;
 }
 
 // ---------------------------------------------------------------------------
-// two-row codec: rows 0-1 stored, row 2 = conj(row0 x row1)
+// two-row codec: rows 0-1 stored; SU(3) row 2 = conj(row0 x row1), SU(2)
+// stores its whole matrix
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void codec_row2(M3& m) {
@@ -120,28 +127,30 @@ __device__ __forceinline__ void codec_row2(M3& m) {
   }
 }
 
-__device__ __forceinline__ M3 load_mat(const float* __restrict__ arr, int slot,
-                                       int v2) {
-  M3 m;
+template <int N>
+__device__ __forceinline__ Mat<N> load_mat(const float* __restrict__ arr,
+                                           int slot, int v2) {
+  Mat<N> m;
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      m.a[r][j].re = arr[((r * 3 + j) * 2 + 0) * v2 + slot];
-      m.a[r][j].im = arr[((r * 3 + j) * 2 + 1) * v2 + slot];
+    for (int j = 0; j < N; ++j) {
+      m.a[r][j].re = arr[((r * N + j) * 2 + 0) * v2 + slot];
+      m.a[r][j].im = arr[((r * N + j) * 2 + 1) * v2 + slot];
     }
-  codec_row2(m);
+  if constexpr (N == 3) codec_row2(m);
   return m;
 }
 
+template <int N>
 __device__ __forceinline__ void store_rows(float* arr, int slot, int v2,
-                                           const M3& m) {
+                                           const Mat<N>& m) {
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      arr[((r * 3 + j) * 2 + 0) * v2 + slot] = m.a[r][j].re;
-      arr[((r * 3 + j) * 2 + 1) * v2 + slot] = m.a[r][j].im;
+    for (int j = 0; j < N; ++j) {
+      arr[((r * N + j) * 2 + 0) * v2 + slot] = m.a[r][j].re;
+      arr[((r * N + j) * 2 + 1) * v2 + slot] = m.a[r][j].im;
     }
 }
 
@@ -185,9 +194,10 @@ __device__ __forceinline__ uint32_t dense_index(const Site& s, const Dims& d) {
 }
 
 // U_dir at a site whose parity is par
-__device__ __forceinline__ M3 load_link(const Links& L, int dir, int par,
-                                        const Site& s, const Dims& d) {
-  return load_mat(L.p[2 * dir + par], encode_slot(s, d), d.v2);
+template <int N>
+__device__ __forceinline__ Mat<N> load_link(const Links& L, int dir, int par,
+                                            const Site& s, const Dims& d) {
+  return load_mat<N>(L.p[2 * dir + par], encode_slot(s, d), d.v2);
 }
 
 // ---------------------------------------------------------------------------
@@ -303,6 +313,23 @@ __device__ __forceinline__ void block_tree_sum(double* sh) {
     if ((int)threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
   }
   __syncthreads();
+}
+
+// Sum one count per thread over the block and add the block's total to
+// *total with one 64-bit atomic.  Integer addition is order-free, so the
+// result does not depend on the order the blocks run in.  Every thread of
+// the block must call it; blockDim.x must be a multiple of 32.
+__device__ __forceinline__ void block_count_add(unsigned c,
+                                                unsigned long long* total) {
+  __shared__ unsigned warp_sums[32];
+  c = __reduce_add_sync(0xffffffffu, c);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long s = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += warp_sums[w];
+    if (s) atomicAdd(total, s);
+  }
 }
 
 }  // namespace qg

@@ -1,4 +1,5 @@
-// K3 plane sums and K4 Polyakov sums on the packed link state.
+// K3 plane sums and K4 Polyakov sums on the packed link state, SU(3) and
+// SU(2) (template parameter N).
 //
 // K3 replaces the TPU kernel qcdgpu_tpu/ops/pallas/measure.py:_plq_kernel
 // (built by _plq_call; the TPU runs its Y-tiled wrapper plane_sums_tiled at
@@ -31,8 +32,9 @@
 
 namespace qg {
 
-__global__ void plane_sums_su3_kernel(Links L, Dims d,
-                                      double* __restrict__ partials) {
+template <int N>
+__global__ void plane_sums_kernel(Links L, Dims d,
+                                  double* __restrict__ partials) {
   extern __shared__ double sh[];
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = g < 2 * d.v2;
@@ -45,15 +47,15 @@ __global__ void plane_sums_su3_kernel(Links L, Dims d,
 #pragma unroll
     for (int pl = 0; pl < 6; ++pl) {
       const int mu = planes[pl][0], nu = planes[pl][1];
-      const M3 a = mmul(load_link(L, mu, p, x, d),
-                        load_link(L, nu, q, step(x, mu, 1, d), d));
-      const M3 b = mmul(load_link(L, nu, p, x, d),
-                        load_link(L, mu, q, step(x, nu, 1, d), d));
+      const Mat<N> a = mmul(load_link<N>(L, mu, p, x, d),
+                            load_link<N>(L, nu, q, step(x, mu, 1, d), d));
+      const Mat<N> b = mmul(load_link<N>(L, nu, p, x, d),
+                            load_link<N>(L, mu, q, step(x, nu, 1, d), d));
       float tr = 0.f;
 #pragma unroll
-      for (int r = 0; r < 3; ++r)
+      for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
+        for (int c = 0; c < N; ++c) {
           const float t = a.a[r][c].re * b.a[r][c].re + a.a[r][c].im * b.a[r][c].im;
           tr = (r == 0 && c == 0) ? t : tr + t;
         }
@@ -68,9 +70,10 @@ __global__ void plane_sums_su3_kernel(Links L, Dims d,
   }
 }
 
-__global__ void polyakov_sums_su3_kernel(const float* __restrict__ u6,
-                                         const float* __restrict__ u7, Dims d,
-                                         double* __restrict__ partials) {
+template <int N>
+__global__ void polyakov_sums_kernel(const float* __restrict__ u6,
+                                     const float* __restrict__ u7, Dims d,
+                                     double* __restrict__ partials) {
   extern __shared__ double sh[];
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int n_col = d.x * d.y * d.z;
@@ -78,13 +81,18 @@ __global__ void polyakov_sums_su3_kernel(const float* __restrict__ u6,
   if (col < n_col) {
     const int sig = (col % d.z + (col / d.z) % d.y + col / (d.z * d.y)) & 1;
     const int base = col * d.t2;
-    M3 prod = load_mat(sig ? u7 : u6, base, d.v2);
+    Mat<N> prod = load_mat<N>(sig ? u7 : u6, base, d.v2);
     for (int t = 1; t < d.t; ++t) {
       const float* arr = ((sig + t) & 1) ? u7 : u6;
-      prod = mmul(prod, load_mat(arr, base + t / 2, d.v2));
+      prod = mmul(prod, load_mat<N>(arr, base + t / 2, d.v2));
     }
-    tr_re = prod.a[0][0].re + prod.a[1][1].re + prod.a[2][2].re;
-    tr_im = prod.a[0][0].im + prod.a[1][1].im + prod.a[2][2].im;
+    tr_re = prod.a[0][0].re;
+    tr_im = prod.a[0][0].im;
+#pragma unroll
+    for (int r = 1; r < N; ++r) {
+      tr_re = tr_re + prod.a[r][r].re;
+      tr_im = tr_im + prod.a[r][r].im;
+    }
   }
   sh[threadIdx.x] = (double)tr_re;
   block_tree_sum(sh);
@@ -115,20 +123,25 @@ inline bool pow2_block(int block) {
 
 }  // namespace qg
 
-// partials: f64 [n_blocks * 6] with n_blocks = ceil(2 * V2 / block);
-// out: f64 [6]
-extern "C" int qg_plane_sums_su3(void* u0, void* u1, void* u2, void* u3,
-                                 void* u4, void* u5, void* u6, void* u7,
-                                 int X, int Y, int Z, int T, int block,
-                                 void* partials, void* out, void* stream) {
-  if (!qg::pow2_block(block)) return (int)cudaErrorInvalidValue;
+// n: 2 or 3; partials: f64 [n_blocks * 6] with
+// n_blocks = ceil(2 * V2 / block); out: f64 [6]
+extern "C" int qg_plane_sums(void* u0, void* u1, void* u2, void* u3, void* u4,
+                             void* u5, void* u6, void* u7, int n, int X,
+                             int Y, int Z, int T, int block, void* partials,
+                             void* out, void* stream) {
+  if (!qg::pow2_block(block) || (n != 2 && n != 3))
+    return (int)cudaErrorInvalidValue;
   qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3, (float*)u4,
                   (float*)u5, (float*)u6, (float*)u7}};
   const qg::Dims d = qg::make_dims(X, Y, Z, T);
   const int n_blocks = (2 * d.v2 + block - 1) / block;
   const size_t smem = block * sizeof(double);
   cudaStream_t s = (cudaStream_t)stream;
-  qg::plane_sums_su3_kernel<<<n_blocks, block, smem, s>>>(L, d,
+  if (n == 3)
+    qg::plane_sums_kernel<3><<<n_blocks, block, smem, s>>>(L, d,
+                                                          (double*)partials);
+  else
+    qg::plane_sums_kernel<2><<<n_blocks, block, smem, s>>>(L, d,
                                                           (double*)partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -137,18 +150,23 @@ extern "C" int qg_plane_sums_su3(void* u0, void* u1, void* u2, void* u3,
   return (int)cudaGetLastError();
 }
 
-// partials: f64 [n_blocks * 2] with n_blocks = ceil(X*Y*Z / block);
-// out: f64 [2] = (sum re tr, sum im tr)
-extern "C" int qg_polyakov_sums_su3(void* u6, void* u7, int X, int Y, int Z,
-                                    int T, int block, void* partials,
-                                    void* out, void* stream) {
-  if (!qg::pow2_block(block)) return (int)cudaErrorInvalidValue;
+// n: 2 or 3; partials: f64 [n_blocks * 2] with
+// n_blocks = ceil(X*Y*Z / block); out: f64 [2] = (sum re tr, sum im tr)
+extern "C" int qg_polyakov_sums(void* u6, void* u7, int n, int X, int Y,
+                                int Z, int T, int block, void* partials,
+                                void* out, void* stream) {
+  if (!qg::pow2_block(block) || (n != 2 && n != 3))
+    return (int)cudaErrorInvalidValue;
   const qg::Dims d = qg::make_dims(X, Y, Z, T);
   const int n_blocks = (X * Y * Z + block - 1) / block;
   const size_t smem = block * sizeof(double);
   cudaStream_t s = (cudaStream_t)stream;
-  qg::polyakov_sums_su3_kernel<<<n_blocks, block, smem, s>>>(
-      (const float*)u6, (const float*)u7, d, (double*)partials);
+  if (n == 3)
+    qg::polyakov_sums_kernel<3><<<n_blocks, block, smem, s>>>(
+        (const float*)u6, (const float*)u7, d, (double*)partials);
+  else
+    qg::polyakov_sums_kernel<2><<<n_blocks, block, smem, s>>>(
+        (const float*)u6, (const float*)u7, d, (double*)partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   qg::finish_sums_kernel<<<1, block, smem, s>>>((double*)partials, n_blocks, 2,

@@ -1,15 +1,18 @@
-// K2: SU(3) reunitarization of one packed (direction, parity) array.
+// K2: reunitarization of one packed (direction, parity) array, SU(3) and
+// SU(2).
 //
 // Replaces the TPU kernel qcdgpu_tpu/ops/pallas/reunit.py:_reunit_kernel
-// (built by _reunit_call) for SU(3).  Plain PyTorch twin:
+// (built by _reunit_call).  Plain PyTorch twin:
 // ops/cuda/reunit.py:reunitarize_dir_ref.
 //
-// What it computes, per link: Gram-Schmidt on the two stored rows
-// (row 0 normalised; row 1 <- row 1 - <r0, row 1> r0, normalised).  Row 2 is
-// implicit in the codec, so it needs no projection.
+// What it computes, per link.  SU(3): Gram-Schmidt on the two stored rows
+// (row 0 normalised; row 1 <- row 1 - <r0, row 1> r0, normalised); row 2 is
+// implicit in the codec, so it needs no projection.  SU(2): the quaternion
+// of the stored 2x2 matrix, renormalised, written back as a matrix.
 //
 // What bounds it on an H100: it is site-local and streams 48 bytes in and
-// 48 bytes out per link with ~100 flops, so it is bound by HBM bandwidth.
+// 48 bytes out per link at SU(3) (32 and 32 at SU(2)) with ~100 flops (~30),
+// so it is bound by HBM bandwidth.
 // The design is therefore the plainest one: one thread per slot, component
 // planes read and written coalesced, in place, nothing staged in shared
 // memory.
@@ -55,12 +58,38 @@ __global__ void reunit_su3_kernel(float* __restrict__ arr, int v2) {
   }
 }
 
+// quaternion projection + renormalisation, in the order of reference
+// ops/pallas/reunit.py; stored layout [r][j][re/im]
+__global__ void reunit_su2_kernel(float* __restrict__ arr, int v2) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= v2) return;
+  float m[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) m[c] = arr[c * v2 + slot];
+  // m[(r * 2 + j) * 2 + (0 re | 1 im)]
+  float a0 = 0.5f * (m[0] + m[6]);
+  float a1 = 0.5f * (m[3] + m[5]);
+  float a2 = 0.5f * (m[2] - m[4]);
+  float a3 = 0.5f * (m[1] - m[7]);
+  const float inv = 1.0f / sqrtf(a0 * a0 + a1 * a1 + a2 * a2 + a3 * a3);
+  a0 = a0 * inv; a1 = a1 * inv; a2 = a2 * inv; a3 = a3 * inv;
+  const float out[8] = {a0, a3, a2, a1, -a2, a1, a0, -a3};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) arr[c * v2 + slot] = out[c];
+}
+
 }  // namespace qg
 
-extern "C" int qg_reunit_su3(void* arr, int v2, void* stream) {
+// n: 2 or 3; v2: slots of the array
+extern "C" int qg_reunit(void* arr, int n, int v2, void* stream) {
   const int threads = 256;
   const int blocks = (v2 + threads - 1) / threads;
-  qg::reunit_su3_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (float*)arr, v2);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 3)
+    qg::reunit_su3_kernel<<<blocks, threads, 0, s>>>((float*)arr, v2);
+  else if (n == 2)
+    qg::reunit_su2_kernel<<<blocks, threads, 0, s>>>((float*)arr, v2);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -1,32 +1,43 @@
-// K1: one checkerboard heat-bath stage of SU(3) on the packed link state.
+// K1: one checkerboard stage of SU(2) or SU(3) on the packed link state:
+// Kennedy-Pendleton heat-bath, overrelaxation or n-hit Metropolis, with an
+// optional tracked count.
 //
 // Replaces the TPU kernel qcdgpu_tpu/ops/pallas/update.py:_stage_kernel
 // (built by _stage_call, and by _stage_call_ytiled for the Y-tiled grid that
-// the TPU runs at 32^4) with kind="heatbath", rng_mode="threefry", SU(3),
-// no tracking.  Plain PyTorch twin: ops/cuda/update.py:stage_update_ref.
+// the TPU runs at 32^4) with rng_mode="threefry": kind in {heatbath,
+// overrelax, metropolis}, N in {2, 3}, track_acc on or off.  Plain PyTorch
+// twin: ops/cuda/update.py:stage_update_ref.
 //
 // What it computes, for every site x of parity p (one thread each):
 //   A = sum_{nu != mu} [ U_nu(x+mu) (U_nu(x) U_mu(x+nu))^+
 //                        + (U_mu(x-nu) U_nu(x+mu-nu))^+ U_nu(x-nu) ],
-//   W = U_mu(x) A, then for the Cabibbo-Marinari subgroups (0,1), (0,2),
-//   (1,2): a Kennedy-Pendleton heat-bath SU(2) element u from the (i, j)
-//   block of W, U <- u U and W <- u W.  Rows 0-1 of U are stored in place.
+//   W = U_mu(x) A, then for the Cabibbo-Marinari subgroups ((0,1) for SU(2);
+//   (0,1), (0,2), (1,2) for SU(3)): an SU(2) element u from the (i, j)
+//   block of W by the stage's kind, U <- u U and W <- u W.  Rows 0-1 of U
+//   are stored in place.  With TRACK, the stage adds to a device counter the
+//   sites whose heat-bath trials all failed, or the accepted Metropolis
+//   hits.
 //
-// What bounds it on an H100: per site it reads 19 links (12 f32 each; about
-// 0.9 KB, much of it from L1/L2 since each link neighbours 8 sites) and does
-// about 3.5k f32 operations of matrix algebra, 1.8k more in the three
-// Kennedy-Pendleton subgroups and 2k integer operations of threefry.  That
-// is well above the card's f32-per-HBM-byte balance point, so it is bound by
-// instruction throughput and registers rather than by HBM bandwidth.
+// What bounds it on an H100: per site it reads 19 links (12 f32 each at
+// SU(3), 8 at SU(2); each link neighbours 8 sites, so much of it comes from
+// L1/L2) and does about 3.5k f32 operations of SU(3) matrix algebra (0.9k at
+// SU(2)) plus 0.6k per subgroup for heat-bath or n_hit x 0.1k for
+// Metropolis, and up to 2k integer operations of threefry.  That is above
+// the card's f32-per-HBM-byte balance point, so it is bound by instruction
+// throughput and registers rather than by HBM bandwidth; overrelaxation
+// draws nothing and sits closest to the bandwidth floor.
 //
 // What the design does about that: one thread per site, so no shared memory
-// and no synchronisation; neighbours are addressed directly (decode slot,
-// step the coordinate, re-encode) instead of the TPU kernel's roll-and-mask
-// shifts of whole slabs; random numbers come from threefry in registers,
-// drawn per trial on demand rather than as 54 stored uniforms.  The 3x3
-// algebra is fully unrolled and lives in registers; __launch_bounds__(128)
-// lets the compiler use up to 255 registers per thread, so it need not
-// spill.
+// and no synchronisation (except the tracked count's one block reduction
+// and one 64-bit atomic per block); neighbours are addressed directly
+// (decode slot, step the coordinate, re-encode) instead of the TPU kernel's
+// roll-and-mask shifts of whole slabs; random numbers come from threefry in
+// registers, drawn per trial or hit on demand rather than as stored
+// uniforms.  The kind, N and tracking are template parameters, so each
+// instantiation carries only its own branch: heat-bath SU(3) without
+// tracking compiles to the kernel of the first port.  The algebra is fully
+// unrolled and lives in registers; __launch_bounds__(128) lets the compiler
+// use up to 255 registers per thread, so it need not spill.
 //
 // In place is safe: the stage writes us[2*mu + p] only at the thread's own
 // slot and reads that array nowhere else (U_mu at x +- nu has parity 1 - p),
@@ -35,9 +46,12 @@
 
 namespace qg {
 
+enum Kind { HEATBATH = 0, OVERRELAX = 1, METROPOLIS = 2 };
+
 struct Quat { float c[4]; };
 
-__device__ __forceinline__ Quat quat_from_block(const M3& w, int i, int j) {
+template <int N>
+__device__ __forceinline__ Quat quat_from_block(const Mat<N>& w, int i, int j) {
   return {{0.5f * (w.a[i][i].re + w.a[j][j].re),
            0.5f * (w.a[i][j].im + w.a[j][i].im),
            0.5f * (w.a[i][j].re - w.a[j][i].re),
@@ -56,14 +70,15 @@ __device__ __forceinline__ Quat quat_conj(const Quat& q) {
 }
 
 // m <- embed(M(q); rows i, j) @ m
+template <int N>
 __device__ __forceinline__ void subgroup_left_mul(const Quat& q, int i, int j,
-                                                  M3& m) {
+                                                  Mat<N>& m) {
   const C u00 = {q.c[0], q.c[3]};
   const C u01 = {q.c[2], q.c[1]};
   const C u10 = {-q.c[2], q.c[1]};
   const C u11 = {q.c[0], -q.c[3]};
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
+  for (int k = 0; k < N; ++k) {
     const C mi = m.a[i][k], mj = m.a[j][k];
     m.a[i][k] = cadd(cmul(u00, mi), cmul(u01, mj));
     m.a[j][k] = cadd(cmul(u10, mi), cmul(u11, mj));
@@ -72,12 +87,13 @@ __device__ __forceinline__ void subgroup_left_mul(const Quat& q, int i, int j,
 
 // Kennedy-Pendleton multiplier for one subgroup (ops/cuda/update.py
 // heatbath_flip): k_trials masked trials, first accepted wins, identity on
-// exhaustion.  Trial t draws slots slot0 + 2t (r1, r2) and slot0 + 2t + 1
-// (r3, r4); the direction draws slot slot0 + 2 k_trials.
+// exhaustion (reported in `exhausted`).  Trial t draws slots slot0 + 2t
+// (r1, r2) and slot0 + 2t + 1 (r3, r4); the direction draws slot
+// slot0 + 2 k_trials.
 __device__ __forceinline__ Quat heatbath_flip(const Quat& q_w, float tbn,
                                               uint32_t k0, uint32_t k1,
                                               uint32_t sidx, uint32_t slot0,
-                                              int k_trials) {
+                                              int k_trials, bool& exhausted) {
   const float n2 = q_w.c[0] * q_w.c[0] + q_w.c[1] * q_w.c[1] +
                    q_w.c[2] * q_w.c[2] + q_w.c[3] * q_w.c[3];
   const float rk = 1.0f / sqrtf(fmaxf(n2, 1e-38f));
@@ -99,6 +115,7 @@ __device__ __forceinline__ Quat heatbath_flip(const Quat& q_w, float tbn,
     if (acc && !ok) lam2_sel = lam2;
     ok = ok || acc;
   }
+  exhausted = !ok;
   const float x0 = fminf(fmaxf(1.0f - 2.0f * lam2_sel, -1.0f), 1.0f);
   const float rho = sqrtf(fmaxf(1.0f - x0 * x0, 0.0f));
   uint32_t d0, d1;
@@ -112,16 +129,64 @@ __device__ __forceinline__ Quat heatbath_flip(const Quat& q_w, float tbn,
   return {{1.0f, 0.0f, 0.0f, 0.0f}};
 }
 
-__global__ void __launch_bounds__(128)
-stage_heatbath_su3_kernel(Links L, int mu, int parity, Dims d, uint32_t k0,
-                          uint32_t k1, float tbn, int k_trials) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= d.v2) return;
+// Overrelaxation multiplier (v^+)^2, v = q_w/|q_w| (ops/cuda/update.py
+// overrelax_flip): quat_mul(q_w^+, q_w^+) times the reciprocal of |q_w|^2.
+__device__ __forceinline__ Quat overrelax_flip(const Quat& q_w) {
+  const float n2 = q_w.c[0] * q_w.c[0] + q_w.c[1] * q_w.c[1] +
+                   q_w.c[2] * q_w.c[2] + q_w.c[3] * q_w.c[3];
+  const Quat qc = quat_conj(q_w);
+  const float inv = 1.0f / fmaxf(n2, 1e-38f);
+  const Quat u = quat_mul(qc, qc);
+  if (n2 > 1e-38f)
+    return {{u.c[0] * inv, u.c[1] * inv, u.c[2] * inv, u.c[3] * inv}};
+  return {{1.0f, 0.0f, 0.0f, 0.0f}};
+}
+
+// n_hit Metropolis hits on one subgroup (ops/cuda/update.py
+// metropolis_flip).  Hit h draws (u0, u1) from slot slot0 + 2h and
+// (u2, u3) from slot0 + 2h + 1; accepted hits are added to n_acc.  A
+// rejected hit multiplies by the identity, as the plain version does, so
+// both round alike.
+__device__ __forceinline__ Quat metropolis_flip(const Quat& q_w, float tbn,
+                                                uint32_t k0, uint32_t k1,
+                                                uint32_t sidx, uint32_t slot0,
+                                                int n_hit, float delta,
+                                                unsigned& n_acc) {
+  Quat acc_u = {{1.0f, 0.0f, 0.0f, 0.0f}};
+  Quat q_cur = q_w;
+  for (int h = 0; h < n_hit; ++h) {
+    uint32_t b0, b1, b2, b3;
+    threefry2x32(k0, k1, sidx, slot0 + 2u * h, b0, b1);
+    threefry2x32(k0, k1, sidx, slot0 + 2u * h + 1u, b2, b3);
+    const float w1 = delta * (2.0f * bits_to_uniform(b0) - 1.0f);
+    const float w2 = delta * (2.0f * bits_to_uniform(b1) - 1.0f);
+    const float w3 = delta * (2.0f * bits_to_uniform(b2) - 1.0f);
+    const float w0 = 1.0f;
+    const float rn = 1.0f / sqrtf(w0 * w0 + w1 * w1 + w2 * w2 + w3 * w3);
+    const Quat w = {{w0 * rn, w1 * rn, w2 * rn, w3 * rn}};
+    const float new0 = quat_mul(w, q_cur).c[0];
+    const float dlp = tbn * (new0 - q_cur.c[0]);
+    const bool accept = log_u01(bits_to_uniform(b3)) < dlp;
+    n_acc += accept ? 1u : 0u;
+    const Quat w_eff = accept ? w : Quat{{1.0f, 0.0f, 0.0f, 0.0f}};
+    acc_u = quat_mul(w_eff, acc_u);
+    q_cur = quat_mul(w_eff, q_cur);
+  }
+  return acc_u;
+}
+
+// One site's stage; returns its tracked count (0 unless TRACK).
+template <int N, int KIND, bool TRACK>
+__device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
+                                               int parity, const Dims& d,
+                                               uint32_t k0, uint32_t k1,
+                                               float tbn, int k_trials,
+                                               int n_hit, float delta) {
   const int p = parity, q = parity ^ 1;
   const Site x = decode_slot(slot, p, d);
 
   // staple sum A in _staple_W's order: nu ascending, term = fwd + bwd
-  M3 acc;
+  Mat<N> acc;
   bool first = true;
 #pragma unroll
   for (int nu = 0; nu < 4; ++nu) {
@@ -131,48 +196,114 @@ stage_heatbath_su3_kernel(Links L, int mu, int parity, Dims d, uint32_t k0,
     const Site xmn = step(x, nu, -1, d);
     const Site xpmmn = step(xpm, nu, -1, d);
     // forward: U_nu(x+mu) [U_nu(x) U_mu(x+nu)]^+
-    const M3 inner = mmul(load_link(L, nu, p, x, d), load_link(L, mu, q, xpn, d));
-    const M3 fwd = mmul_bdag(load_link(L, nu, q, xpm, d), inner);
+    const Mat<N> inner = mmul(load_link<N>(L, nu, p, x, d),
+                              load_link<N>(L, mu, q, xpn, d));
+    const Mat<N> fwd = mmul_bdag(load_link<N>(L, nu, q, xpm, d), inner);
     // backward: [U_mu(x-nu) U_nu(x+mu-nu)]^+ U_nu(x-nu)
-    const M3 bwd = mmul(
-        mdag(mmul(load_link(L, mu, q, xmn, d), load_link(L, nu, p, xpmmn, d))),
-        load_link(L, nu, q, xmn, d));
-    const M3 term = madd(fwd, bwd);
+    const Mat<N> bwd = mmul(
+        mdag(mmul(load_link<N>(L, mu, q, xmn, d), load_link<N>(L, nu, p, xpmmn, d))),
+        load_link<N>(L, nu, q, xmn, d));
+    const Mat<N> term = madd(fwd, bwd);
     acc = first ? term : madd(acc, term);
     first = false;
   }
   float* target = L.p[2 * mu + p];
-  M3 u = load_mat(target, slot, d.v2);
-  M3 w = mmul(u, acc);
+  Mat<N> u = load_mat<N>(target, slot, d.v2);
+  Mat<N> w = mmul(u, acc);
 
   const uint32_t sidx = dense_index(x, d);
-  const uint32_t per_slots = 2u * k_trials + 1u;
+  const uint32_t per_slots = KIND == HEATBATH ? 2u * k_trials + 1u
+                             : KIND == METROPOLIS ? 2u * n_hit : 0u;
+  constexpr int n_sg = N == 3 ? 3 : 1;
   const int sg[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+  unsigned count = 0;
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
+  for (int s = 0; s < n_sg; ++s) {
     const int i = sg[s][0], j = sg[s][1];
-    const Quat flip = heatbath_flip(quat_from_block(w, i, j), tbn, k0, k1,
-                                    sidx, per_slots * s, k_trials);
+    const Quat q_w = quat_from_block(w, i, j);
+    Quat flip;
+    if constexpr (KIND == HEATBATH) {
+      bool exhausted;
+      flip = heatbath_flip(q_w, tbn, k0, k1, sidx, per_slots * s, k_trials,
+                           exhausted);
+      if (TRACK) count += exhausted ? 1u : 0u;
+    } else if constexpr (KIND == METROPOLIS) {
+      flip = metropolis_flip(q_w, tbn, k0, k1, sidx, per_slots * s, n_hit,
+                             delta, count);
+    } else {
+      flip = overrelax_flip(q_w);
+    }
     subgroup_left_mul(flip, i, j, u);
     subgroup_left_mul(flip, i, j, w);
   }
   store_rows(target, slot, d.v2, u);
+  return TRACK ? count : 0u;
+}
+
+template <int N, int KIND, bool TRACK>
+__global__ void __launch_bounds__(128)
+stage_kernel(Links L, int mu, int parity, Dims d, uint32_t k0, uint32_t k1,
+             float tbn, int k_trials, int n_hit, float delta,
+             unsigned long long* count) {
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (TRACK) {
+    // every thread joins the block's count reduction
+    const unsigned c = slot < d.v2
+        ? stage_site<N, KIND, TRACK>(L, slot, mu, parity, d, k0, k1, tbn,
+                                     k_trials, n_hit, delta)
+        : 0u;
+    block_count_add(c, count);
+  } else {
+    if (slot >= d.v2) return;
+    stage_site<N, KIND, TRACK>(L, slot, mu, parity, d, k0, k1, tbn, k_trials,
+                               n_hit, delta);
+  }
+}
+
+template <int N, int KIND, bool TRACK>
+int launch_stage(const Links& L, int mu, int parity, const Dims& d,
+                 uint32_t k0, uint32_t k1, float tbn, int k_trials, int n_hit,
+                 float delta, unsigned long long* count, cudaStream_t s) {
+  const int threads = 128;
+  const int blocks = (d.v2 + threads - 1) / threads;
+  stage_kernel<N, KIND, TRACK><<<blocks, threads, 0, s>>>(
+      L, mu, parity, d, k0, k1, tbn, k_trials, n_hit, delta, count);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace qg
 
-extern "C" int qg_stage_heatbath_su3(void* u0, void* u1, void* u2, void* u3,
-                                     void* u4, void* u5, void* u6, void* u7,
-                                     int mu, int parity, int X, int Y, int Z,
-                                     int T, unsigned int k0, unsigned int k1,
-                                     float two_beta_over_n, int k_trials,
-                                     void* stream) {
-  qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3, (float*)u4,
-                  (float*)u5, (float*)u6, (float*)u7}};
-  const qg::Dims d = qg::make_dims(X, Y, Z, T);
-  const int threads = 128;
-  const int blocks = (d.v2 + threads - 1) / threads;
-  qg::stage_heatbath_su3_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      L, mu, parity, d, k0, k1, two_beta_over_n, k_trials);
-  return (int)cudaGetLastError();
+// n: 2 or 3; kind: qg::Kind; track: nonzero to add the stage's count to
+// *count (u64 on the device; heat-bath or Metropolis only).
+extern "C" int qg_stage(void* u0, void* u1, void* u2, void* u3, void* u4,
+                        void* u5, void* u6, void* u7, int n, int kind,
+                        int track, int mu, int parity, int X, int Y, int Z,
+                        int T, unsigned int k0, unsigned int k1,
+                        float two_beta_over_n, int k_trials, int n_hit,
+                        float delta, void* count, void* stream) {
+  using namespace qg;
+  const Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3, (float*)u4,
+                    (float*)u5, (float*)u6, (float*)u7}};
+  const Dims d = make_dims(X, Y, Z, T);
+  unsigned long long* cnt = (unsigned long long*)count;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (track && (cnt == nullptr || kind == OVERRELAX))
+    return (int)cudaErrorInvalidValue;
+#define QG_STAGE(NN, KK, TT)                                                \
+  if (n == NN && kind == KK && (track != 0) == TT)                          \
+    return launch_stage<NN, KK, TT>(L, mu, parity, d, k0, k1,               \
+                                    two_beta_over_n, k_trials, n_hit, delta, \
+                                    cnt, s);
+  QG_STAGE(3, HEATBATH, false)
+  QG_STAGE(3, HEATBATH, true)
+  QG_STAGE(3, OVERRELAX, false)
+  QG_STAGE(3, METROPOLIS, false)
+  QG_STAGE(3, METROPOLIS, true)
+  QG_STAGE(2, HEATBATH, false)
+  QG_STAGE(2, HEATBATH, true)
+  QG_STAGE(2, OVERRELAX, false)
+  QG_STAGE(2, METROPOLIS, false)
+  QG_STAGE(2, METROPOLIS, true)
+#undef QG_STAGE
+  return (int)cudaErrorInvalidValue;
 }

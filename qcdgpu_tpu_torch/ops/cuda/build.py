@@ -6,9 +6,11 @@ shared library with a plain C interface, loaded with ``ctypes``:
     build/qcdgpu_tpu_torch/libqcdgpu_kernels-<sha>.so
 
 under the checkout root, where <sha> hashes the sources and the flags, so
-an edited source gets a fresh library and an unchanged one is reused.  The
-build happens at first use (``library()``), never at import, and raises if
-``nvcc`` is missing or fails: there is no fallback.
+an edited source gets a fresh library and an unchanged one is reused.  Each
+source compiles to an object in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links them.  The build happens at first use
+(``library()``), never at import, and raises if ``nvcc`` is missing or
+fails: there is no fallback.
 
 ``-fmad=false`` keeps every f32 operation rounding as in the plain PyTorch
 versions (no multiply-add contraction), and ``--use_fast_math`` is not
@@ -23,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 
@@ -33,18 +36,19 @@ HEADERS = ("common.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "qcdgpu_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes; every entry point returns a cudaError_t as int
 SIGNATURES = {
-    "qg_stage_heatbath_su3": [_P] * 8 + [_I] * 6 + [
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _P],
-    "qg_reunit_su3": [_P, _I, _P],
-    "qg_plane_sums_su3": [_P] * 8 + [_I] * 5 + [_P, _P, _P],
-    "qg_polyakov_sums_su3": [_P, _P] + [_I] * 5 + [_P, _P, _P],
+    "qg_stage": [_P] * 8 + [_I] * 9 + [
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I,
+        ctypes.c_float, _P, _P],
+    "qg_reunit": [_P, _I, _I, _P],
+    "qg_plane_sums": [_P] * 8 + [_I] * 6 + [_P, _P, _P],
+    "qg_polyakov_sums": [_P, _P] + [_I] * 6 + [_P, _P, _P],
 }
 
 
@@ -74,6 +78,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libqcdgpu_kernels-{source_hash()}.so"
 
 
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    return log
+
+
 def build() -> dict:
     """Compile the library unless it exists.  Returns {path, seconds,
     log, built}; ``log`` holds nvcc's output (ptxas register and spill
@@ -84,16 +96,23 @@ def build() -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": out, "seconds": 0.0, "log": log, "built": False}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{source_hash()}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(_run, [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]))
+        logs.append(_run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(tmp), *map(str, objs)]))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log = "".join(logs)
     os.replace(tmp, out)
     log_path.write_text(log)
     return {"path": out, "seconds": seconds, "log": log, "built": True}

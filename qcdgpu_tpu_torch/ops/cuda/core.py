@@ -5,7 +5,8 @@ helpers as device functions in csrc/common.cuh; keep the two in step.
 
 Packed state (the reference's layout): one f32 array per (direction mu,
 parity p), ``us[2*mu + p]`` of shape ``[2, N, 2, X, Y, Z*T/2]`` — stored
-matrix row (two rows; SU(3) row 2 = conj(row0 x row1) is rebuilt on load),
+matrix row (two rows: all of SU(2); SU(3) row 2 = conj(row0 x row1) is
+rebuilt on load),
 column, re/im, then the sites.  The array of parity p holds the links whose
 base site (x, y, z, t) has (x+y+z+t) % 2 == p, at
 
@@ -100,9 +101,12 @@ def madd(a, b):
 
 
 def _codec_rows(rows, n):
-    """Two stored rows -> full SU(3) matrix, row2 = conj(r0 x r1)."""
+    """Two stored rows -> full N x N matrix: SU(2) stores the whole matrix;
+    SU(3) rebuilds row2 = conj(r0 x r1)."""
+    if n == 2:
+        return (tuple(rows[0]), tuple(rows[1]))
     if n != 3:
-        raise NotImplementedError("the SU(2) codec is not ported yet")
+        raise ValueError(f"packed links are SU(2) or SU(3), got N={n}")
     r0, r1 = rows
 
     def r2k(k):

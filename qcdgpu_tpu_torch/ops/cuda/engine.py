@@ -1,16 +1,20 @@
 """The packed engine: state layout, start states, sweeps and measurements.
 
-Port of qcdgpu_tpu/ops/pallas/engine.py (the threefry heat-bath path).
+Port of qcdgpu_tpu/ops/pallas/engine.py (the threefry path, SU(2) and
+SU(3), every update algorithm, the tracked statistics).
 
 Engine state is the reference's flat 8-tuple ``us[2*mu + parity]`` of f32
 tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py for the layout).  A sweep
-is 8 heat-bath stages (parity 0, 1 x mu 0..3, stage ids 0..7, each keyed
-``rng.stage_key(base, sweep, stage_id)``), then on every reunit_every-th
-sweep the reunitarization of all 8 arrays.  Stages and reunitarization
-update the state IN PLACE; a runner returns the same tuple it was given.
+is one pass of cfg.algorithm and cfg.n_or overrelaxation passes, each 8
+stages (parity 0, 1 x mu 0..3); stage ids run on across the passes, and
+each stage is keyed ``rng.stage_key(base, sweep, stage_id)``.  On every
+reunit_every-th sweep the 8 arrays are reunitarized.  Stages and
+reunitarization update the state IN PLACE; a runner returns the same
+tuple it was given.
 
 Every kernel wrapper dispatches on the tensors' device (CPU: plain PyTorch
 version; CUDA: the hand-written kernel), so the same sweep serves both.
+Entry points run on the card unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -30,11 +34,9 @@ NDIM = 4
 STAGE_INIT = 0xF0
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device="cuda") -> torch.device:
     """torch.device for 'cpu' or 'cuda[:i]'; raises for a CUDA device when
     no card is present (no silent fallback to the CPU)."""
-    if device is None:
-        raise ValueError("device is required: 'cpu' or 'cuda'")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -50,15 +52,6 @@ def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for configuration values the port does not
     run yet, naming the ROADMAP item that brings them."""
     todo = []
-    if cfg.group != 3:
-        todo.append("group=2 (queue 1: SU(2) instantiations of K1 and K2)")
-    if cfg.algorithm != "heatbath":
-        todo.append("algorithm='metropolis' (queue 1: overrelax and "
-                    "Metropolis kinds)")
-    if cfg.n_or > 0:
-        todo.append("n_or>0 (queue 1: overrelax and Metropolis kinds)")
-    if cfg.track_acceptance or cfg.track_kp_exhaust:
-        todo.append("track_* (queue 1: track_acc)")
     if cfg.get_fmunu or cfg.wilson_loops or cfg.get_qtop:
         todo.append("get_fmunu / wilson_loops / get_qtop (M12)")
     if cfg.rng_mode == "hw":
@@ -138,12 +131,12 @@ def join_links(us, dims):
     )
 
 
-def from_reference(arrays, device):
+def from_reference(arrays, device="cuda"):
     """The JAX package's state, as numpy, -> the port's 8-tuple on device.
 
     Takes either the canonical complex field [4, N, N, X, Y, Z, T] (packed
     here through split_links) or the JAX engine's packed 8-tuple of f32
-    arrays (adopted as is)."""
+    arrays (adopted as is), SU(2) or SU(3)."""
     dev = resolve_device(device)
     if isinstance(arrays, (tuple, list)):
         if len(arrays) != 2 * NDIM:
@@ -166,7 +159,7 @@ def from_reference(arrays, device):
 # ---------------------------------------------------------------------------
 
 
-def packed_cold_start(cfg: SimConfig, device):
+def packed_cold_start(cfg: SimConfig, device="cuda"):
     """Unit links in the engine layout (8 separate tensors: the stages
     update them in place)."""
     dev = resolve_device(device)
@@ -179,7 +172,7 @@ def packed_cold_start(cfg: SimConfig, device):
     return tuple(eye.expand(shape).contiguous() for _ in range(2 * NDIM))
 
 
-def packed_hot_start(cfg: SimConfig, base_key, device):
+def packed_hot_start(cfg: SimConfig, base_key, device="cuda"):
     """Disordered (exactly Haar) start in the engine layout: the reference's
     per-site threefry normals, keyed by the global dense site index, and
     the same per-site Gram–Schmidt, one (mu, parity) array at a time."""
@@ -206,24 +199,61 @@ def packed_hot_start(cfg: SimConfig, base_key, device):
 # ---------------------------------------------------------------------------
 
 
+def tracks(cfg: SimConfig) -> bool:
+    """Whether the sweep accumulates a tracked statistic."""
+    return bool(cfg.track_acceptance or cfg.track_kp_exhaust)
+
+
+def tracked_stat_denom(cfg: SimConfig, dims) -> float:
+    """Denominator of the per-sweep tracked statistic (reference
+    ops/pallas/update.py:429-452), rounded to f32 as the reference rounds
+    it: KP attempts, 8 stages x vol/2 ACTIVE sites x subgroups
+    (track_kp_exhaust), or Metropolis trials, the same times n_hit
+    (track_acceptance); 1 when the algorithm has no such stages."""
+    vol2 = dims[0] * dims[1] * dims[2] * dims[3] // 2
+    n_sg = len(cupdate.SUBGROUPS[cfg.group])
+    if cfg.track_kp_exhaust:
+        stages = 8 if cfg.algorithm == "heatbath" else 0
+        return float(np.float32(max(stages * vol2 * n_sg, 1)))
+    stages = 8 if cfg.algorithm == "metropolis" else 0
+    return float(np.float32(max(stages * vol2 * cfg.n_hit * n_sg, 1)))
+
+
 def make_sweep(cfg: SimConfig):
-    """sweep(us, base_key, sweep_idx) -> us, in place.  Stage order, stage
-    ids and the reunit condition are the reference's
-    (ops/pallas/engine.py make_pallas_sweep)."""
+    """sweep(us, base_key, sweep_idx) -> us, in place; with tracking
+    (``tracks(cfg)``) -> (us, rate), rate an f32 0-d tensor on the state's
+    device: the sweep's tracked count over ``tracked_stat_denom``, summed
+    on the device.  Stage order, stage ids, the tracked kind and the
+    reunit condition are the reference's (ops/pallas/engine.py
+    make_pallas_sweep)."""
     dims = tuple(cfg.dims)
+    kinds = [cfg.algorithm] + ["overrelax"] * cfg.n_or
+    track_kind = "heatbath" if cfg.track_kp_exhaust else "metropolis"
+    tracking = tracks(cfg)
+    denom = tracked_stat_denom(cfg, dims)
 
     def sweep(us, base_key, sweep_idx):
+        count = (torch.zeros(1, dtype=torch.int64, device=us[0].device)
+                 if tracking else None)
         stage_id = 0
-        for parity in (0, 1):
-            for mu in range(NDIM):
-                key2 = rng.stage_key(base_key, sweep_idx, stage_id)
-                cupdate.stage_update(us, mu, parity, cfg.beta, key2, dims,
-                                     cfg.kp_trials)
-                stage_id += 1
+        for kind in kinds:
+            stage_count = count if kind == track_kind else None
+            for parity in (0, 1):
+                for mu in range(NDIM):
+                    # overrelaxation draws nothing: no key to derive
+                    key2 = ((0, 0) if kind == "overrelax"
+                            else rng.stage_key(base_key, sweep_idx, stage_id))
+                    cupdate.stage_update(
+                        us, mu, parity, cfg.beta, key2, dims, cfg.kp_trials,
+                        kind=kind, n_hit=cfg.n_hit,
+                        metro_delta=cfg.metro_delta, count=stage_count)
+                    stage_id += 1
         if (cfg.reunit_every > 0
                 and sweep_idx % cfg.reunit_every == cfg.reunit_every - 1):
             for s in us:
                 reunitarize_dir(s, dims)
+        if tracking:
+            return us, count[0].to(torch.float32) / denom
         return us
 
     return sweep
@@ -251,7 +281,7 @@ def measure_all_split(us, dims):
                               cmeasure.polyakov_sums(us, dims), n, tuple(dims))
 
 
-def make_chunk_runner(cfg: SimConfig, device):
+def make_chunk_runner(cfg: SimConfig, device="cuda"):
     """Runner for the packed engine on ``device`` (same contract as the
     reference's make_pallas_chunk_runner): run(u, key, sweep0, n, me),
     run.packed, run.pack / run.unpack, and the packed-direct start and
@@ -266,6 +296,7 @@ def make_chunk_runner(cfg: SimConfig, device):
         cfg, make_sweep(cfg), meas,
         pack=lambda u: split_links(u.to(dev)),
         unpack=lambda us: join_links(us, dims),
+        with_acc=tracks(cfg),
     )
     run.packed_cold_start = lambda: packed_cold_start(cfg, dev)
     run.packed_hot_start = lambda key: packed_hot_start(cfg, key, dev)

@@ -1,8 +1,9 @@
-"""K2: SU(3) reunitarization of one packed array — CUDA kernel
-(csrc/reunit.cu) and its plain PyTorch version.
+"""K2: reunitarization of one packed array — CUDA kernels (csrc/reunit.cu)
+and their plain PyTorch version.
 
-Port of qcdgpu_tpu/ops/pallas/reunit.py for SU(3): Gram–Schmidt on the two
-stored rows (row 2 is implicit in the codec).  Site-local, in place.
+Port of qcdgpu_tpu/ops/pallas/reunit.py.  SU(3): Gram–Schmidt on the two
+stored rows (row 2 is implicit in the codec).  SU(2): the quaternion of
+the stored matrix, renormalised.  Site-local, in place.
 """
 
 from __future__ import annotations
@@ -11,17 +12,15 @@ import torch
 
 from . import build, core
 
-LAUNCHES = {"reunit": 0}
+LAUNCHES = {"reunit_su3": 0, "reunit_su2": 0}
 
 
 def _check(s, dims):
-    if s.shape[1] != 3:
-        raise NotImplementedError(
-            "SU(2) reunitarization is not ported yet (ROADMAP queue 1, "
-            "SU(2) instantiations of K1 and K2)"
-        )
-    core.check_packed(s, 3, dims)
-    return core.check_device(s)
+    n = s.shape[1]
+    if n not in (2, 3):
+        raise ValueError(f"packed links are SU(2) or SU(3), got N={n}")
+    core.check_packed(s, n, dims)
+    return n, core.check_device(s)
 
 
 def _norm_row(r):
@@ -33,9 +32,24 @@ def _norm_row(r):
     return tuple((c[0] * inv, c[1] * inv) for c in r)
 
 
+def _reunit_su2(s):
+    """Quaternion projection + renormalisation (reference reunit.py:28-39)."""
+    m = s.reshape(2, 2, 2, -1)
+    a0 = 0.5 * (m[0, 0, 0] + m[1, 1, 0])
+    a1 = 0.5 * (m[0, 1, 1] + m[1, 0, 1])
+    a2 = 0.5 * (m[0, 1, 0] - m[1, 0, 0])
+    a3 = 0.5 * (m[0, 0, 1] - m[1, 1, 1])
+    inv = 1.0 / torch.sqrt(a0 * a0 + a1 * a1 + a2 * a2 + a3 * a3)
+    a0, a1, a2, a3 = a0 * inv, a1 * inv, a2 * inv, a3 * inv
+    core.store_rows(s, (((a0, a3), (a2, a1)), ((-a2, a1), (a0, -a3))), 2)
+    return s
+
+
 def reunitarize_dir_ref(s, dims):
     """Plain PyTorch version; projects s in place and returns it."""
-    _check(s, dims)
+    n, _ = _check(s, dims)
+    if n == 2:
+        return _reunit_su2(s)
     comps = s.reshape(2, 3, 2, -1)
     m = [tuple((comps[r, j, 0], comps[r, j, 1]) for j in range(3))
          for r in range(2)]
@@ -54,14 +68,16 @@ def reunitarize_dir_ref(s, dims):
 
 
 def reunitarize_dir(s, dims):
-    """Project one packed (direction, parity) array back onto SU(3), in
+    """Project one packed (direction, parity) array back onto SU(N), in
     place.  CPU tensors take the plain version, CUDA tensors the kernel."""
-    if _check(s, dims) == "cpu":
+    n, dev = _check(s, dims)
+    if dev == "cpu":
         return reunitarize_dir_ref(s, dims)
+    name = f"reunit_su{n}"
     lib = build.library()
     with torch.cuda.device(s.device):
-        err = lib.qg_reunit_su3(s.data_ptr(), s.numel() // 12,
-                                build.stream_handle(s.device))
-    build.check(err, "reunit_su3")
-    LAUNCHES["reunit"] += 1
+        err = lib.qg_reunit(s.data_ptr(), n, s.numel() // (4 * n),
+                            build.stream_handle(s.device))
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return s

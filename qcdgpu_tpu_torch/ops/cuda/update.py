@@ -1,14 +1,29 @@
-"""K1: the fused heat-bath stage — CUDA kernel (csrc/stage.cu) and its plain
-PyTorch version.
+"""K1: the fused checkerboard stage — CUDA kernel (csrc/stage.cu) and its
+plain PyTorch version.
 
-Port of the heat-bath path of qcdgpu_tpu/ops/pallas/update.py: one
-checkerboard stage (parity p, direction mu) gathers the staples of every
-parity-p site, forms W = U A, runs the Kennedy–Pendleton heat-bath on the
-three Cabibbo–Marinari SU(2) subgroups and stores rows 0-1 of the new link.
-Randomness is threefry keyed by (host-computed stage key, global dense site
-index, slot): subgroup s draws slots s*(2K+1) ... s*(2K+1) + 2K, with
-trial t taking (r1, r2) from slot 2t and (r3, r4) from slot 2t+1 and the
-direction from slot 2K — the reference's draw schedule.
+Port of qcdgpu_tpu/ops/pallas/update.py (``_stage_kernel``, threefry RNG):
+one checkerboard stage (parity p, direction mu) gathers the staples of
+every parity-p site, forms W = U A, updates the Cabibbo–Marinari SU(2)
+subgroups ((0,1) for SU(2); (0,1), (0,2), (1,2) for SU(3)) with one of
+
+- ``"heatbath"``: Kennedy–Pendleton, ``k_trials`` fixed masked trials;
+- ``"overrelax"``: the microcanonical flip (v^+)^2, no random numbers;
+- ``"metropolis"``: ``n_hit`` accept/reject hits of spread ``metro_delta``,
+
+and stores rows 0-1 of the new link.  Randomness is threefry keyed by
+(host-computed stage key, global dense site index, slot), with the
+reference's draw schedule: a subgroup consumes ``per`` uniforms (4K+2 for
+heat-bath, 4 n_hit for Metropolis), rounded up to ``per_slots`` whole
+threefry pairs, and subgroup s starts at slot ``per_slots * s``.
+Heat-bath trial t takes (r1, r2) from slot 2t and (r3, r4) from 2t+1, the
+direction from slot 2K; Metropolis hit h takes (u0, u1) from slot 2h and
+(u2, u3) from 2h+1.
+
+Tracking: given ``count`` (an int64 tensor of shape [1] on the state's
+device), the stage ADDS its tracked count to it — accepted Metropolis hits,
+or Kennedy–Pendleton exhaustions (sites where all K trials failed) for
+heat-bath — over the active parity's sites.  On the card the count stays
+on the device (one atomic add per block); nothing waits for it.
 
 The stage updates ``us[2*mu + parity]`` IN PLACE on both paths.  That is
 safe because the stage reads that array only at the site it updates: the
@@ -30,16 +45,37 @@ from .. import rng
 from . import build, core
 
 NDIM = 4
-SUBGROUPS = ((0, 1), (0, 2), (1, 2))
+KINDS = ("heatbath", "overrelax", "metropolis")
+SUBGROUPS = {2: ((0, 1),), 3: ((0, 1), (0, 2), (1, 2))}
+
+
+def instance_name(kind, n, track=False):
+    """Name of the kernel instantiation (and its launch counter)."""
+    return f"stage_{kind}_su{n}" + ("_track" if track else "")
+
+
+# the kernel instantiations: every kind and group, tracked where the kind
+# has something to count
+INSTANCES = tuple(instance_name(k, n, t) for n in (3, 2) for k in KINDS
+                  for t in (False, True) if not (t and k == "overrelax"))
 
 # kernel launches, counted where the kernel is launched (never on the CPU)
-LAUNCHES = {"stage": 0}
+LAUNCHES = {name: 0 for name in INSTANCES}
 
 
 def two_beta_over_n(beta, n):
     """beta * (2/n) rounded as the reference kernel rounds it (f32 beta
     times f32(2/n)); passed to the kernel as one f32."""
     return float(np.float32(beta) * np.float32(2.0 / n))
+
+
+def uniforms_per_subgroup(kind, k_trials, n_hit):
+    """Uniforms one subgroup touch consumes (reference update.py:400)."""
+    if kind == "heatbath":
+        return 4 * k_trials + 2
+    if kind == "metropolis":
+        return 4 * n_hit
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +104,13 @@ def quat_conj(q):
     return (q[0], -q[1], -q[2], -q[3])
 
 
+def _where_ident(good, q):
+    """q where good, else the identity quaternion."""
+    ident = (1.0, 0.0, 0.0, 0.0)
+    return tuple(torch.where(good, q[c], torch.full_like(q[c], ident[c]))
+                 for c in range(4))
+
+
 def subgroup_left_mul(q, i, j, m):
     """m <- embed(M(q); i, j) @ m on a nested-tuple matrix."""
     u00 = (q[0], q[3])
@@ -82,9 +125,10 @@ def subgroup_left_mul(q, i, j, m):
     return tuple(tuple(r) for r in rows)
 
 
-def heatbath_flip(q_w, tbn, u, k_trials):
+def heatbath_flip(q_w, tbn, u, k_trials, with_count=False):
     """KP heat-bath multiplier; u = list of 4*k_trials + 2 uniform tensors.
-    Fixed-K masked trials, first accepted wins, identity on exhaustion."""
+    Fixed-K masked trials, first accepted wins, identity on exhaustion.
+    With with_count also returns the number of exhausted sites (int64)."""
     n2 = q_w[0] * q_w[0] + q_w[1] * q_w[1] + q_w[2] * q_w[2] + q_w[3] * q_w[3]
     rk = 1.0 / torch.sqrt(torch.clamp(n2, min=fm.f32(1e-38)))
     k = n2 * rk
@@ -108,11 +152,51 @@ def heatbath_flip(q_w, tbn, u, k_trials):
     st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
     sph, cph = fm.sincos_2pi(u[4 * k_trials + 1])
     w = (x0, rho * st * cph, rho * st * sph, rho * ct)
-    unew = quat_mul(w, quat_conj(v))
-    good = ok & (k > fm.f32(1e-30))
-    ident = (1.0, 0.0, 0.0, 0.0)
-    return tuple(torch.where(good, unew[c], torch.full_like(unew[c], ident[c]))
-                 for c in range(4))
+    out = _where_ident(ok & (k > fm.f32(1e-30)), quat_mul(w, quat_conj(v)))
+    if with_count:
+        return out, (~ok).sum(dtype=torch.int64)
+    return out
+
+
+def overrelax_flip(q_w):
+    """Microcanonical overrelaxation multiplier (v^+)^2, v = q_w / |q_w|,
+    as quat_mul(q_w^+, q_w^+) times the reciprocal of |q_w|^2."""
+    n2 = q_w[0] * q_w[0] + q_w[1] * q_w[1] + q_w[2] * q_w[2] + q_w[3] * q_w[3]
+    qc = quat_conj(q_w)
+    inv = 1.0 / torch.clamp(n2, min=fm.f32(1e-38))
+    u = tuple(c * inv for c in quat_mul(qc, qc))
+    return _where_ident(n2 > fm.f32(1e-38), u)
+
+
+def metropolis_flip(q_w, tbn, uu, n_hit, delta, with_count=False):
+    """n_hit Metropolis hits on one subgroup; uu = list of 4*n_hit uniform
+    tensors.  Proposal normalize(1, delta (2u - 1) x3), accepted when
+    log u3 < tbn ((w q)_0 - q_0).  Returns the composed multiplier; with
+    with_count also the number of accepted hits (int64)."""
+    d = fm.f32(delta)
+    acc_u = tuple(torch.full_like(q_w[0], c) for c in (1.0, 0.0, 0.0, 0.0))
+    q_cur = q_w
+    n_acc = None
+    for h in range(n_hit):
+        u = uu[4 * h: 4 * (h + 1)]
+        w1 = d * (2.0 * u[0] - 1.0)
+        w2 = d * (2.0 * u[1] - 1.0)
+        w3 = d * (2.0 * u[2] - 1.0)
+        w0 = torch.ones_like(w1)
+        rn = 1.0 / torch.sqrt(w0 * w0 + w1 * w1 + w2 * w2 + w3 * w3)
+        w = (w0 * rn, w1 * rn, w2 * rn, w3 * rn)
+        new0 = quat_mul(w, q_cur)[0]
+        dlp = tbn * (new0 - q_cur[0])
+        accept = fm.log_u01(u[3]) < dlp
+        if with_count:
+            c = accept.sum(dtype=torch.int64)
+            n_acc = c if n_acc is None else n_acc + c
+        w_eff = _where_ident(accept, w)
+        acc_u = quat_mul(w_eff, acc_u)
+        q_cur = quat_mul(w_eff, q_cur)
+    if with_count:
+        return acc_u, n_acc
+    return acc_u
 
 
 # ---------------------------------------------------------------------------
@@ -140,39 +224,63 @@ def staple_W(ld, mu):
     return u_mu, core.mmul(u_mu, acc)
 
 
-def _check(us, mu, parity, dims, k_trials):
+def _check(us, mu, parity, dims, kind, k_trials, n_hit, count):
     if len(us) != 2 * NDIM:
         raise ValueError("us must be the 8-tuple us[2*mu + parity]")
     n = us[0].shape[1]
-    if n != 3:
-        raise NotImplementedError(
-            "the SU(2) stage is not ported yet (ROADMAP queue 1, SU(2) "
-            "instantiations of K1 and K2)"
-        )
+    if n not in SUBGROUPS:
+        raise ValueError(f"packed links are SU(2) or SU(3), got N={n}")
     for i, a in enumerate(us):
         core.check_packed(a, n, dims, f"us[{i}]")
     if mu not in range(NDIM) or parity not in (0, 1):
         raise ValueError(f"bad stage (mu={mu}, parity={parity})")
-    if int(k_trials) < 1:
+    if kind not in KINDS:
+        raise ValueError(f"unknown update kind {kind!r}")
+    if kind == "heatbath" and int(k_trials) < 1:
         raise ValueError("k_trials must be >= 1")
-    return core.check_device(*us)
+    if kind == "metropolis" and int(n_hit) < 1:
+        raise ValueError("n_hit must be >= 1")
+    dev = core.check_device(*us)
+    if count is not None:
+        if kind == "overrelax":
+            raise ValueError("an overrelaxation stage has nothing to count")
+        if (count.dtype != torch.int64 or tuple(count.shape) != (1,)
+                or count.device != us[0].device):
+            raise ValueError("count must be an int64 tensor [1] on the "
+                             "state's device")
+    return n, dev
 
 
-def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4):
-    """Plain PyTorch heat-bath stage; updates us[2*mu + parity] in place
-    and returns it.  Any device."""
-    _check(us, mu, parity, dims, k_trials)
-    n = 3
+def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
+                     kind="heatbath", n_hit=3, metro_delta=0.35, count=None):
+    """Plain PyTorch stage; updates us[2*mu + parity] in place and returns
+    it (and adds the tracked count to ``count`` when given).  Any
+    device."""
+    n, _ = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
     dims = tuple(dims)
     ld = core.LinkLoader(us, parity, dims, n)
     u_mu, w = staple_W(ld, mu)
-    per = 4 * k_trials + 2
-    sidx = core.site_index_packed(parity, dims, us[0].device).reshape(-1)
-    u_all = rng.site_uniforms(key2, sidx, per * len(SUBGROUPS))
+    sgs = SUBGROUPS[n]
+    per = uniforms_per_subgroup(kind, k_trials, n_hit)
+    per_slots = (per + 1) // 2
+    if per:
+        sidx = core.site_index_packed(parity, dims, us[0].device).reshape(-1)
+        u_all = rng.site_uniforms(key2, sidx, 2 * per_slots * len(sgs))
     tbn = two_beta_over_n(beta, n)
-    for s, (i, j) in enumerate(SUBGROUPS):
-        u_s = [u_all[per * s + c] for c in range(per)]
-        flip = heatbath_flip(quat_from_block(w, i, j), tbn, u_s, k_trials)
+    track = count is not None
+    for s, (i, j) in enumerate(sgs):
+        q_w = quat_from_block(w, i, j)
+        u_s = [u_all[2 * per_slots * s + c] for c in range(per)]
+        if kind == "heatbath":
+            flip = heatbath_flip(q_w, tbn, u_s, k_trials, with_count=track)
+        elif kind == "metropolis":
+            flip = metropolis_flip(q_w, tbn, u_s, n_hit, metro_delta,
+                                   with_count=track)
+        else:
+            flip = overrelax_flip(q_w)
+        if track:
+            flip, c = flip
+            count += c
         u_mu = subgroup_left_mul(flip, i, j, u_mu)
         w = subgroup_left_mul(flip, i, j, w)
     target = us[2 * mu + parity]
@@ -180,21 +288,29 @@ def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4):
     return target
 
 
-def stage_update(us, mu, parity, beta, key2, dims, k_trials=4):
-    """One heat-bath stage on the packed 8-tuple, in place on
+def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
+                 kind="heatbath", n_hit=3, metro_delta=0.35, count=None):
+    """One stage of ``kind`` on the packed 8-tuple, in place on
     us[2*mu + parity] (returned).  key2: the (k0, k1) stage key as ints
-    (rng.stage_key).  CPU tensors take the plain version, CUDA tensors the
-    kernel."""
-    if _check(us, mu, parity, dims, k_trials) == "cpu":
-        return stage_update_ref(us, mu, parity, beta, key2, dims, k_trials)
+    (rng.stage_key; unused by overrelaxation).  count: optional int64 [1]
+    tensor the stage adds its tracked count to.  CPU tensors take the
+    plain version, CUDA tensors the kernel."""
+    n, dev = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
+    if dev == "cpu":
+        return stage_update_ref(us, mu, parity, beta, key2, dims, k_trials,
+                                kind, n_hit, metro_delta, count)
+    name = instance_name(kind, n, count is not None)
     lib = build.library()
     x, y, z, t = (int(d) for d in dims)
     with torch.cuda.device(us[0].device):
-        err = lib.qg_stage_heatbath_su3(
-            *[a.data_ptr() for a in us], int(mu), int(parity), x, y, z, t,
-            int(key2[0]), int(key2[1]), two_beta_over_n(beta, 3),
-            int(k_trials), build.stream_handle(us[0].device),
+        err = lib.qg_stage(
+            *[a.data_ptr() for a in us], n, KINDS.index(kind),
+            int(count is not None), int(mu), int(parity), x, y, z, t,
+            int(key2[0]), int(key2[1]), two_beta_over_n(beta, n),
+            int(k_trials), int(n_hit), fm.f32(metro_delta),
+            None if count is None else count.data_ptr(),
+            build.stream_handle(us[0].device),
         )
-    build.check(err, "stage_heatbath_su3")
-    LAUNCHES["stage"] += 1
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return us[2 * mu + parity]

@@ -8,10 +8,12 @@ Observable vector layout:
   poly_re  — Re of the volume-averaged Polyakov loop (1/N normalized)
   poly_im  — Im of the same
 
-The extended observables (Fmunu, Wilson loops, topological charge) and the
-tracked-rate columns are not ported yet; configurations that ask for them
-are refused by ops/cuda/engine.check_supported, so the names here are the
-standard six.
+The series row of obs_names() may end with one engine-accumulated column:
+``acc_rate`` (track_acceptance) or ``kp_exhaust_rate`` (track_kp_exhaust).
+
+The extended observables (Fmunu, Wilson loops, topological charge) are not
+ported yet; configurations that ask for them are refused by
+ops/cuda/engine.check_supported, so a measurement is the standard six.
 """
 
 from __future__ import annotations
@@ -26,5 +28,12 @@ def measure_obs_names(cfg=None):
 
 
 def obs_names(cfg=None):
-    """Column names of the per-measurement series row."""
-    return measure_obs_names(cfg)
+    """Column names of the per-measurement series row: the measurement
+    plus the tracked statistic, where the reference puts it
+    (ops/measure.py:385-394)."""
+    names = measure_obs_names(cfg)
+    if cfg is not None and getattr(cfg, "track_acceptance", False):
+        names = names + ("acc_rate",)
+    if cfg is not None and getattr(cfg, "track_kp_exhaust", False):
+        names = names + ("kp_exhaust_rate",)
+    return names

@@ -1,9 +1,9 @@
 """SU(N) algebra on complex fields with matrix indices LEADING.
 
 Port of the parts of qcdgpu_tpu/ops/sun.py that the port's hot start and
-``Simulation.unitarity_defect`` use.  A field is a complex tensor
-``[N, N, *sites]``; products are unrolled over the matrix indices so that
-site dimensions stay contiguous.
+``Simulation.unitarity_defect`` use, for SU(2) and SU(3).  A field is a
+complex tensor ``[N, N, *sites]``; products are unrolled over the matrix
+indices so that site dimensions stay contiguous.
 """
 
 from __future__ import annotations
@@ -61,14 +61,38 @@ def cross3(u, v):
     )
 
 
+def mat_to_quat(m):
+    """Project a [2, 2, *sites] complex field onto quaternion form
+    [4, *sites] (exact inverse of quat_to_mat on SU(2))."""
+    return torch.stack([
+        0.5 * (m[0, 0].real + m[1, 1].real),
+        0.5 * (m[0, 1].imag + m[1, 0].imag),
+        0.5 * (m[0, 1].real - m[1, 0].real),
+        0.5 * (m[0, 0].imag - m[1, 1].imag),
+    ], dim=0)
+
+
+def quat_to_mat(q, dtype=torch.complex64):
+    """[4, *sites] real -> [2, 2, *sites] complex SU(2) matrix."""
+    m00 = torch.complex(q[0], q[3])
+    m01 = torch.complex(q[2], q[1])
+    m10 = torch.complex(-q[2], q[1])
+    m11 = torch.complex(q[0], -q[3])
+    return torch.stack([torch.stack([m00, m01]), torch.stack([m10, m11])]
+                       ).to(dtype)
+
+
 def reunitarize(a):
-    """Project a near-SU(3) field back to SU(3): Gram–Schmidt on rows 0-1,
-    row 2 = conj(r0 x r1), so det = +1 exactly."""
-    if a.shape[0] != 3:
-        raise NotImplementedError(
-            "SU(2) reunitarization is not ported yet (ROADMAP queue 1, "
-            "SU(2) instantiations)"
-        )
+    """Project a near-SU(N) field back to SU(N).  SU(3): Gram–Schmidt on
+    rows 0-1, row 2 = conj(r0 x r1), so det = +1 exactly.  SU(2):
+    quaternion projection, renormalised."""
+    n = a.shape[0]
+    if n == 2:
+        q = mat_to_quat(a)
+        q = q / torch.sqrt(torch.sum(q * q, dim=0))
+        return quat_to_mat(q, a.dtype)
+    if n != 3:
+        raise ValueError(f"reunitarize: SU(2) or SU(3), got N={n}")
     r0 = _normalize_row(a[0])
     r1 = a[1] - torch.sum(torch.conj(r0) * a[1], dim=0) * r0
     r1 = _normalize_row(r1)

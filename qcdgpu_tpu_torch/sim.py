@@ -1,8 +1,8 @@
 """Simulation orchestrator — port of the library surface of qcdgpu_tpu.sim.
 
-    sim = Simulation(cfg, device="cuda")
+    sim = Simulation(cfg)                # on the card; device="cpu" opts out
     sim.warmup().thermalize(n)
-    obs = sim.run(n, measure_every)      # numpy [n // me, 6]
+    obs = sim.run(n, measure_every)      # numpy [n // me, len(obs_names)]
     sim.measure(); sim.analysis(); sim.unitarity_defect()
 
 The state is the packed 8-tuple on ``device`` (ops/cuda/engine.py), and the
@@ -29,14 +29,15 @@ NDIM = 4
 class Simulation:
     """Owns (packed links, base key, sweep counter) on one device.
 
-    ``device`` is required ('cpu' or 'cuda'); 'cuda' without a card
-    raises.  ``init_u`` (canonical complex field) or ``init_us`` (packed
-    8-tuple) start from a given state — numpy arrays from the JAX package
-    or tensors; otherwise cfg.start picks a cold or hot start.
+    ``device`` is 'cuda' (the default) or 'cpu'; 'cuda' without a card
+    raises — there is no silent fallback to the CPU.  ``init_u``
+    (canonical complex field) or ``init_us`` (packed 8-tuple) start from
+    a given state — numpy arrays from the JAX package or tensors;
+    otherwise cfg.start picks a cold or hot start.
     """
 
     def __init__(self, cfg: SimConfig, init_u=None, init_us=None, *,
-                 device):
+                 device="cuda"):
         self.cfg = cfg
         self.device = engine.resolve_device(device)
         self.base_key = rng.make_base_key(cfg.seed)
@@ -109,8 +110,8 @@ class Simulation:
 
     def run(self, n: Optional[int] = None,
             measure_every: Optional[int] = None):
-        """Production sweeps; returns the observable series [n_meas, 6] as
-        numpy (this waits for the device)."""
+        """Production sweeps; returns the observable series
+        [n_meas, len(obs_names)] as numpy (this waits for the device)."""
         n = self.cfg.sweeps if n is None else n
         me = self.cfg.meas_every if measure_every is None else measure_every
         self._us, obs = self._run.packed(self._us, self.base_key,

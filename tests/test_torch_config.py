@@ -1,11 +1,12 @@
 """qcdgpu_tpu_torch.config mirrors qcdgpu_tpu.config; features outside the
-ported slice are refused; the package never imports jax."""
+ported slices are refused; the package never imports jax."""
 
 import dataclasses
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,12 +56,13 @@ def test_validation_matches_reference(kw):
         SimConfig(**kw)
 
 
+# each ported feature paired with an unported one: the pair is still refused
 @pytest.mark.parametrize("kw", [
-    dict(group=2),
-    dict(n_or=1),
-    dict(algorithm="metropolis"),
-    dict(algorithm="metropolis", track_acceptance=True),
-    dict(track_kp_exhaust=True),
+    dict(group=2, rng_mode="hw"),
+    dict(n_or=1, mesh=(1, 2, 1, 1)),
+    dict(algorithm="metropolis", rng_mode="prngcl:ranmar"),
+    dict(algorithm="metropolis", track_acceptance=True, get_qtop=True),
+    dict(track_kp_exhaust=True, meas_dtype="double"),
     dict(get_fmunu=True),
     dict(wilson_loops=((1, 1),)),
     dict(get_qtop=True),
@@ -77,6 +79,20 @@ def test_unported_features_raise(kw):
         engine.make_chunk_runner(cfg, "cpu")
 
 
+@pytest.mark.parametrize("kw", [
+    dict(group=2, beta=2.4),
+    dict(n_or=7),
+    dict(algorithm="metropolis", n_hit=2, metro_delta=0.5),
+    dict(algorithm="metropolis", track_acceptance=True),
+    dict(track_kp_exhaust=True, n_or=1),
+])
+def test_ported_features_accepted(kw):
+    cfg = SimConfig(**{**TINY, **kw})
+    engine.check_supported(cfg)
+    run = engine.make_chunk_runner(cfg, "cpu")
+    assert run.packed_cold_start()[0].shape[1] == cfg.group
+
+
 def test_checkpoints_raise():
     sim = Simulation(SimConfig(**TINY), device="cpu")
     with pytest.raises(NotImplementedError, match="M8"):
@@ -86,15 +102,31 @@ def test_checkpoints_raise():
 
 
 def test_device_is_explicit():
+    """The CPU is an explicit opt-in; any other device is refused."""
     cfg = SimConfig(**TINY)
-    with pytest.raises(TypeError):
-        Simulation(cfg)  # no default device
+    assert Simulation(cfg, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError):
         Simulation(cfg, device="meta")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card refusal is moot")
     with pytest.raises(RuntimeError, match="CUDA"):
         Simulation(cfg, device="cuda")
+
+
+def test_default_device_is_the_card():
+    """With no device argument every entry point asks for the card, so on
+    a host without one it raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card refusal is moot")
+    cfg = SimConfig(**TINY)
+    for call in (lambda: Simulation(SimConfig()),
+                 lambda: engine.make_chunk_runner(cfg),
+                 lambda: engine.packed_cold_start(cfg),
+                 lambda: engine.packed_hot_start(cfg, (1, 2)),
+                 lambda: engine.from_reference(
+                     np.zeros((4, 3, 3) + TINY["dims"], np.complex64))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_import_leaves_jax_out():

@@ -87,6 +87,9 @@ def test_stage_refuses_bad_input(u0):
     with pytest.raises(ValueError):
         tupd.stage_update(tuple(a.to("meta") for a in us), 0, 0, BETA,
                           (1, 2), DIMS)
-    with pytest.raises(NotImplementedError):
-        tupd.stage_update(tuple(a[:, :2].contiguous() for a in us), 0, 0,
+    with pytest.raises(ValueError):  # SU(2) and SU(3) arrays mixed
+        tupd.stage_update(us[:7] + (us[7][:, :2].contiguous(),), 0, 0,
                           BETA, (1, 2), DIMS)
+    with pytest.raises(ValueError):  # an overrelaxation stage counts nothing
+        tupd.stage_update(us, 0, 0, BETA, (1, 2), DIMS, kind="overrelax",
+                          count=torch.zeros(1, dtype=torch.int64))
