@@ -7,19 +7,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and nvcc.  Phases, each timed:
 
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
-  2. build      — nvcc builds csrc/*.cu into build/; registers, stack frame
-                  and spills of every kernel instantiation;
+  2. build      — nvcc builds csrc/*.cu into build/ (one process per
+                  source, all at once); registers, stack frame and spills
+                  of every kernel instantiation, threefry and stream;
   3. kernels    — every kernel instantiation against its plain PyTorch
-                  version on the card (hot starts, seed 1): K1 for each
-                  kind x group x tracking, every (mu, parity), at (4,4,2,4)
-                  and 32^4, tracked counts included; K2-K4 for SU(3) and
-                  SU(2) at (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4;
+                  version on the card (hot starts, seed 1): K1 threefry for
+                  each kind x group x tracking, every (mu, parity), at
+                  (4,4,2,4) and 32^4, tracked counts included; K1 streams
+                  for all 11 PRNGCL generators x heat-bath/Metropolis x
+                  group x tracking at (4,4,2,4), every (mu, parity) in
+                  sweep order on carried streams (words bit-identical), and
+                  ranlux3, ranmar, xor128, mrg32k3a at 32^4 (SU(3) heat-bath
+                  and tracked Metropolis); K2-K4 for SU(3) and SU(2) at
+                  (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4;
   4. timing     — each instantiation and its plain version at 32^4, CUDA
                   events, in the order plain, kernel, kernel, plain (K2
                   over the 8 arrays in turn, per array), beside its bound
-                  from bytes and f32 operations;
+                  from bytes (a stream stage's state words included) and
+                  f32 operations;
   5. main paths — first small hot starts through the library API, CUDA
-                  against the CPU path.  Then Simulation(cfg) with no device
+                  against the CPU path (threefry slices, and ranlux3).  Then Simulation(cfg) with no device
                   argument at 32^4 (cold start, reunit_every=10, threefry):
                   warmup(), thermalize(20), run(20, 1), with the launch
                   counters zeroed before and read after each run, for the
@@ -28,14 +35,22 @@ and nvcc.  Phases, each timed:
                   track_kp_exhaust; SU(3) Metropolis with track_acceptance;
                   SU(2) heat-bath + 1 overrelaxation) and four more that
                   drive the remaining instantiations; for the slice
-                  configurations the device idle share from torch.profiler;
+                  configurations the device idle share from torch.profiler.
+                  Then the PRNGCL stream path: SU(3) heat-bath at 32^4 with
+                  ranlux3 (QCDGPU's default generator; idle share too),
+                  ranmar, xor128 and mrg32k3a, with the time to build the
+                  stream state; and every stream instantiation through its
+                  own configuration at 8^4;
   6. physics    — SU(3) 16^4 beta=6.0 heat-bath (window 0.5937 +- 5e-4);
                   SU(3) 16^4 beta=6.0 heat-bath + 1 overrelaxation with
                   track_kp_exhaust, seed 7, and SU(2) 8^4 beta=2.4
                   heat-bath, seed 42, each with the reference's literature
                   and self-anchor gates (qcdgpu_tpu/validate.py); SU(2) 8^4
                   beta=2.4 Metropolis with track_acceptance in the
-                  literature window.
+                  literature window; the stream gates: SU(3) 16^4 beta=6.0
+                  heat-bath + 1 overrelaxation, track_kp_exhaust, seed 7,
+                  prngcl:ranlux3, and SU(2) 8^4 beta=2.4 heat-bath, seed
+                  42, prngcl:ranmar, each with both gates.
 
 Any failed check raises and the script exits non-zero.  The last three
 lines are the kernels' JSON record, the card's `nvidia-smi` name/power
@@ -57,6 +72,7 @@ import torch
 SMALL = (4, 4, 2, 4)
 ODD_T2 = (8, 8, 8, 6)
 BIG = (32, 32, 32, 32)
+STREAM_SMALL_RUN = (8, 8, 8, 8)
 GROUPS = (3, 2)
 BETA_HOT = {3: 5.5, 2: 2.3}  # couplings of the kernel-vs-plain comparisons
 BETA_RUN = {3: 6.0, 2: 2.4}
@@ -96,6 +112,19 @@ MAIN_PATHS = (
     ("SU(2) Metropolis, track_acceptance", False,
      dict(group=2, beta=2.4, algorithm="metropolis", track_acceptance=True)),
 )
+# The PRNGCL stream path: the bench configuration with QCDGPU's default
+# generator (ranlux3, the slice) and the stream rows of the reference's
+# perf matrix, SU(3) heat-bath at 32^4, cold start, reunit_every=10.
+STREAM_BIG = ("ranlux3", "ranmar", "xor128", "mrg32k3a")
+# the generator standing for each family where one is timed
+FAMILY_GEN = {"xor128": "xor128", "xor7": "xor7", "mrg32k3a": "mrg32k3a",
+              "parkmiller": "parkmiller", "constant": "constant",
+              "ranlux": "ranlux3", "ranmar": "ranmar"}
+# generators that drive each family's 8 instantiations at 8^4 in turn
+FAMILY_RUN_GENS = {"ranlux": ("ranlux0", "ranlux1", "ranlux2", "ranlux4"),
+                   "xor128": ("xor128",), "xor7": ("xor7",),
+                   "mrg32k3a": ("mrg32k3a",), "parkmiller": ("parkmiller",),
+                   "constant": ("constant",), "ranmar": ("ranmar",)}
 
 
 class Phase:
@@ -158,10 +187,12 @@ def kernel_label(mangled, kinds):
     """Readable name of a mangled qg:: kernel; stage instantiations get
     their launch-counter names (kinds: the update kinds in qg::Kind
     order)."""
-    m = re.search(r"stage_kernelILi(\d)ELi(\d)ELb([01])E", mangled)
+    m = re.search(r"stage_kernelILi(\d)ELi(\d)ELb([01])ENS_"
+                  r"(?:8Threefry|6StreamINS_(\d+)(\w+))", mangled)
     if m:
         n, kind, track = int(m[1]), kinds[int(m[2])], m[3] == "1"
-        return f"stage_{kind}_su{n}" + ("_track" if track else "")
+        fam = "" if m[4] is None else "_" + m[5][:int(m[4])].lower()
+        return f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
     m = re.match(r"_ZN2qg(\d+)", mangled)  # qg::<length-prefixed name>
     if not m:
         return mangled
@@ -223,9 +254,31 @@ def stage_ops_per_site(n, kind, k_trials, n_hit):
     return staples + n_sg * (8 + 56 * n + flip)
 
 
+def stream_word_bytes(gen, v2, ndraw, scalars):
+    """Bytes of state words one stream stage must move at v2 active sites:
+    each word it reads before writing it, read once, and each word it
+    writes, written once.  ndraw >= 24 touches every word of the
+    counter-free and ranlux states; ranmar touches the slots its pointer
+    and lag reach, from this call's pointer."""
+    from qcdgpu_tpu_torch.ops import prng_streams as ps
+
+    fam = ps.family(gen)
+    if fam == "constant":
+        return 4 * v2  # read, never written
+    if fam != "ranmar":
+        return 8 * ps.stream_word_count(gen) * v2
+    read, written = set(), set()
+    for t in range(ndraw):
+        i = (scalars["ptr"] - t) % 97
+        read.update(k for k in (i, (i - 64) % 97) if k not in written)
+        written.add(i)
+    return 4 * v2 * (len(read) + len(written))
+
+
 def work(name, dims, k_trials=4, n_hit=3):
     """(bytes, f32 operations) of one call of kernel `name` at dims: each
-    input read once, each output written once."""
+    input read once, each output written once (a stream stage's words
+    are added by the caller: stream_word_bytes)."""
     n = int(re.search(r"_su(\d)", name)[1])
     v2 = int(np.prod(dims)) // 2
     arr = 16 * n * v2  # one packed (direction, parity) array
@@ -299,6 +352,7 @@ def main():
               file=sys.stderr)
         return 2
     from qcdgpu_tpu_torch import SimConfig, Simulation
+    from qcdgpu_tpu_torch.ops import prng_streams as ps
     from qcdgpu_tpu_torch.ops import rng
     from qcdgpu_tpu_torch.ops.cuda import build, engine
     from qcdgpu_tpu_torch.ops.cuda import measure as cmeasure
@@ -316,6 +370,11 @@ def main():
     for n, kind, track in k1_cases:
         name = cupdate.instance_name(kind, n, track)
         record[name] = (name, "stage.cu", "update.py:460")
+    for name in cupdate.STREAM_INSTANCES:
+        fam = name.split("_")[3]
+        # K1's stream branch: the draws of K7 (counter-free) or K8 (lag)
+        record[name] = (name, f"stage_{fam}.cu", "prng_streams.py:" + (
+            "767" if fam in ("ranlux", "ranmar") else "625"))
     for n in GROUPS:
         record[f"reunit_su{n}"] = (f"reunit_su{n}", "reunit.cu",
                                    "reunit.py:22")
@@ -326,7 +385,8 @@ def main():
     for key, (name, source, replaces) in record.items():
         record[key] = {
             "name": name, "route": "cuda", "source": src + source,
-            "replaces": tpu + replaces, "launches": 0, "max_abs_err": 0.0,
+            "replaces": ("qcdgpu_tpu/ops/" if "prng" in replaces else tpu)
+            + replaces, "launches": 0, "max_abs_err": 0.0,
             "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
             "library_ms": None}
     require(set(record) == {k for c in counters for k in c},
@@ -390,6 +450,51 @@ def main():
                     cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
 
+    def stream_state(gen, n, dims):
+        return engine.make_stream_state0(
+            SimConfig(group=n, dims=dims, seed=3, rng_mode=f"prngcl:{gen}"),
+            dev)
+
+    def k1_stream_compare(gen, n, kind, track, dims, k_trials):
+        """The 8 stages of a sweep, in sweep order, on one hot start and one
+        set of streams (so each parity's words, pointer and luxury counter
+        carry over 4 stages): kernel and plain version from the same
+        inputs at every stage, then both go on from the plain output.
+        Words and scalars must be bit-identical.  -> (max |d| links, links
+        beyond STAGE_TOL, links, kernel count, plain count)."""
+        us = clone(hot(dims, n))
+        rst = stream_state(gen, n, dims)
+        names = ps.kernel_scalar_names(gen)
+        worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
+        for p in (0, 1):
+            sfx = ("_e", "_o")[p]
+            for mu in range(4):
+                scal = {k: rst[k + sfx] for k in names}
+                uk, wk = clone(us), rst["words" + sfx].clone()
+                ck, cp = (
+                    (torch.zeros(1, dtype=torch.int64, device=dev)
+                     for _ in range(2)) if track else (None, None))
+                _, sk = cupdate.stage_update(
+                    uk, mu, p, BETA_HOT[n], None, dims, k_trials, kind=kind,
+                    count=ck, gen=gen, words=wk, scalars=scal)
+                _, sp = cupdate.stage_update_stream_ref(
+                    us, mu, p, BETA_HOT[n], dims, k_trials, kind=kind,
+                    count=cp, gen=gen, words=rst["words" + sfx],
+                    scalars=scal)
+                require(torch.equal(wk, rst["words" + sfx]) and sk == sp,
+                        f"K1 {gen} {kind} SU({n}) {dims} (mu={mu}, p={p}): "
+                        "stream words or scalars differ")
+                rst.update({k + sfx: v for k, v in sp.items()})
+                d = (uk[2 * mu + p] - us[2 * mu + p]).abs().reshape(
+                    4 * n, -1).amax(dim=0)
+                worst = max(worst, float(d.max()))
+                bad += int((d > STAGE_TOL).sum())
+                links += d.numel()
+                if track:
+                    cnt_k += int(ck)
+                    cnt_p += int(cp)
+        return worst, bad, links, cnt_k, cnt_p
+
     with Phase("3 kernels vs plain versions"):
         for n, kind, track in k1_cases:
             name = cupdate.instance_name(kind, n, track)
@@ -411,6 +516,30 @@ def main():
                     n_sg = 3 if n == 3 else 1
                     require(bad <= FLIP_FRACTION * links, msg)
                     require(abs(ck - cp) <= bad * n_sg * per_link, msg)
+        stream_cases = [(gen, n, kind, track, SMALL)
+                        for gen in ps.STREAM_GENERATORS for n in GROUPS
+                        for kind in ("heatbath", "metropolis")
+                        for track in (False, True)]
+        stream_cases += [(gen, 3, kind, kind == "metropolis", BIG)
+                         for gen in STREAM_BIG
+                         for kind in ("heatbath", "metropolis")]
+        for gen, n, kind, track, dims in stream_cases:
+            name = cupdate.instance_name(kind, n, track, gen)
+            k_trials = 1 if (track and kind == "heatbath") else 4
+            per_link = 3 if kind == "metropolis" else 1
+            worst, bad, links, ck, cp = k1_stream_compare(
+                gen, n, kind, track, dims, k_trials)
+            note_err(name, worst)
+            msg = (f"K1 {name} ({gen}) {dims}: words bit-identical; max |d| "
+                   f"{worst:.3e}, {bad} of {links} links beyond {STAGE_TOL}")
+            if track:
+                msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
+            print(msg)
+            if dims == SMALL:
+                require(worst < STAGE_TOL and ck == cp, msg)
+            else:
+                require(bad <= FLIP_FRACTION * links, msg)
+                require(abs(ck - cp) <= bad * 3 * per_link, msg)
         for n in GROUPS:
             for dims in (SMALL, ODD_T2, BIG):
                 u_ = hot(dims, n)
@@ -444,10 +573,13 @@ def main():
 
     with Phase("4 kernel timing at 32^4"):
         key = rng.stage_key(rng.make_base_key(1), 0, 0)
+        v2 = int(np.prod(BIG)) // 2
         for n in GROUPS:
             w = clone(hot(BIG, n))
             cnt = torch.zeros(1, dtype=torch.int64, device=dev)
             beta = BETA_RUN[n]
+            # name -> (plain, kernel, plain reps, kernel reps, calls, bytes
+            # beyond work(): a stream stage's state words)
             pairs = {}
             for n_, kind, track in k1_cases:
                 if n_ != n:
@@ -458,20 +590,43 @@ def main():
                         w, 1, 0, beta, key, BIG, kind=kind, count=c),
                     lambda kind=kind, c=c: cupdate.stage_update(
                         w, 1, 0, beta, key, BIG, kind=kind, count=c),
-                    3, 50, 1)
+                    3, 50, 1, 0)
+            # K1 streams: each family through one generator, on parity 0's
+            # words (advanced by every call: the cost of a stage does not
+            # depend on where the streams stand)
+            for fam, gen in FAMILY_GEN.items():
+                rst = stream_state(gen, n, BIG)
+                scal = {k: rst[k + "_e"]
+                        for k in ps.kernel_scalar_names(gen)}
+                for kind in ("heatbath", "metropolis"):
+                    ndraw = cupdate.stream_draw_count(kind, 4, 3, n)
+                    extra = stream_word_bytes(gen, v2, ndraw, scal)
+                    for track in (False, True):
+                        c = cnt if track else None
+                        pairs[cupdate.instance_name(kind, n, track, gen)] = (
+                            lambda kind=kind, c=c, gen=gen, rst=rst,
+                            scal=scal: cupdate.stage_update_stream_ref(
+                                w, 1, 0, beta, BIG, kind=kind, count=c,
+                                gen=gen, words=rst["words_e"], scalars=scal),
+                            lambda kind=kind, c=c, gen=gen, rst=rst,
+                            scal=scal: cupdate.stage_update(
+                                w, 1, 0, beta, None, BIG, kind=kind, count=c,
+                                gen=gen, words=rst["words_e"], scalars=scal),
+                            1, 20, 1, extra)
             # K2 as the sweep runs it: the 8 arrays in turn (one array
             # alone would stay in the 50 MB L2 from call to call)
             pairs[f"reunit_su{n}"] = (
                 lambda: [creunit.reunitarize_dir_ref(a, BIG) for a in w],
                 lambda: [creunit.reunitarize_dir(a, BIG) for a in w], 2, 25,
-                len(w))
+                len(w), 0)
             pairs[f"plane_sums_su{n}"] = (
                 lambda: cmeasure.plane_sums_ref(w, BIG),
-                lambda: cmeasure.plane_sums(w, BIG), 3, 100, 1)
+                lambda: cmeasure.plane_sums(w, BIG), 3, 100, 1, 0)
             pairs[f"polyakov_sums_su{n}"] = (
                 lambda: cmeasure.polyakov_sums_ref(w, BIG),
-                lambda: cmeasure.polyakov_sums(w, BIG), 3, 100, 1)
-            for name, (plain, kern, r_plain, r_kern, calls) in pairs.items():
+                lambda: cmeasure.polyakov_sums(w, BIG), 3, 100, 1, 0)
+            for name, (plain, kern, r_plain, r_kern, calls,
+                       extra) in pairs.items():
                 p1 = event_ms(plain, r_plain) / calls
                 k1 = event_ms(kern, r_kern) / calls
                 k2_ = event_ms(kern, r_kern) / calls
@@ -479,16 +634,19 @@ def main():
                 rec = record[name]
                 rec["ms"] = (k1 + k2_) / 2
                 rec["plain_ms"] = (p1 + p2) / 2
-                rec["bound_ms"], rec["bound_by"] = bound(*work(name, BIG))
+                nbytes, ops = work(name, BIG)
+                rec["bound_ms"], rec["bound_by"] = bound(nbytes + extra, ops)
                 print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
                       f"{p1:.4f} / {p2:.4f} ms, bound {rec['bound_ms']:.4f} "
                       f"ms ({rec['bound_by']})  [{smi}]")
-            del w
+            del w, pairs
         hots.clear()
 
     with Phase("5 main paths"):
         # the library API on small hot starts: CUDA kernels vs CPU plain
-        for label, _, kw in MAIN_PATHS[:4]:
+        for label, _, kw in MAIN_PATHS[:4] + (
+                ("streams: SU(3) heat-bath, prngcl:ranlux3", True,
+                 dict(group=3, beta=6.0, rng_mode="prngcl:ranlux3")),):
             small = SimConfig(**kw, dims=SMALL, seed=1, start="hot",
                               reunit_every=2)
             obs_gpu = Simulation(small, device="cuda").run(2, 1)
@@ -502,46 +660,33 @@ def main():
             require(d_plq < ROW_TOL[0] and d_pol < ROW_TOL[1]
                     and d_rate <= RATE_TOL, msg)
 
-        n_sweeps = 2 + THERM + RUN  # warmup() runs 1 sweep + 1 measured
-        n_reunit = sum(1 for i in range(THERM + RUN) if i % 10 == 9)
-        for label, is_slice, kw in MAIN_PATHS:
-            cfg = SimConfig(**kw, dims=BIG, reunit_every=10, start="cold",
-                            seed=0, rng_mode="threefry")
-            n = cfg.group
-            tracked = cfg.track_acceptance or cfg.track_kp_exhaust
-            expect = {
-                cupdate.instance_name(cfg.algorithm, n, tracked): 8 * n_sweeps,
-                f"reunit_su{n}": 8 * n_reunit,
-                f"plane_sums_su{n}": 1 + RUN,
-                f"polyakov_sums_su{n}": 1 + RUN,
-            }
-            if cfg.n_or:
-                expect[cupdate.instance_name("overrelax", n)] = (
-                    8 * cfg.n_or * n_sweeps)
+        def zero_counters():
             for c in counters:
                 for k in c:
                     c[k] = 0
-            t0 = time.perf_counter()
-            sim = Simulation(cfg)  # the card, by default
-            sim.warmup()
-            t1 = time.perf_counter()
-            sim.thermalize(THERM).sync()
-            t2 = time.perf_counter()
-            obs = sim.run(RUN, 1)
-            t3 = time.perf_counter()
-            launches = {k: v for c in counters for k, v in c.items() if v}
-            for k, v in launches.items():
-                record[k]["launches"] += v
-            therm_ms = (t2 - t1) / THERM * 1e3
-            run_ms = (t3 - t2) / RUN * 1e3
-            n_links = 4 * int(np.prod(BIG))
+
+        def expected(cfg, n_sweeps, n_reunit, n_meas):
+            n = cfg.group
+            tracked = cfg.track_acceptance or cfg.track_kp_exhaust
+            gen = ps.stream_mode_name(cfg.rng_mode)
+            expect = {
+                cupdate.instance_name(cfg.algorithm, n, tracked, gen):
+                    8 * n_sweeps,
+                f"plane_sums_su{n}": n_meas,
+                f"polyakov_sums_su{n}": n_meas,
+            }
+            if n_reunit:
+                expect[f"reunit_su{n}"] = 8 * n_reunit
+            if cfg.n_or:
+                expect[cupdate.instance_name("overrelax", n)] = (
+                    8 * cfg.n_or * n_sweeps)
+            return expect
+
+        def check_run(label, sim, obs, launches, expect):
+            cfg = sim.cfg
+            tracked = cfg.track_acceptance or cfg.track_kp_exhaust
             plq = float(obs[-1, 0])
             defect = sim.unitarity_defect()
-            print(f"{label}: warmup {t1 - t0:.2f} s; thermalize "
-                  f"{therm_ms:.3f} ms/sweep "
-                  f"({n_links / therm_ms * 1e3:.4e} link-updates/s); run "
-                  f"with measurement {run_ms:.3f} ms/sweep "
-                  f"({n_links / run_ms * 1e3:.4e} link-updates/s)  [{smi}]")
             tail = ""
             if tracked:
                 col = obs[:, -1]
@@ -551,29 +696,112 @@ def main():
                         and (col <= 1).all(), f"{label}: tracked column")
             print(f"  plaquette {plq:.6f}; unitarity defect {defect:.3e}; "
                   f"launches {launches}{tail}")
-            require(obs.shape == (RUN, len(sim.obs_names))
-                    and np.isfinite(obs).all(), f"{label}: bad series")
-            require(0.3 < plq < 1.0, f"{label}: plaquette {plq}")
+            require(np.isfinite(obs).all(), f"{label}: bad series")
+            # the constant debug generator samples no distribution
+            if cfg.rng_mode != "prngcl:constant":
+                require(0.3 < plq < 1.0, f"{label}: plaquette {plq}")
             require(defect < 1e-5, f"{label}: unitarity defect {defect}")
             require(launches == expect,
                     f"{label}: launches {launches}, expected {expect}")
-            if is_slice:
-                wall, wall_prof, busy, by_name = profile_window(sim, 5)
-                if busy is None:
-                    print("  idle share: not measured (the profiler saw no "
-                          "device event)")
-                else:
-                    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-                    print(f"  thermalize(5) + run(5, 1): wall {wall:.3f} ms "
-                          f"({wall_prof:.3f} ms under the profiler), device "
-                          f"busy {busy:.3f} ms, idle share "
-                          f"{1 - busy / wall:.4f} "
-                          f"({1 - busy / wall_prof:.4f} under the "
-                          f"profiler)  [{smi}]")
-                    for kname, (ms, calls) in top[:6]:
-                        print(f"    {ms:9.3f} ms {calls:5d} calls  "
-                              f"{kname[:90]}")
+            for k, v in launches.items():
+                record[k]["launches"] += v
+
+        def idle_share(sim):
+            wall, wall_prof, busy, by_name = profile_window(sim, 5)
+            if busy is None:
+                print("  idle share: not measured (the profiler saw no "
+                      "device event)")
+                return
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+            print(f"  thermalize(5) + run(5, 1): wall {wall:.3f} ms "
+                  f"({wall_prof:.3f} ms under the profiler), device "
+                  f"busy {busy:.3f} ms, idle share "
+                  f"{1 - busy / wall:.4f} "
+                  f"({1 - busy / wall_prof:.4f} under the "
+                  f"profiler)  [{smi}]")
+            for kname, (ms, calls) in top[:6]:
+                print(f"    {ms:9.3f} ms {calls:5d} calls  "
+                      f"{kname[:90]}")
+
+        def drive(label, cfg, profile):
+            """The 32^4 main path: Simulation(cfg) on the card by default,
+            warmup(), thermalize(THERM), run(RUN, 1), counters zeroed
+            before and read after."""
+            n_sweeps = 2 + THERM + RUN  # warmup() runs 1 sweep + 1 measured
+            n_reunit = sum(1 for i in range(THERM + RUN) if i % 10 == 9)
+            expect = expected(cfg, n_sweeps, n_reunit, 1 + RUN)
+            zero_counters()
+            t0 = time.perf_counter()
+            sim = Simulation(cfg).sync()  # the card, by default
+            t_init = time.perf_counter()
+            sim.warmup()
+            t1 = time.perf_counter()
+            sim.thermalize(THERM).sync()
+            t2 = time.perf_counter()
+            obs = sim.run(RUN, 1)
+            t3 = time.perf_counter()
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            therm_ms = (t2 - t1) / THERM * 1e3
+            run_ms = (t3 - t2) / RUN * 1e3
+            n_links = 4 * int(np.prod(BIG))
+            print(f"{label}: start state built in {t_init - t0:.3f} s; "
+                  f"warmup {t1 - t_init:.2f} s; thermalize "
+                  f"{therm_ms:.3f} ms/sweep "
+                  f"({n_links / therm_ms * 1e3:.4e} link-updates/s); run "
+                  f"with measurement {run_ms:.3f} ms/sweep "
+                  f"({n_links / run_ms * 1e3:.4e} link-updates/s)  [{smi}]")
+            require(obs.shape == (RUN, len(sim.obs_names)),
+                    f"{label}: series shape {obs.shape}")
+            check_run(label, sim, obs, launches, expect)
+            if profile:
+                idle_share(sim)
             del sim
+
+        for label, is_slice, kw in MAIN_PATHS:
+            drive(label, SimConfig(**kw, dims=BIG, reunit_every=10,
+                                   start="cold", seed=0,
+                                   rng_mode="threefry"), is_slice)
+        for gen in STREAM_BIG:
+            drive(f"streams: SU(3) heat-bath, prngcl:{gen}",
+                  SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
+                            start="cold", seed=0, rng_mode=f"prngcl:{gen}"),
+                  gen == "ranlux3")
+
+        # every stream instantiation on a path of its own at 8^4: warmup(),
+        # thermalize(2), run(2, 1), reunit_every=2, alternating cold and
+        # hot starts (the stream hot start; the constant generator's would
+        # be degenerate), one in three with 1 OR pass
+        i = 0
+        for fam in ps.FAMILIES:
+            gens = FAMILY_RUN_GENS[fam]
+            for n in GROUPS:
+                for kind in ("heatbath", "metropolis"):
+                    for track in (False, True):
+                        gen = gens[i % len(gens)]
+                        kw = dict(group=n, beta=BETA_RUN[n], algorithm=kind,
+                                  dims=STREAM_SMALL_RUN, reunit_every=2,
+                                  start=("cold", "hot")[
+                                      i % 2 and fam != "constant"], seed=i,
+                                  n_or=int(i % 3 == 0),
+                                  rng_mode=f"prngcl:{gen}")
+                        if track:
+                            kw["track_kp_exhaust" if kind == "heatbath"
+                               else "track_acceptance"] = True
+                        cfg = SimConfig(**kw)
+                        zero_counters()
+                        sim = Simulation(cfg)
+                        sim.warmup()
+                        sim.thermalize(2)
+                        obs = sim.run(2, 1)
+                        launches = {k: v for c in counters
+                                    for k, v in c.items() if v}
+                        label = (f"{gen} SU({n}) {kind} track={track} "
+                                 f"n_or={cfg.n_or} {cfg.start} "
+                                 f"{STREAM_SMALL_RUN}")
+                        print(label)
+                        check_run(label, sim, obs, launches,
+                                  expected(cfg, 6, 2, 3))
+                        i += 1
 
     def chain(therm, sweeps, **kw):
         sim = Simulation(SimConfig(**kw))
@@ -627,6 +855,32 @@ def main():
               f"{abs(st.mean - 0.63):.2e} (< {lit:.2e}); acc_rate {acc:.4f}")
         require(abs(st.mean - 0.63) < lit, f"SU(2) Metropolis <plq> {st.mean}")
         require(0.0 < acc < 1.0, f"acc_rate {acc}")
+
+        # the stream path: QCDGPU's default generator on the production
+        # point, and ranmar on SU(2)
+        a = chain(300, 600, group=3, dims=(16,) * 4, beta=6.0, n_or=1,
+                  track_kp_exhaust=True, seed=7, rng_mode="prngcl:ranlux3")
+        st = a["plq"]
+        dev_, tol = self_gate(st, 0.5937234, 4.2e-5, 1e-4)
+        print(f"SU(3) 16^4 beta=6.0 HB + 1 OR, seed 7, prngcl:ranlux3: "
+              f"<plq> = {st.mean:.7f} +- {st.err:.7f} (tau_int "
+              f"{st.tau_int:.2f}); |d| from 0.5937: "
+              f"{abs(st.mean - 0.5937):.2e} (< 5e-4); from anchor "
+              f"0.5937234: {dev_:.2e} (< {tol:.2e}); kp_exhaust_rate "
+              f"{a['kp_exhaust_rate'].mean:.3e}")
+        require(abs(st.mean - 0.5937) < 5e-4 and dev_ < tol,
+                f"SU(3) HB + OR ranlux3 <plq> {st.mean}")
+
+        st = chain(300, 1000, group=2, dims=(8,) * 4, beta=2.4, seed=42,
+                   rng_mode="prngcl:ranmar")["plq"]
+        lit = max(5 * st.err, 0.002)
+        dev_, tol = self_gate(st, 0.6304030, 2.7e-4, 2.5e-4)
+        print(f"SU(2) 8^4 beta=2.4 HB, seed 42, prngcl:ranmar: <plq> = "
+              f"{st.mean:.7f} +- {st.err:.7f} (tau_int {st.tau_int:.2f}); "
+              f"|d| from 0.6300: {abs(st.mean - 0.63):.2e} (< {lit:.2e}); "
+              f"from anchor 0.6304030: {dev_:.2e} (< {tol:.2e})")
+        require(abs(st.mean - 0.63) < lit and dev_ < tol,
+                f"SU(2) HB ranmar <plq> {st.mean}")
 
     print(json.dumps({"kernels": list(record.values())}))
     print(smi)

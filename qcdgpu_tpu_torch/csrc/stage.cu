@@ -1,277 +1,9 @@
-// K1: one checkerboard stage of SU(2) or SU(3) on the packed link state:
-// Kennedy-Pendleton heat-bath, overrelaxation or n-hit Metropolis, with an
-// optional tracked count.
-//
-// Replaces the TPU kernel qcdgpu_tpu/ops/pallas/update.py:_stage_kernel
-// (built by _stage_call, and by _stage_call_ytiled for the Y-tiled grid that
-// the TPU runs at 32^4) with rng_mode="threefry": kind in {heatbath,
-// overrelax, metropolis}, N in {2, 3}, track_acc on or off.  Plain PyTorch
-// twin: ops/cuda/update.py:stage_update_ref.
-//
-// What it computes, for every site x of parity p (one thread each):
-//   A = sum_{nu != mu} [ U_nu(x+mu) (U_nu(x) U_mu(x+nu))^+
-//                        + (U_mu(x-nu) U_nu(x+mu-nu))^+ U_nu(x-nu) ],
-//   W = U_mu(x) A, then for the Cabibbo-Marinari subgroups ((0,1) for SU(2);
-//   (0,1), (0,2), (1,2) for SU(3)): an SU(2) element u from the (i, j)
-//   block of W by the stage's kind, U <- u U and W <- u W.  Rows 0-1 of U
-//   are stored in place.  With TRACK, the stage adds to a device counter the
-//   sites whose heat-bath trials all failed, or the accepted Metropolis
-//   hits.
-//
-// What bounds it on an H100: per site it reads 19 links (12 f32 each at
-// SU(3), 8 at SU(2); each link neighbours 8 sites, so much of it comes from
-// L1/L2) and does about 3.5k f32 operations of SU(3) matrix algebra (0.9k at
-// SU(2)) plus 0.6k per subgroup for heat-bath or n_hit x 0.1k for
-// Metropolis, and up to 2k integer operations of threefry.  That is above
-// the card's f32-per-HBM-byte balance point, so it is bound by instruction
-// throughput and registers rather than by HBM bandwidth; overrelaxation
-// draws nothing and sits closest to the bandwidth floor.
-//
-// What the design does about that: one thread per site, so no shared memory
-// and no synchronisation (except the tracked count's one block reduction
-// and one 64-bit atomic per block); neighbours are addressed directly
-// (decode slot, step the coordinate, re-encode) instead of the TPU kernel's
-// roll-and-mask shifts of whole slabs; random numbers come from threefry in
-// registers, drawn per trial or hit on demand rather than as stored
-// uniforms.  The kind, N and tracking are template parameters, so each
-// instantiation carries only its own branch: heat-bath SU(3) without
-// tracking compiles to the kernel of the first port.  The algebra is fully
-// unrolled and lives in registers; __launch_bounds__(128) lets the compiler
-// use up to 255 registers per thread, so it need not spill.
-//
-// In place is safe: the stage writes us[2*mu + p] only at the thread's own
-// slot and reads that array nowhere else (U_mu at x +- nu has parity 1 - p),
-// so no thread reads a link another thread writes.
-#include "common.cuh"
-
-namespace qg {
-
-enum Kind { HEATBATH = 0, OVERRELAX = 1, METROPOLIS = 2 };
-
-struct Quat { float c[4]; };
-
-template <int N>
-__device__ __forceinline__ Quat quat_from_block(const Mat<N>& w, int i, int j) {
-  return {{0.5f * (w.a[i][i].re + w.a[j][j].re),
-           0.5f * (w.a[i][j].im + w.a[j][i].im),
-           0.5f * (w.a[i][j].re - w.a[j][i].re),
-           0.5f * (w.a[i][i].im - w.a[j][j].im)}};
-}
-
-__device__ __forceinline__ Quat quat_mul(const Quat& p, const Quat& q) {
-  return {{p.c[0] * q.c[0] - p.c[1] * q.c[1] - p.c[2] * q.c[2] - p.c[3] * q.c[3],
-           p.c[0] * q.c[1] + q.c[0] * p.c[1] - (p.c[2] * q.c[3] - p.c[3] * q.c[2]),
-           p.c[0] * q.c[2] + q.c[0] * p.c[2] - (p.c[3] * q.c[1] - p.c[1] * q.c[3]),
-           p.c[0] * q.c[3] + q.c[0] * p.c[3] - (p.c[1] * q.c[2] - p.c[2] * q.c[1])}};
-}
-
-__device__ __forceinline__ Quat quat_conj(const Quat& q) {
-  return {{q.c[0], -q.c[1], -q.c[2], -q.c[3]}};
-}
-
-// m <- embed(M(q); rows i, j) @ m
-template <int N>
-__device__ __forceinline__ void subgroup_left_mul(const Quat& q, int i, int j,
-                                                  Mat<N>& m) {
-  const C u00 = {q.c[0], q.c[3]};
-  const C u01 = {q.c[2], q.c[1]};
-  const C u10 = {-q.c[2], q.c[1]};
-  const C u11 = {q.c[0], -q.c[3]};
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const C mi = m.a[i][k], mj = m.a[j][k];
-    m.a[i][k] = cadd(cmul(u00, mi), cmul(u01, mj));
-    m.a[j][k] = cadd(cmul(u10, mi), cmul(u11, mj));
-  }
-}
-
-// Kennedy-Pendleton multiplier for one subgroup (ops/cuda/update.py
-// heatbath_flip): k_trials masked trials, first accepted wins, identity on
-// exhaustion (reported in `exhausted`).  Trial t draws slots slot0 + 2t
-// (r1, r2) and slot0 + 2t + 1 (r3, r4); the direction draws slot
-// slot0 + 2 k_trials.
-__device__ __forceinline__ Quat heatbath_flip(const Quat& q_w, float tbn,
-                                              uint32_t k0, uint32_t k1,
-                                              uint32_t sidx, uint32_t slot0,
-                                              int k_trials, bool& exhausted) {
-  const float n2 = q_w.c[0] * q_w.c[0] + q_w.c[1] * q_w.c[1] +
-                   q_w.c[2] * q_w.c[2] + q_w.c[3] * q_w.c[3];
-  const float rk = 1.0f / sqrtf(fmaxf(n2, 1e-38f));
-  const float k = n2 * rk;
-  const Quat v = {{q_w.c[0] * rk, q_w.c[1] * rk, q_w.c[2] * rk, q_w.c[3] * rk}};
-  const float a = tbn * k;
-  const float inv2a = 1.0f / (2.0f * fmaxf(a, 1e-10f));
-  float lam2_sel = 0.0f;
-  bool ok = false;
-  for (int t = 0; t < k_trials; ++t) {
-    uint32_t b0, b1, b2, b3;
-    threefry2x32(k0, k1, sidx, slot0 + 2u * t, b0, b1);
-    threefry2x32(k0, k1, sidx, slot0 + 2u * t + 1u, b2, b3);
-    const float r1 = bits_to_uniform(b0), r2 = bits_to_uniform(b1);
-    const float r3 = bits_to_uniform(b2), r4 = bits_to_uniform(b3);
-    const float c2 = cos2_2pi(r2);
-    const float lam2 = -inv2a * (log_u01(r1) + c2 * log_u01(r3));
-    const bool acc = (r4 * r4) <= (1.0f - lam2);
-    if (acc && !ok) lam2_sel = lam2;
-    ok = ok || acc;
-  }
-  exhausted = !ok;
-  const float x0 = fminf(fmaxf(1.0f - 2.0f * lam2_sel, -1.0f), 1.0f);
-  const float rho = sqrtf(fmaxf(1.0f - x0 * x0, 0.0f));
-  uint32_t d0, d1;
-  threefry2x32(k0, k1, sidx, slot0 + 2u * k_trials, d0, d1);
-  const float ct = 2.0f * bits_to_uniform(d0) - 1.0f;
-  const float st = sqrtf(fmaxf(1.0f - ct * ct, 0.0f));
-  float sph, cph;
-  sincos_2pi(bits_to_uniform(d1), sph, cph);
-  const Quat w = {{x0, rho * st * cph, rho * st * sph, rho * ct}};
-  if (ok && k > 1e-30f) return quat_mul(w, quat_conj(v));
-  return {{1.0f, 0.0f, 0.0f, 0.0f}};
-}
-
-// Overrelaxation multiplier (v^+)^2, v = q_w/|q_w| (ops/cuda/update.py
-// overrelax_flip): quat_mul(q_w^+, q_w^+) times the reciprocal of |q_w|^2.
-__device__ __forceinline__ Quat overrelax_flip(const Quat& q_w) {
-  const float n2 = q_w.c[0] * q_w.c[0] + q_w.c[1] * q_w.c[1] +
-                   q_w.c[2] * q_w.c[2] + q_w.c[3] * q_w.c[3];
-  const Quat qc = quat_conj(q_w);
-  const float inv = 1.0f / fmaxf(n2, 1e-38f);
-  const Quat u = quat_mul(qc, qc);
-  if (n2 > 1e-38f)
-    return {{u.c[0] * inv, u.c[1] * inv, u.c[2] * inv, u.c[3] * inv}};
-  return {{1.0f, 0.0f, 0.0f, 0.0f}};
-}
-
-// n_hit Metropolis hits on one subgroup (ops/cuda/update.py
-// metropolis_flip).  Hit h draws (u0, u1) from slot slot0 + 2h and
-// (u2, u3) from slot0 + 2h + 1; accepted hits are added to n_acc.  A
-// rejected hit multiplies by the identity, as the plain version does, so
-// both round alike.
-__device__ __forceinline__ Quat metropolis_flip(const Quat& q_w, float tbn,
-                                                uint32_t k0, uint32_t k1,
-                                                uint32_t sidx, uint32_t slot0,
-                                                int n_hit, float delta,
-                                                unsigned& n_acc) {
-  Quat acc_u = {{1.0f, 0.0f, 0.0f, 0.0f}};
-  Quat q_cur = q_w;
-  for (int h = 0; h < n_hit; ++h) {
-    uint32_t b0, b1, b2, b3;
-    threefry2x32(k0, k1, sidx, slot0 + 2u * h, b0, b1);
-    threefry2x32(k0, k1, sidx, slot0 + 2u * h + 1u, b2, b3);
-    const float w1 = delta * (2.0f * bits_to_uniform(b0) - 1.0f);
-    const float w2 = delta * (2.0f * bits_to_uniform(b1) - 1.0f);
-    const float w3 = delta * (2.0f * bits_to_uniform(b2) - 1.0f);
-    const float w0 = 1.0f;
-    const float rn = 1.0f / sqrtf(w0 * w0 + w1 * w1 + w2 * w2 + w3 * w3);
-    const Quat w = {{w0 * rn, w1 * rn, w2 * rn, w3 * rn}};
-    const float new0 = quat_mul(w, q_cur).c[0];
-    const float dlp = tbn * (new0 - q_cur.c[0]);
-    const bool accept = log_u01(bits_to_uniform(b3)) < dlp;
-    n_acc += accept ? 1u : 0u;
-    const Quat w_eff = accept ? w : Quat{{1.0f, 0.0f, 0.0f, 0.0f}};
-    acc_u = quat_mul(w_eff, acc_u);
-    q_cur = quat_mul(w_eff, q_cur);
-  }
-  return acc_u;
-}
-
-// One site's stage; returns its tracked count (0 unless TRACK).
-template <int N, int KIND, bool TRACK>
-__device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
-                                               int parity, const Dims& d,
-                                               uint32_t k0, uint32_t k1,
-                                               float tbn, int k_trials,
-                                               int n_hit, float delta) {
-  const int p = parity, q = parity ^ 1;
-  const Site x = decode_slot(slot, p, d);
-
-  // staple sum A in _staple_W's order: nu ascending, term = fwd + bwd
-  Mat<N> acc;
-  bool first = true;
-#pragma unroll
-  for (int nu = 0; nu < 4; ++nu) {
-    if (nu == mu) continue;
-    const Site xpm = step(x, mu, 1, d);
-    const Site xpn = step(x, nu, 1, d);
-    const Site xmn = step(x, nu, -1, d);
-    const Site xpmmn = step(xpm, nu, -1, d);
-    // forward: U_nu(x+mu) [U_nu(x) U_mu(x+nu)]^+
-    const Mat<N> inner = mmul(load_link<N>(L, nu, p, x, d),
-                              load_link<N>(L, mu, q, xpn, d));
-    const Mat<N> fwd = mmul_bdag(load_link<N>(L, nu, q, xpm, d), inner);
-    // backward: [U_mu(x-nu) U_nu(x+mu-nu)]^+ U_nu(x-nu)
-    const Mat<N> bwd = mmul(
-        mdag(mmul(load_link<N>(L, mu, q, xmn, d), load_link<N>(L, nu, p, xpmmn, d))),
-        load_link<N>(L, nu, q, xmn, d));
-    const Mat<N> term = madd(fwd, bwd);
-    acc = first ? term : madd(acc, term);
-    first = false;
-  }
-  float* target = L.p[2 * mu + p];
-  Mat<N> u = load_mat<N>(target, slot, d.v2);
-  Mat<N> w = mmul(u, acc);
-
-  const uint32_t sidx = dense_index(x, d);
-  const uint32_t per_slots = KIND == HEATBATH ? 2u * k_trials + 1u
-                             : KIND == METROPOLIS ? 2u * n_hit : 0u;
-  constexpr int n_sg = N == 3 ? 3 : 1;
-  const int sg[3][2] = {{0, 1}, {0, 2}, {1, 2}};
-  unsigned count = 0;
-#pragma unroll
-  for (int s = 0; s < n_sg; ++s) {
-    const int i = sg[s][0], j = sg[s][1];
-    const Quat q_w = quat_from_block(w, i, j);
-    Quat flip;
-    if constexpr (KIND == HEATBATH) {
-      bool exhausted;
-      flip = heatbath_flip(q_w, tbn, k0, k1, sidx, per_slots * s, k_trials,
-                           exhausted);
-      if (TRACK) count += exhausted ? 1u : 0u;
-    } else if constexpr (KIND == METROPOLIS) {
-      flip = metropolis_flip(q_w, tbn, k0, k1, sidx, per_slots * s, n_hit,
-                             delta, count);
-    } else {
-      flip = overrelax_flip(q_w);
-    }
-    subgroup_left_mul(flip, i, j, u);
-    subgroup_left_mul(flip, i, j, w);
-  }
-  store_rows(target, slot, d.v2, u);
-  return TRACK ? count : 0u;
-}
-
-template <int N, int KIND, bool TRACK>
-__global__ void __launch_bounds__(128)
-stage_kernel(Links L, int mu, int parity, Dims d, uint32_t k0, uint32_t k1,
-             float tbn, int k_trials, int n_hit, float delta,
-             unsigned long long* count) {
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (TRACK) {
-    // every thread joins the block's count reduction
-    const unsigned c = slot < d.v2
-        ? stage_site<N, KIND, TRACK>(L, slot, mu, parity, d, k0, k1, tbn,
-                                     k_trials, n_hit, delta)
-        : 0u;
-    block_count_add(c, count);
-  } else {
-    if (slot >= d.v2) return;
-    stage_site<N, KIND, TRACK>(L, slot, mu, parity, d, k0, k1, tbn, k_trials,
-                               n_hit, delta);
-  }
-}
-
-template <int N, int KIND, bool TRACK>
-int launch_stage(const Links& L, int mu, int parity, const Dims& d,
-                 uint32_t k0, uint32_t k1, float tbn, int k_trials, int n_hit,
-                 float delta, unsigned long long* count, cudaStream_t s) {
-  const int threads = 128;
-  const int blocks = (d.v2 + threads - 1) / threads;
-  stage_kernel<N, KIND, TRACK><<<blocks, threads, 0, s>>>(
-      L, mu, parity, d, k0, k1, tbn, k_trials, n_hit, delta, count);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace qg
+// K1 entry points: the threefry instantiations (every kind, N in {2, 3},
+// tracked or not) and the dispatch of the PRNGCL stream instantiations,
+// which live one family per source (stage_<family>.cu).  The kernel itself,
+// its cost model and its design are in stage.cuh; the stream draws in
+// streams.cuh.
+#include "stage.cuh"
 
 // n: 2 or 3; kind: qg::Kind; track: nonzero to add the stage's count to
 // *count (u64 on the device; heat-bath or Metropolis only).
@@ -289,21 +21,57 @@ extern "C" int qg_stage(void* u0, void* u1, void* u2, void* u3, void* u4,
   cudaStream_t s = (cudaStream_t)stream;
   if (track && (cnt == nullptr || kind == OVERRELAX))
     return (int)cudaErrorInvalidValue;
-#define QG_STAGE(NN, KK, TT)                                                \
-  if (n == NN && kind == KK && (track != 0) == TT)                          \
-    return launch_stage<NN, KK, TT>(L, mu, parity, d, k0, k1,               \
-                                    two_beta_over_n, k_trials, n_hit, delta, \
-                                    cnt, s);
-  QG_STAGE(3, HEATBATH, false)
-  QG_STAGE(3, HEATBATH, true)
-  QG_STAGE(3, OVERRELAX, false)
-  QG_STAGE(3, METROPOLIS, false)
-  QG_STAGE(3, METROPOLIS, true)
-  QG_STAGE(2, HEATBATH, false)
-  QG_STAGE(2, HEATBATH, true)
-  QG_STAGE(2, OVERRELAX, false)
-  QG_STAGE(2, METROPOLIS, false)
-  QG_STAGE(2, METROPOLIS, true)
-#undef QG_STAGE
+  const Threefry rng = {k0, k1};
+  if (kind == OVERRELAX) {
+    if (n == 3)
+      return launch_stage<3, OVERRELAX, false>(L, mu, parity, d, rng,
+                                               two_beta_over_n, k_trials,
+                                               n_hit, delta, cnt, s);
+    if (n == 2)
+      return launch_stage<2, OVERRELAX, false>(L, mu, parity, d, rng,
+                                               two_beta_over_n, k_trials,
+                                               n_hit, delta, cnt, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_drawing(L, n, kind, track != 0, mu, parity, d, rng,
+                        two_beta_over_n, k_trials, n_hit, delta, cnt, s);
+}
+
+// A stage drawing from PRNGCL streams.  family: index into
+// ops/prng_streams.py FAMILIES (xor128, xor7, mrg32k3a, parkmiller, constant,
+// ranlux, ranmar); words: the active parity's state [W, X, Y, Z*T/2] (word
+// k of slot i at words[k * stride + i]); s0, ptr0: the lag generators'
+// scalars (ranlux nb and pointer, ranmar carry * 2^24 and pointer); skip:
+// ranlux's luxury skip length.  Heat-bath or Metropolis only.
+extern "C" int qg_stage_stream(void* u0, void* u1, void* u2, void* u3,
+                               void* u4, void* u5, void* u6, void* u7, int n,
+                               int kind, int track, int mu, int parity, int X,
+                               int Y, int Z, int T, int family, void* words,
+                               int stride, unsigned int s0, int ptr0,
+                               int skip, float two_beta_over_n, int k_trials,
+                               int n_hit, float delta, void* count,
+                               void* stream) {
+  using namespace qg;
+  const Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3, (float*)u4,
+                    (float*)u5, (float*)u6, (float*)u7}};
+  const Dims d = make_dims(X, Y, Z, T);
+  unsigned long long* cnt = (unsigned long long*)count;
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((track && cnt == nullptr) || kind == OVERRELAX || words == nullptr ||
+      stride != d.v2 || skip < 0)
+    return (int)cudaErrorInvalidValue;
+#define QG_FAMILY(IDX, fam)                                                   \
+  if (family == IDX)                                                          \
+    return launch_stream_##fam(L, n, kind, track != 0, mu, parity, d, words,  \
+                               stride, s0, ptr0, skip, two_beta_over_n,       \
+                               k_trials, n_hit, delta, cnt, s);
+  QG_FAMILY(0, xor128)
+  QG_FAMILY(1, xor7)
+  QG_FAMILY(2, mrg32k3a)
+  QG_FAMILY(3, parkmiller)
+  QG_FAMILY(4, constant)
+  QG_FAMILY(5, ranlux)
+  QG_FAMILY(6, ranmar)
+#undef QG_FAMILY
   return (int)cudaErrorInvalidValue;
 }

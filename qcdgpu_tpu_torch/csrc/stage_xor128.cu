@@ -1,0 +1,5 @@
+// K1 drawing from the PRNGCL xor128 stream: heat-bath and Metropolis, SU(3) and
+// SU(2), tracked or not.  Kernel in stage.cuh, generator in streams.cuh.
+#include "streams.cuh"
+
+QG_DEFINE_STREAM_LAUNCHER(xor128, Xor128)

@@ -31,8 +31,12 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("stage.cu", "reunit.cu", "measure.cu")
-HEADERS = ("common.cuh",)
+# K1's stream families get a source each, so that their 56 instantiations
+# compile in parallel with the rest
+SOURCES = ("stage.cu", "reunit.cu", "measure.cu") + tuple(
+    f"stage_{fam}.cu" for fam in ("xor128", "xor7", "mrg32k3a", "parkmiller",
+                                  "constant", "ranlux", "ranmar"))
+HEADERS = ("common.cuh", "stage.cuh", "streams.cuh")
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "qcdgpu_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +49,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "qg_stage": [_P] * 8 + [_I] * 9 + [
         ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I,
+        ctypes.c_float, _P, _P],
+    "qg_stage_stream": [_P] * 8 + [_I] * 10 + [
+        _P, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _I, _I,
         ctypes.c_float, _P, _P],
     "qg_reunit": [_P, _I, _I, _P],
     "qg_plane_sums": [_P] * 8 + [_I] * 6 + [_P, _P, _P],

@@ -1,7 +1,7 @@
 """The packed engine: state layout, start states, sweeps and measurements.
 
-Port of qcdgpu_tpu/ops/pallas/engine.py (the threefry path, SU(2) and
-SU(3), every update algorithm, the tracked statistics).
+Port of qcdgpu_tpu/ops/pallas/engine.py (threefry and the PRNGCL streams,
+SU(2) and SU(3), every update algorithm, the tracked statistics).
 
 Engine state is the reference's flat 8-tuple ``us[2*mu + parity]`` of f32
 tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py for the layout).  A sweep
@@ -11,6 +11,15 @@ each stage is keyed ``rng.stage_key(base, sweep, stage_id)``.  On every
 reunit_every-th sweep the 8 arrays are reunitarized.  Stages and
 reunitarization update the state IN PLACE; a runner returns the same
 tuple it was given.
+
+With ``rng_mode="prngcl:<gen>"`` the engine state is ``(us, rst)``: rst is
+the reference's packed stream state, ``{"words_e", "words_o"}`` (each
+parity's per-site generator words ``[W, X, Y, Z*T/2]``) plus, for the lag
+generators, ``nb_e/nb_o`` (ranlux) or ``c_e/c_o`` (ranmar) and
+``ptr_e/ptr_o`` as host Python numbers.  This is the reference's Pallas
+provenance: a drawing stage advances only its active parity's streams, and
+overrelaxation draws nothing; the dense XLA provenance, which draws for
+every site, is a different chain (M11).
 
 Every kernel wrapper dispatches on the tensors' device (CPU: plain PyTorch
 version; CUDA: the hand-written kernel), so the same sweep serves both.
@@ -23,6 +32,7 @@ import numpy as np
 import torch
 
 from ...config import SimConfig
+from .. import prng_streams as streams
 from .. import rng, sun
 from . import core
 from . import measure as cmeasure
@@ -56,8 +66,6 @@ def check_supported(cfg: SimConfig) -> None:
         todo.append("get_fmunu / wilson_loops / get_qtop (M12)")
     if cfg.rng_mode == "hw":
         todo.append("rng_mode='hw' (M9, Philox)")
-    elif cfg.rng_mode != "threefry":
-        todo.append(f"rng_mode={cfg.rng_mode!r} (M14, PRNGCL streams)")
     if tuple(cfg.mesh) != (1, 1, 1, 1):
         todo.append(f"mesh={tuple(cfg.mesh)} (M15, multi-GPU)")
     if cfg.dtype != "complex64" or cfg.meas_dtype != "same":
@@ -122,6 +130,31 @@ def join_dir(pk_pair, dims, n):
         inter = torch.cat([inter, torch.stack(
             [torch.complex(re, im) for re, im in r2])[None]], dim=0)
     return inter
+
+
+def split_site_field(v, dims):
+    """Per-site field [..., X, Y, Z, T] -> (even, odd) [..., X, Y, Z*T/2],
+    by split_links' T-slot rule (parity p keeps the t with
+    (p + x + y + z + t) even at slot t // 2): the stream words' layout."""
+    x, y, z, t = dims
+    sig = _sigma(dims, v.device)
+    even, odd = v[..., 0::2], v[..., 1::2]
+    return tuple(
+        torch.where((sig + p) % 2 == 0, even, odd)
+        .reshape(v.shape[:-4] + (x, y, z * (t // 2))).contiguous()
+        for p in range(2))
+
+
+def join_site_field(pair, dims):
+    """Inverse of split_site_field."""
+    x, y, z, t = dims
+    sig = _sigma(dims, pair[0].device)
+    lead = pair[0].shape[:-3]
+    a = pair[0].reshape(lead + (x, y, z, t // 2))
+    b = pair[1].reshape(lead + (x, y, z, t // 2))
+    even = torch.where(sig == 0, a, b)
+    odd = torch.where(sig == 0, b, a)
+    return torch.stack([even, odd], dim=-1).reshape(lead + (x, y, z, t))
 
 
 def join_links(us, dims):
@@ -194,6 +227,56 @@ def packed_hot_start(cfg: SimConfig, base_key, device="cuda"):
     return tuple(out)
 
 
+def pack_stream_state(gen, dense, dims):
+    """Dense stream state -> the packed state: each parity's words, and for
+    the lag generators the scalars once per parity (equal at packing time;
+    they diverge through each parity's own draws)."""
+    we, wo = split_site_field(streams.state_to_words(gen, dense), dims)
+    out = {"words_e": we, "words_o": wo}
+    for k, v in streams.stream_kernel_scalars(gen, dense).items():
+        out[k + "_e"] = v
+        out[k + "_o"] = v
+    return out
+
+
+def make_stream_state0(cfg: SimConfig, device="cuda"):
+    """The packed stream state of a fresh run, seeded from cfg.seed."""
+    gen = streams.stream_mode_name(cfg.rng_mode)
+    dense = streams.make_stream_state(gen, cfg.seed, cfg.dims,
+                                      resolve_device(device))
+    return pack_stream_state(gen, dense, tuple(cfg.dims))
+
+
+def packed_stream_hot_start(cfg: SimConfig, device="cuda"):
+    """(us, rst): the hot start drawn from the streams in the dense layout
+    (reference sim.stream_hot_start: per direction 2 N^2 draws, open01,
+    Box–Muller with re = the first N^2 normals, reunitarize), then packed.
+    The first sweep continues the same streams."""
+    dev = resolve_device(device)
+    gen = streams.stream_mode_name(cfg.rng_mode)
+    n, dims = cfg.group, tuple(cfg.dims)
+    st = streams.make_stream_state(gen, cfg.seed, dims, dev)
+    links = []
+    for _ in range(NDIM):
+        uu, st = streams.stream_draw(gen, st, 2 * n * n)
+        z = rng.normals_from_uniforms(streams.open01(uu))
+        re = z[: n * n].reshape((n, n) + dims)
+        im = z[n * n:].reshape((n, n) + dims)
+        links.append(sun.reunitarize(torch.complex(re, im)))
+    return split_links(torch.stack(links)), pack_stream_state(gen, st, dims)
+
+
+def clone_state(st):
+    """A copy of engine state that the in-place kernels cannot touch:
+    links, or (links, stream state)."""
+    if isinstance(st[0], torch.Tensor):
+        return tuple(a.clone() for a in st)
+    us, rst = st
+    return (tuple(a.clone() for a in us),
+            {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in rst.items()})
+
+
 # ---------------------------------------------------------------------------
 # sweep / measurement on packed state
 # ---------------------------------------------------------------------------
@@ -220,41 +303,56 @@ def tracked_stat_denom(cfg: SimConfig, dims) -> float:
 
 
 def make_sweep(cfg: SimConfig):
-    """sweep(us, base_key, sweep_idx) -> us, in place; with tracking
-    (``tracks(cfg)``) -> (us, rate), rate an f32 0-d tensor on the state's
-    device: the sweep's tracked count over ``tracked_stat_denom``, summed
-    on the device.  Stage order, stage ids, the tracked kind and the
-    reunit condition are the reference's (ops/pallas/engine.py
+    """sweep(state, base_key, sweep_idx) -> state, in place; with tracking
+    (``tracks(cfg)``) -> (state, rate), rate an f32 0-d tensor on the
+    state's device: the sweep's tracked count over ``tracked_stat_denom``,
+    summed on the device.  state is us, or (us, rst) in stream mode (rst
+    returned as a new dict: its words advance in place, its scalars are
+    replaced).  Stage order, stage ids, the tracked kind and the reunit
+    condition are the reference's (ops/pallas/engine.py
     make_pallas_sweep)."""
     dims = tuple(cfg.dims)
     kinds = [cfg.algorithm] + ["overrelax"] * cfg.n_or
     track_kind = "heatbath" if cfg.track_kp_exhaust else "metropolis"
     tracking = tracks(cfg)
     denom = tracked_stat_denom(cfg, dims)
+    gen = streams.stream_mode_name(cfg.rng_mode)
+    scalar_names = streams.kernel_scalar_names(gen) if gen else ()
 
-    def sweep(us, base_key, sweep_idx):
+    def sweep(state, base_key, sweep_idx):
+        us, rst = (state[0], dict(state[1])) if gen else (state, None)
         count = (torch.zeros(1, dtype=torch.int64, device=us[0].device)
                  if tracking else None)
         stage_id = 0
         for kind in kinds:
             stage_count = count if kind == track_kind else None
+            kw = dict(kind=kind, n_hit=cfg.n_hit,
+                      metro_delta=cfg.metro_delta, count=stage_count)
             for parity in (0, 1):
+                sfx = ("_e", "_o")[parity]
                 for mu in range(NDIM):
-                    # overrelaxation draws nothing: no key to derive
-                    key2 = ((0, 0) if kind == "overrelax"
-                            else rng.stage_key(base_key, sweep_idx, stage_id))
-                    cupdate.stage_update(
-                        us, mu, parity, cfg.beta, key2, dims, cfg.kp_trials,
-                        kind=kind, n_hit=cfg.n_hit,
-                        metro_delta=cfg.metro_delta, count=stage_count)
+                    if gen and kind != "overrelax":
+                        scal = {k: rst[k + sfx] for k in scalar_names}
+                        _, scal = cupdate.stage_update(
+                            us, mu, parity, cfg.beta, None, dims,
+                            cfg.kp_trials, gen=gen, words=rst["words" + sfx],
+                            scalars=scal, **kw)
+                        rst.update({k + sfx: v for k, v in scal.items()})
+                    else:
+                        # overrelaxation draws nothing: no key to derive
+                        key2 = ((0, 0) if kind == "overrelax" else
+                                rng.stage_key(base_key, sweep_idx, stage_id))
+                        cupdate.stage_update(us, mu, parity, cfg.beta, key2,
+                                             dims, cfg.kp_trials, **kw)
                     stage_id += 1
         if (cfg.reunit_every > 0
                 and sweep_idx % cfg.reunit_every == cfg.reunit_every - 1):
             for s in us:
                 reunitarize_dir(s, dims)
+        out = (us, rst) if gen else us
         if tracking:
-            return us, count[0].to(torch.float32) / denom
-        return us
+            return out, count[0].to(torch.float32) / denom
+        return out
 
     return sweep
 
@@ -291,9 +389,10 @@ def make_chunk_runner(cfg: SimConfig, device="cuda"):
     check_supported(cfg)
     dev = resolve_device(device)
     dims = tuple(cfg.dims)
+    gen = streams.stream_mode_name(cfg.rng_mode)
     meas = lambda us: measure_all_split(us, dims)  # noqa: E731
     run = build_chunk_runner(
-        cfg, make_sweep(cfg), meas,
+        cfg, make_sweep(cfg), (lambda st: meas(st[0])) if gen else meas,
         pack=lambda u: split_links(u.to(dev)),
         unpack=lambda us: join_links(us, dims),
         with_acc=tracks(cfg),
@@ -301,4 +400,9 @@ def make_chunk_runner(cfg: SimConfig, device="cuda"):
     run.packed_cold_start = lambda: packed_cold_start(cfg, dev)
     run.packed_hot_start = lambda key: packed_hot_start(cfg, key, dev)
     run.measure_packed = meas
+    if gen:
+        # in stream mode run.packed takes and returns (us, rst)
+        run.make_stream_state0 = lambda: make_stream_state0(cfg, dev)
+        run.packed_stream_hot_start = lambda: packed_stream_hot_start(
+            cfg, dev)
     return run

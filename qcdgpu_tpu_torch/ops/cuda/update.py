@@ -1,7 +1,8 @@
-"""K1: the fused checkerboard stage — CUDA kernel (csrc/stage.cu) and its
+"""K1: the fused checkerboard stage — CUDA kernel (csrc/stage.cuh) and its
 plain PyTorch version.
 
-Port of qcdgpu_tpu/ops/pallas/update.py (``_stage_kernel``, threefry RNG):
+Port of qcdgpu_tpu/ops/pallas/update.py (``_stage_kernel``, threefry and
+PRNGCL stream RNG):
 one checkerboard stage (parity p, direction mu) gathers the staples of
 every parity-p site, forms W = U A, updates the Cabibbo–Marinari SU(2)
 subgroups ((0,1) for SU(2); (0,1), (0,2), (1,2) for SU(3)) with one of
@@ -30,8 +31,19 @@ safe because the stage reads that array only at the site it updates: the
 staple reads of U_mu at x +- nu lie in the other parity's array
 (reference ``_staple_W``, update.py:337-356).
 
+PRNGCL streams (``gen``): the randomness comes instead from the active
+parity's per-site generator words ``[W, X, Y, Z*T/2]`` (ops/prng_streams.py),
+which the stage advances in place: subgroup s consumes draws
+``s * 2 * per_slots`` onwards in the order the threefry slots above name
+them (heat-bath trial t draws 4t..4t+3, the direction 4K, 4K+1; Metropolis
+hit h draws 4h..4h+3), each through ``open01``.  The lag generators' scalars
+(pointer, luxury counter, carry) are host numbers: the stage takes them and
+returns them advanced.  The kernel has one instantiation per generator
+family (csrc/stage_<family>.cu); its plain twin is
+``stage_update_stream_ref``.
+
 ``stage_update`` dispatches on the tensors' device: CPU tensors go to
-``stage_update_ref``, CUDA tensors to the kernel, anything else raises.
+the plain version, CUDA tensors to the kernel, anything else raises.
 There is no fallback from a failed build or launch.
 """
 
@@ -41,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import fastmath as fm
+from .. import prng_streams as streams
 from .. import rng
 from . import build, core
 
@@ -49,18 +62,24 @@ KINDS = ("heatbath", "overrelax", "metropolis")
 SUBGROUPS = {2: ((0, 1),), 3: ((0, 1), (0, 2), (1, 2))}
 
 
-def instance_name(kind, n, track=False):
-    """Name of the kernel instantiation (and its launch counter)."""
-    return f"stage_{kind}_su{n}" + ("_track" if track else "")
+def instance_name(kind, n, track=False, gen=None):
+    """Name of the kernel instantiation (and its launch counter); ``gen``
+    names a PRNGCL generator (its family's instantiation)."""
+    fam = "" if gen is None else "_" + streams.family(gen)
+    return f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
 
 
 # the kernel instantiations: every kind and group, tracked where the kind
-# has something to count
+# has something to count; then the stream families' drawing kinds
 INSTANCES = tuple(instance_name(k, n, t) for n in (3, 2) for k in KINDS
                   for t in (False, True) if not (t and k == "overrelax"))
+STREAM_INSTANCES = tuple(
+    f"stage_{k}_su{n}_{fam}" + ("_track" if t else "")
+    for fam in streams.FAMILIES for n in (3, 2)
+    for k in ("heatbath", "metropolis") for t in (False, True))
 
 # kernel launches, counted where the kernel is launched (never on the CPU)
-LAUNCHES = {name: 0 for name in INSTANCES}
+LAUNCHES = {name: 0 for name in INSTANCES + STREAM_INSTANCES}
 
 
 def two_beta_over_n(beta, n):
@@ -251,12 +270,34 @@ def _check(us, mu, parity, dims, kind, k_trials, n_hit, count):
     return n, dev
 
 
-def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
-                     kind="heatbath", n_hit=3, metro_delta=0.35, count=None):
-    """Plain PyTorch stage; updates us[2*mu + parity] in place and returns
-    it (and adds the tracked count to ``count`` when given).  Any
-    device."""
-    n, _ = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
+def _check_stream(us, dims, kind, gen, words, scalars):
+    """Validate the stream arguments of a stage; returns the family."""
+    if gen is None:
+        if words is not None or scalars is not None:
+            raise ValueError("stream words/scalars given without gen")
+        return None
+    fam = streams.family(gen)
+    if kind == "overrelax":
+        raise ValueError("an overrelaxation stage draws nothing: no gen")
+    shape = (streams.stream_word_count(gen), dims[0], dims[1],
+             dims[2] * (dims[3] // 2))
+    dtype = streams.stream_word_dtype(gen)
+    if (not isinstance(words, torch.Tensor) or words.dtype != dtype
+            or tuple(words.shape) != shape or not words.is_contiguous()):
+        raise ValueError(f"{gen} words: expected contiguous {dtype} {shape}")
+    if words.device != us[0].device:
+        raise ValueError(f"words on {words.device}, links on {us[0].device}")
+    want = set(streams.kernel_scalar_names(gen))
+    if set(scalars or {}) != want:
+        raise ValueError(f"{gen} scalars: expected keys {sorted(want)}")
+    return fam
+
+
+def _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
+                 metro_delta, count, draw):
+    """The plain stage on the uniforms ``draw(m)`` returns (m tensors over
+    the active sites, slot order); updates us[2*mu + parity] in place."""
+    n = us[0].shape[1]
     dims = tuple(dims)
     ld = core.LinkLoader(us, parity, dims, n)
     u_mu, w = staple_W(ld, mu)
@@ -264,8 +305,7 @@ def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
     per = uniforms_per_subgroup(kind, k_trials, n_hit)
     per_slots = (per + 1) // 2
     if per:
-        sidx = core.site_index_packed(parity, dims, us[0].device).reshape(-1)
-        u_all = rng.site_uniforms(key2, sidx, 2 * per_slots * len(sgs))
+        u_all = draw(2 * per_slots * len(sgs))
     tbn = two_beta_over_n(beta, n)
     track = count is not None
     for s, (i, j) in enumerate(sgs):
@@ -288,29 +328,91 @@ def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
     return target
 
 
+def stream_draw_count(kind, k_trials, n_hit, n):
+    """Draws one stream stage consumes per site: the per-subgroup count
+    rounded up to whole pairs, times the subgroups (reference
+    ops/pallas/update.py stage_draw_count)."""
+    per = uniforms_per_subgroup(kind, k_trials, n_hit)
+    return 2 * ((per + 1) // 2) * len(SUBGROUPS[n])
+
+
+def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
+                     kind="heatbath", n_hit=3, metro_delta=0.35, count=None):
+    """Plain PyTorch stage (threefry); updates us[2*mu + parity] in place
+    and returns it (and adds the tracked count to ``count`` when given).
+    Any device."""
+    _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
+    sidx = core.site_index_packed(parity, tuple(dims),
+                                  us[0].device).reshape(-1)
+    return _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
+                        metro_delta, count,
+                        lambda m: rng.site_uniforms(key2, sidx, m))
+
+
+def stage_update_stream_ref(us, mu, parity, beta, dims, k_trials=4,
+                            kind="heatbath", n_hit=3, metro_delta=0.35,
+                            count=None, *, gen, words, scalars=None):
+    """Plain PyTorch stage drawing from the PRNGCL stream ``gen``: the
+    active parity's words advance in place, as the kernel's do.  Returns
+    (us[2*mu + parity], the advanced scalars).  Any device."""
+    n, _ = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
+    _check_stream(us, dims, kind, gen, words, scalars)
+    flat = words.reshape(words.shape[0], -1)
+
+    def draw(m):
+        return [streams.open01(u)
+                for u in streams.draw_words(gen, flat, m, scalars)]
+
+    target = _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
+                          metro_delta, count, draw)
+    return target, streams.advance_kernel_scalars(
+        gen, scalars, stream_draw_count(kind, k_trials, n_hit, n))
+
+
 def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
-                 kind="heatbath", n_hit=3, metro_delta=0.35, count=None):
+                 kind="heatbath", n_hit=3, metro_delta=0.35, count=None, *,
+                 gen=None, words=None, scalars=None):
     """One stage of ``kind`` on the packed 8-tuple, in place on
     us[2*mu + parity] (returned).  key2: the (k0, k1) stage key as ints
-    (rng.stage_key; unused by overrelaxation).  count: optional int64 [1]
-    tensor the stage adds its tracked count to.  CPU tensors take the
+    (rng.stage_key; unused by overrelaxation and streams).  count: optional
+    int64 [1] tensor the stage adds its tracked count to.
+
+    With ``gen`` (a PRNGCL generator name) the stage draws from ``words``,
+    the active parity's stream words, advancing them in place, and returns
+    (us[2*mu + parity], the advanced ``scalars``).  CPU tensors take the
     plain version, CUDA tensors the kernel."""
     n, dev = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
+    fam = _check_stream(us, dims, kind, gen, words, scalars)
     if dev == "cpu":
+        if fam is not None:
+            return stage_update_stream_ref(
+                us, mu, parity, beta, dims, k_trials, kind, n_hit,
+                metro_delta, count, gen=gen, words=words, scalars=scalars)
         return stage_update_ref(us, mu, parity, beta, key2, dims, k_trials,
                                 kind, n_hit, metro_delta, count)
-    name = instance_name(kind, n, count is not None)
+    track = count is not None
+    name = instance_name(kind, n, track, gen)
     lib = build.library()
     x, y, z, t = (int(d) for d in dims)
+    common = (n, KINDS.index(kind), int(track), int(mu), int(parity),
+              x, y, z, t)
+    tail = (two_beta_over_n(beta, n), int(k_trials), int(n_hit),
+            fm.f32(metro_delta), None if count is None else count.data_ptr(),
+            build.stream_handle(us[0].device))
     with torch.cuda.device(us[0].device):
-        err = lib.qg_stage(
-            *[a.data_ptr() for a in us], n, KINDS.index(kind),
-            int(count is not None), int(mu), int(parity), x, y, z, t,
-            int(key2[0]), int(key2[1]), two_beta_over_n(beta, n),
-            int(k_trials), int(n_hit), fm.f32(metro_delta),
-            None if count is None else count.data_ptr(),
-            build.stream_handle(us[0].device),
-        )
+        if fam is None:
+            err = lib.qg_stage(*[a.data_ptr() for a in us], *common,
+                               int(key2[0]), int(key2[1]), *tail)
+        else:
+            s0, ptr0 = streams.encode_kernel_scalars(gen, scalars)
+            skip = (streams.ranlux_skip_len(gen) if fam == "ranlux" else 0)
+            err = lib.qg_stage_stream(
+                *[a.data_ptr() for a in us], *common,
+                streams.FAMILIES.index(fam), words.data_ptr(),
+                words[0].numel(), s0, ptr0, skip, *tail)
     build.check(err, name)
     LAUNCHES[name] += 1
-    return us[2 * mu + parity]
+    if fam is None:
+        return us[2 * mu + parity]
+    return us[2 * mu + parity], streams.advance_kernel_scalars(
+        gen, scalars, stream_draw_count(kind, k_trials, n_hit, n))

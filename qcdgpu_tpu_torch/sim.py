@@ -8,7 +8,9 @@
 The state is the packed 8-tuple on ``device`` (ops/cuda/engine.py), and the
 stage and reunitarization kernels update it in place.  The canonical
 complex field [4, N, N, X, Y, Z, T] is built only when something asks for
-it (``sim.u``, ``unitarity_defect``).
+it (``sim.u``, ``unitarity_defect``).  With ``rng_mode="prngcl:<gen>"`` the
+Simulation also owns the packed PRNGCL stream state (``stream_state``),
+which the drawing stages advance in place.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import SimConfig
+from .config import SimConfig, stream_mode_name
+from .ops import prng_streams as streams
 from .ops import rng, sun
 from .ops.cuda import engine
 from .ops.measure import measure_obs_names, obs_names
@@ -27,13 +30,15 @@ NDIM = 4
 
 
 class Simulation:
-    """Owns (packed links, base key, sweep counter) on one device.
+    """Owns (packed links, base key, sweep counter) on one device, and in
+    PRNGCL stream mode the packed stream state.
 
     ``device`` is 'cuda' (the default) or 'cpu'; 'cuda' without a card
     raises — there is no silent fallback to the CPU.  ``init_u``
     (canonical complex field) or ``init_us`` (packed 8-tuple) start from
-    a given state — numpy arrays from the JAX package or tensors;
-    otherwise cfg.start picks a cold or hot start.
+    a given state — numpy arrays from the JAX package or tensors — with
+    fresh streams from cfg.seed in stream mode; otherwise cfg.start picks a
+    cold or hot start (a stream-mode hot start draws from the streams).
     """
 
     def __init__(self, cfg: SimConfig, init_u=None, init_us=None, *,
@@ -44,10 +49,14 @@ class Simulation:
         self._run = engine.make_chunk_runner(cfg, self.device)
         self.sweep_idx = 0
         self.obs_history: list[np.ndarray] = []
+        self._gen = stream_mode_name(cfg.rng_mode)
+        self._rst = None  # packed stream state (stream mode)
         if init_u is not None:
             self._us = self._adopt_input(init_u)
         elif init_us is not None:
             self._us = self._adopt_input(tuple(init_us))
+        elif cfg.start == "hot" and self._gen:
+            self._us, self._rst = self._run.packed_stream_hot_start()
         elif cfg.start == "hot":
             self._us = self._run.packed_hot_start(self.base_key)
         elif cfg.start == "continue":
@@ -57,6 +66,8 @@ class Simulation:
             )
         else:
             self._us = self._run.packed_cold_start()
+        if self._gen and self._rst is None:
+            self._rst = self._run.make_stream_state0()
 
     def _adopt_input(self, arrays):
         if isinstance(arrays, tuple):
@@ -76,6 +87,32 @@ class Simulation:
         return self._us
 
     @property
+    def stream_state(self):
+        """The packed PRNGCL stream state as numpy in the reference's
+        dtypes (words uint32 / int32 / float32; nb, ptr int32; c float32),
+        or None outside stream mode."""
+        if self._gen is None:
+            return None
+        out = {}
+        for k, v in self._rst.items():
+            if isinstance(v, torch.Tensor):
+                out[k] = streams.words_to_numpy(self._gen, v)
+            elif k.startswith("c_"):
+                out[k] = np.float32(v)
+            else:
+                out[k] = np.int32(v)
+        return out
+
+    def _state(self):
+        return (self._us, self._rst) if self._gen else self._us
+
+    def _adopt(self, st):
+        if self._gen:
+            self._us, self._rst = st
+        else:
+            self._us = st
+
+    @property
     def u(self):
         """Canonical complex64 field [4, N, N, X, Y, Z, T] (a new tensor)."""
         return self._run.unpack(self._us)
@@ -89,11 +126,12 @@ class Simulation:
     # -- simulation -------------------------------------------------------
     def warmup(self):
         """Build the kernels and run the programs thermalize()/run() use —
-        one sweep, then one measured block — on a CLONE of the state.  The
-        kernels update in place, so running on the live links would advance
+        one sweep, then one measured block — on a CLONE of the state (links
+        and stream words; the stream scalars are plain numbers).  The
+        kernels update in place, so running on the live state would advance
         the chain; the clone leaves it exactly as it was."""
         me = self.cfg.meas_every
-        scratch = tuple(a.clone() for a in self._us)
+        scratch = engine.clone_state(self._state())
         scratch, _ = self._run.packed(scratch, self.base_key, self.sweep_idx,
                                       1, 0)
         if me:
@@ -103,8 +141,9 @@ class Simulation:
     def thermalize(self, n: Optional[int] = None):
         n = self.cfg.sweeps_therm if n is None else n
         if n > 0:
-            self._us, _ = self._run.packed(self._us, self.base_key,
-                                           self.sweep_idx, n, 0)
+            st, _ = self._run.packed(self._state(), self.base_key,
+                                     self.sweep_idx, n, 0)
+            self._adopt(st)
             self.sweep_idx += n
         return self
 
@@ -114,8 +153,9 @@ class Simulation:
         [n_meas, len(obs_names)] as numpy (this waits for the device)."""
         n = self.cfg.sweeps if n is None else n
         me = self.cfg.meas_every if measure_every is None else measure_every
-        self._us, obs = self._run.packed(self._us, self.base_key,
-                                         self.sweep_idx, n, me)
+        st, obs = self._run.packed(self._state(), self.base_key,
+                                   self.sweep_idx, n, me)
+        self._adopt(st)
         self.sweep_idx += n
         obs = obs.cpu().numpy()
         if obs.size:

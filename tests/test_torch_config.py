@@ -60,14 +60,14 @@ def test_validation_matches_reference(kw):
 @pytest.mark.parametrize("kw", [
     dict(group=2, rng_mode="hw"),
     dict(n_or=1, mesh=(1, 2, 1, 1)),
-    dict(algorithm="metropolis", rng_mode="prngcl:ranmar"),
+    dict(algorithm="metropolis", rng_mode="prngcl:ranmar", get_qtop=True),
     dict(algorithm="metropolis", track_acceptance=True, get_qtop=True),
     dict(track_kp_exhaust=True, meas_dtype="double"),
     dict(get_fmunu=True),
     dict(wilson_loops=((1, 1),)),
     dict(get_qtop=True),
     dict(rng_mode="hw"),
-    dict(rng_mode="prngcl:xor128"),
+    dict(rng_mode="prngcl:xor128", mesh=(2, 1, 1, 1)),
     dict(mesh=(2, 1, 1, 1)),
     dict(dtype="complex128"),
     dict(meas_dtype="double"),
@@ -85,6 +85,11 @@ def test_unported_features_raise(kw):
     dict(algorithm="metropolis", n_hit=2, metro_delta=0.5),
     dict(algorithm="metropolis", track_acceptance=True),
     dict(track_kp_exhaust=True, n_or=1),
+    dict(rng_mode="prngcl:ranlux3"),
+    dict(rng_mode="prngcl:ranmar", algorithm="metropolis",
+         track_acceptance=True),
+    dict(rng_mode="prngcl:xor128", group=2, n_or=1),
+    dict(rng_mode="prngcl:mrg32k3a", track_kp_exhaust=True),
 ])
 def test_ported_features_accepted(kw):
     cfg = SimConfig(**{**TINY, **kw})
@@ -131,7 +136,8 @@ def test_default_device_is_the_card():
 
 def test_import_leaves_jax_out():
     code = ("import sys, qcdgpu_tpu_torch, qcdgpu_tpu_torch.sim, "
-            "qcdgpu_tpu_torch.ops.cuda.engine; "
+            "qcdgpu_tpu_torch.ops.cuda.engine, "
+            "qcdgpu_tpu_torch.ops.prng_streams; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'qcdgpu_tpu' or "
             "m.startswith('qcdgpu_tpu.')]; print(bad); sys.exit(bool(bad))")
