@@ -16,9 +16,11 @@ and nvcc.  Phases, each timed:
                   (4,4,2,4) and 32^4, tracked counts included; K1 streams
                   for all 11 PRNGCL generators x heat-bath/Metropolis x
                   group x tracking at (4,4,2,4), every (mu, parity) in
-                  sweep order on carried streams (words bit-identical), and
-                  ranlux3, ranmar, xor128, mrg32k3a at 32^4 (SU(3) heat-bath
-                  and tracked Metropolis); K2-K4 for SU(3) and SU(2) at
+                  sweep order on carried streams (words bit-identical),
+                  every stream instantiation again at 8^4 with the
+                  generator of its own phase-5 run, and ranlux3, ranmar,
+                  xor128, mrg32k3a at 32^4 (SU(3) heat-bath and tracked
+                  Metropolis); K2-K4 for SU(3) and SU(2) at
                   (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4;
   4. timing     — each instantiation and its plain version at 32^4, CUDA
                   events, in the order plain, kernel, kernel, plain (K2
@@ -26,11 +28,12 @@ and nvcc.  Phases, each timed:
                   from bytes (a stream stage's state words included) and
                   f32 operations;
   5. main paths — first small hot starts through the library API, CUDA
-                  against the CPU path (threefry slices, and ranlux3).  Then Simulation(cfg) with no device
-                  argument at 32^4 (cold start, reunit_every=10, threefry):
-                  warmup(), thermalize(20), run(20, 1), with the launch
-                  counters zeroed before and read after each run, for the
-                  bench's SU(3) heat-bath configuration (bench.py), the three slice
+                  against the CPU path (threefry slices, and ranlux3).
+                  Then Simulation(cfg) with no device argument at 32^4
+                  (cold start, reunit_every=10, threefry): warmup(),
+                  thermalize(20), run(20, 1), with the launch counters
+                  zeroed before and read after each run, for the bench's
+                  SU(3) heat-bath configuration (bench.py), the three slice
                   configurations (SU(3) heat-bath + 1 overrelaxation with
                   track_kp_exhaust; SU(3) Metropolis with track_acceptance;
                   SU(2) heat-bath + 1 overrelaxation) and four more that
@@ -58,6 +61,7 @@ line and {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
 
+import itertools
 import json
 import os
 import re
@@ -422,69 +426,49 @@ def main():
     def note_err(name, err):
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
 
-    def k1_compare(n, kind, track, dims, k_trials):
-        """Every (parity, mu) stage of one instantiation on copies of one
-        hot start, kernel against plain version: (max |d|, links beyond
-        STAGE_TOL, links, kernel count, plain count)."""
-        us = hot(dims, n)
-        base = rng.make_base_key(1)
-        worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
-        for p in (0, 1):
-            for mu in range(4):
-                key = rng.stage_key(base, 0, 4 * p + mu)
-                ck, cp = (
-                    (torch.zeros(1, dtype=torch.int64, device=dev)
-                     for _ in range(2)) if track else (None, None))
-                got = cupdate.stage_update(
-                    clone(us), mu, p, BETA_HOT[n], key, dims, k_trials,
-                    kind=kind, count=ck)
-                ref = cupdate.stage_update_ref(
-                    clone(us), mu, p, BETA_HOT[n], key, dims, k_trials,
-                    kind=kind, count=cp)
-                d = (got - ref).abs().reshape(4 * n, -1).amax(dim=0)
-                worst = max(worst, float(d.max()))
-                bad += int((d > STAGE_TOL).sum())
-                links += d.numel()
-                if track:
-                    cnt_k += int(ck)
-                    cnt_p += int(cp)
-        return worst, bad, links, cnt_k, cnt_p
-
     def stream_state(gen, n, dims):
         return engine.make_stream_state0(
             SimConfig(group=n, dims=dims, seed=3, rng_mode=f"prngcl:{gen}"),
             dev)
 
-    def k1_stream_compare(gen, n, kind, track, dims, k_trials):
-        """The 8 stages of a sweep, in sweep order, on one hot start and one
-        set of streams (so each parity's words, pointer and luxury counter
-        carry over 4 stages): kernel and plain version from the same
-        inputs at every stage, then both go on from the plain output.
-        Words and scalars must be bit-identical.  -> (max |d| links, links
-        beyond STAGE_TOL, links, kernel count, plain count)."""
+    def k1_compare(n, kind, track, dims, k_trials, gen=None):
+        """The 8 stages of a sweep, in sweep order, on one hot start (and,
+        with gen, one set of streams, so each parity's words, pointer and
+        luxury counter carry over its 4 stages): the kernel runs on a copy
+        of the inputs, the plain version on the originals, which carry on
+        to the next stage.  Stream words and scalars must come out
+        bit-identical.  -> (max |d| links, links beyond STAGE_TOL, links,
+        kernel count, plain count)."""
         us = clone(hot(dims, n))
-        rst = stream_state(gen, n, dims)
-        names = ps.kernel_scalar_names(gen)
+        rst = stream_state(gen, n, dims) if gen else {}
+        names = ps.kernel_scalar_names(gen) if gen else ()
+        base = rng.make_base_key(1)
         worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
         for p in (0, 1):
             sfx = ("_e", "_o")[p]
             for mu in range(4):
-                scal = {k: rst[k + sfx] for k in names}
-                uk, wk = clone(us), rst["words" + sfx].clone()
+                key = None if gen else rng.stage_key(base, 0, 4 * p + mu)
+                kw_p = kw_k = {}
+                if gen:
+                    kw_p = dict(gen=gen, words=rst["words" + sfx],
+                                scalars={k: rst[k + sfx] for k in names})
+                    kw_k = dict(kw_p, words=kw_p["words"].clone(),
+                                scalars=dict(kw_p["scalars"]))
                 ck, cp = (
                     (torch.zeros(1, dtype=torch.int64, device=dev)
                      for _ in range(2)) if track else (None, None))
-                _, sk = cupdate.stage_update(
-                    uk, mu, p, BETA_HOT[n], None, dims, k_trials, kind=kind,
-                    count=ck, gen=gen, words=wk, scalars=scal)
-                _, sp = cupdate.stage_update_stream_ref(
-                    us, mu, p, BETA_HOT[n], dims, k_trials, kind=kind,
-                    count=cp, gen=gen, words=rst["words" + sfx],
-                    scalars=scal)
-                require(torch.equal(wk, rst["words" + sfx]) and sk == sp,
-                        f"K1 {gen} {kind} SU({n}) {dims} (mu={mu}, p={p}): "
-                        "stream words or scalars differ")
-                rst.update({k + sfx: v for k, v in sp.items()})
+                uk = clone(us)
+                cupdate.stage_update(uk, mu, p, BETA_HOT[n], key, dims,
+                                     k_trials, kind=kind, count=ck, **kw_k)
+                cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key, dims,
+                                         k_trials, kind=kind, count=cp, **kw_p)
+                if gen:
+                    require(torch.equal(kw_k["words"], kw_p["words"])
+                            and kw_k["scalars"] == kw_p["scalars"],
+                            f"K1 {gen} {kind} SU({n}) {dims} (mu={mu}, "
+                            f"p={p}): stream words or scalars differ")
+                    rst.update({k + sfx: v
+                                for k, v in kw_p["scalars"].items()})
                 d = (uk[2 * mu + p] - us[2 * mu + p]).abs().reshape(
                     4 * n, -1).amax(dim=0)
                 worst = max(worst, float(d.max()))
@@ -495,51 +479,49 @@ def main():
                     cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
 
+    # phase 5's stream runs at STREAM_SMALL_RUN, one per stream
+    # instantiation: (index, generator, group, kind, tracking)
+    small_runs = [
+        (i, FAMILY_RUN_GENS[fam][i % len(FAMILY_RUN_GENS[fam])], n, kind, t)
+        for i, (fam, n, kind, t) in enumerate(itertools.product(
+            ps.FAMILIES, GROUPS, ("heatbath", "metropolis"), (False, True)))]
+
     with Phase("3 kernels vs plain versions"):
-        for n, kind, track in k1_cases:
-            name = cupdate.instance_name(kind, n, track)
+        # K1 threefry at (4,4,2,4) and 32^4; K1 streams: every generator
+        # at (4,4,2,4), every phase-5 run's at its shape, the four big
+        # generators' SU(3) heat-bath and tracked Metropolis at 32^4
+        cases = [(None, n, kind, track, dims) for n, kind, track in k1_cases
+                 for dims in (SMALL, BIG)]
+        cases += [(gen, n, kind, track, SMALL)
+                  for gen in ps.STREAM_GENERATORS for n in GROUPS
+                  for kind in ("heatbath", "metropolis")
+                  for track in (False, True)]
+        cases += [(gen, n, kind, track, STREAM_SMALL_RUN)
+                  for _, gen, n, kind, track in small_runs]
+        cases += [(gen, 3, kind, kind == "metropolis", BIG)
+                  for gen in STREAM_BIG
+                  for kind in ("heatbath", "metropolis")]
+        for gen, n, kind, track, dims in cases:
+            name = cupdate.instance_name(kind, n, track, gen)
             # tracked heat-bath with one KP trial, so that exhaustions occur
             k_trials = 1 if (track and kind == "heatbath") else 4
             per_link = 3 if kind == "metropolis" else 1  # decisions/subgroup
-            for dims in (SMALL, BIG):
-                worst, bad, links, ck, cp = k1_compare(n, kind, track, dims,
-                                                       k_trials)
-                note_err(name, worst)
-                msg = (f"K1 {name} {dims}: max |d| {worst:.3e}, {bad} of "
-                       f"{links} links beyond {STAGE_TOL}")
-                if track:
-                    msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
-                print(msg)
-                if dims == SMALL:
-                    require(worst < STAGE_TOL and ck == cp, msg)
-                else:
-                    n_sg = 3 if n == 3 else 1
-                    require(bad <= FLIP_FRACTION * links, msg)
-                    require(abs(ck - cp) <= bad * n_sg * per_link, msg)
-        stream_cases = [(gen, n, kind, track, SMALL)
-                        for gen in ps.STREAM_GENERATORS for n in GROUPS
-                        for kind in ("heatbath", "metropolis")
-                        for track in (False, True)]
-        stream_cases += [(gen, 3, kind, kind == "metropolis", BIG)
-                         for gen in STREAM_BIG
-                         for kind in ("heatbath", "metropolis")]
-        for gen, n, kind, track, dims in stream_cases:
-            name = cupdate.instance_name(kind, n, track, gen)
-            k_trials = 1 if (track and kind == "heatbath") else 4
-            per_link = 3 if kind == "metropolis" else 1
-            worst, bad, links, ck, cp = k1_stream_compare(
-                gen, n, kind, track, dims, k_trials)
+            worst, bad, links, ck, cp = k1_compare(n, kind, track, dims,
+                                                   k_trials, gen)
             note_err(name, worst)
-            msg = (f"K1 {name} ({gen}) {dims}: words bit-identical; max |d| "
-                   f"{worst:.3e}, {bad} of {links} links beyond {STAGE_TOL}")
+            msg = (f"K1 {name}" + (f" ({gen}; words bit-identical)"
+                                   if gen else "")
+                   + f" {dims}: max |d| {worst:.3e}, {bad} of {links} links "
+                   f"beyond {STAGE_TOL}")
             if track:
                 msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
             print(msg)
-            if dims == SMALL:
+            if dims != BIG:
                 require(worst < STAGE_TOL and ck == cp, msg)
             else:
+                n_sg = 3 if n == 3 else 1
                 require(bad <= FLIP_FRACTION * links, msg)
-                require(abs(ck - cp) <= bad * 3 * per_link, msg)
+                require(abs(ck - cp) <= bad * n_sg * per_link, msg)
         for n in GROUPS:
             for dims in (SMALL, ODD_T2, BIG):
                 u_ = hot(dims, n)
@@ -592,8 +574,8 @@ def main():
                         w, 1, 0, beta, key, BIG, kind=kind, count=c),
                     3, 50, 1, 0)
             # K1 streams: each family through one generator, on parity 0's
-            # words (advanced by every call: the cost of a stage does not
-            # depend on where the streams stand)
+            # words and scalars (advanced by every call: the cost of a stage
+            # does not depend on where the streams stand)
             for fam, gen in FAMILY_GEN.items():
                 rst = stream_state(gen, n, BIG)
                 scal = {k: rst[k + "_e"]
@@ -603,15 +585,13 @@ def main():
                     extra = stream_word_bytes(gen, v2, ndraw, scal)
                     for track in (False, True):
                         c = cnt if track else None
+                        kw = dict(kind=kind, count=c, gen=gen,
+                                  words=rst["words_e"], scalars=scal)
                         pairs[cupdate.instance_name(kind, n, track, gen)] = (
-                            lambda kind=kind, c=c, gen=gen, rst=rst,
-                            scal=scal: cupdate.stage_update_stream_ref(
-                                w, 1, 0, beta, BIG, kind=kind, count=c,
-                                gen=gen, words=rst["words_e"], scalars=scal),
-                            lambda kind=kind, c=c, gen=gen, rst=rst,
-                            scal=scal: cupdate.stage_update(
-                                w, 1, 0, beta, None, BIG, kind=kind, count=c,
-                                gen=gen, words=rst["words_e"], scalars=scal),
+                            lambda kw=kw: cupdate.stage_update_ref(
+                                w, 1, 0, beta, None, BIG, **kw),
+                            lambda kw=kw: cupdate.stage_update(
+                                w, 1, 0, beta, None, BIG, **kw),
                             1, 20, 1, extra)
             # K2 as the sweep runs it: the 8 arrays in turn (one array
             # alone would stay in the 50 MB L2 from call to call)
@@ -771,37 +751,25 @@ def main():
         # thermalize(2), run(2, 1), reunit_every=2, alternating cold and
         # hot starts (the stream hot start; the constant generator's would
         # be degenerate), one in three with 1 OR pass
-        i = 0
-        for fam in ps.FAMILIES:
-            gens = FAMILY_RUN_GENS[fam]
-            for n in GROUPS:
-                for kind in ("heatbath", "metropolis"):
-                    for track in (False, True):
-                        gen = gens[i % len(gens)]
-                        kw = dict(group=n, beta=BETA_RUN[n], algorithm=kind,
-                                  dims=STREAM_SMALL_RUN, reunit_every=2,
-                                  start=("cold", "hot")[
-                                      i % 2 and fam != "constant"], seed=i,
-                                  n_or=int(i % 3 == 0),
-                                  rng_mode=f"prngcl:{gen}")
-                        if track:
-                            kw["track_kp_exhaust" if kind == "heatbath"
-                               else "track_acceptance"] = True
-                        cfg = SimConfig(**kw)
-                        zero_counters()
-                        sim = Simulation(cfg)
-                        sim.warmup()
-                        sim.thermalize(2)
-                        obs = sim.run(2, 1)
-                        launches = {k: v for c in counters
-                                    for k, v in c.items() if v}
-                        label = (f"{gen} SU({n}) {kind} track={track} "
-                                 f"n_or={cfg.n_or} {cfg.start} "
-                                 f"{STREAM_SMALL_RUN}")
-                        print(label)
-                        check_run(label, sim, obs, launches,
-                                  expected(cfg, 6, 2, 3))
-                        i += 1
+        for i, gen, n, kind, track in small_runs:
+            kw = dict(group=n, beta=BETA_RUN[n], algorithm=kind,
+                      dims=STREAM_SMALL_RUN, reunit_every=2,
+                      start=("cold", "hot")[i % 2 and gen != "constant"],
+                      seed=i, n_or=int(i % 3 == 0), rng_mode=f"prngcl:{gen}")
+            if track:
+                kw["track_kp_exhaust" if kind == "heatbath"
+                   else "track_acceptance"] = True
+            cfg = SimConfig(**kw)
+            zero_counters()
+            sim = Simulation(cfg)
+            sim.warmup()
+            sim.thermalize(2)
+            obs = sim.run(2, 1)
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            label = (f"{gen} SU({n}) {kind} track={track} n_or={cfg.n_or} "
+                     f"{cfg.start} {STREAM_SMALL_RUN}")
+            print(label)
+            check_run(label, sim, obs, launches, expected(cfg, 6, 2, 3))
 
     def chain(therm, sweeps, **kw):
         sim = Simulation(SimConfig(**kw))

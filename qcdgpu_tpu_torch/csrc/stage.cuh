@@ -7,8 +7,7 @@
 // the TPU runs at 32^4): kind in {heatbath, overrelax, metropolis}, N in
 // {2, 3}, track_acc on or off, rng_mode "threefry" (stage.cu) or
 // "prngcl:<gen>" (stage_<family>.cu, with the draws of streams.cuh).  Plain
-// PyTorch twins: ops/cuda/update.py:stage_update_ref and
-// stage_update_stream_ref.
+// PyTorch twin: ops/cuda/update.py:stage_update_ref.
 //
 // What it computes, for every site x of parity p (one thread each):
 //   A = sum_{nu != mu} [ U_nu(x+mu) (U_nu(x) U_mu(x+nu))^+

@@ -3,20 +3,21 @@
 Port of qcdgpu_tpu/ops/pallas/engine.py (threefry and the PRNGCL streams,
 SU(2) and SU(3), every update algorithm, the tracked statistics).
 
-Engine state is the reference's flat 8-tuple ``us[2*mu + parity]`` of f32
-tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py for the layout).  A sweep
+Engine state is ``(us, rst)``: us is the reference's flat 8-tuple
+``us[2*mu + parity]`` of f32 tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py
+for the layout), rst the stream state below (``{}`` with threefry).  A sweep
 is one pass of cfg.algorithm and cfg.n_or overrelaxation passes, each 8
 stages (parity 0, 1 x mu 0..3); stage ids run on across the passes, and
 each stage is keyed ``rng.stage_key(base, sweep, stage_id)``.  On every
 reunit_every-th sweep the 8 arrays are reunitarized.  Stages and
-reunitarization update the state IN PLACE; a runner returns the same
-tuple it was given.
+reunitarization update the links IN PLACE; a runner returns the same
+tensors it was given.
 
-With ``rng_mode="prngcl:<gen>"`` the engine state is ``(us, rst)``: rst is
-the reference's packed stream state, ``{"words_e", "words_o"}`` (each
-parity's per-site generator words ``[W, X, Y, Z*T/2]``) plus, for the lag
-generators, ``nb_e/nb_o`` (ranlux) or ``c_e/c_o`` (ranmar) and
-``ptr_e/ptr_o`` as host Python numbers.  This is the reference's Pallas
+With ``rng_mode="prngcl:<gen>"`` rst is the reference's packed stream
+state, ``{"words_e", "words_o"}`` (each parity's per-site generator words
+``[W, X, Y, Z*T/2]``) plus, for the lag generators, ``nb_e/nb_o``
+(ranlux) or ``c_e/c_o`` (ranmar) and ``ptr_e/ptr_o`` as host Python
+numbers.  This is the reference's Pallas
 provenance: a drawing stage advances only its active parity's streams, and
 overrelaxation draws nothing; the dense XLA provenance, which draws for
 every site, is a different chain (M11).
@@ -240,8 +241,11 @@ def pack_stream_state(gen, dense, dims):
 
 
 def make_stream_state0(cfg: SimConfig, device="cuda"):
-    """The packed stream state of a fresh run, seeded from cfg.seed."""
+    """The packed stream state of a fresh run, seeded from cfg.seed ({}
+    with threefry)."""
     gen = streams.stream_mode_name(cfg.rng_mode)
+    if gen is None:
+        return {}
     dense = streams.make_stream_state(gen, cfg.seed, cfg.dims,
                                       resolve_device(device))
     return pack_stream_state(gen, dense, tuple(cfg.dims))
@@ -267,10 +271,8 @@ def packed_stream_hot_start(cfg: SimConfig, device="cuda"):
 
 
 def clone_state(st):
-    """A copy of engine state that the in-place kernels cannot touch:
-    links, or (links, stream state)."""
-    if isinstance(st[0], torch.Tensor):
-        return tuple(a.clone() for a in st)
+    """A copy of engine state (us, rst) that the in-place kernels cannot
+    touch."""
     us, rst = st
     return (tuple(a.clone() for a in us),
             {k: v.clone() if isinstance(v, torch.Tensor) else v
@@ -306,11 +308,10 @@ def make_sweep(cfg: SimConfig):
     """sweep(state, base_key, sweep_idx) -> state, in place; with tracking
     (``tracks(cfg)``) -> (state, rate), rate an f32 0-d tensor on the
     state's device: the sweep's tracked count over ``tracked_stat_denom``,
-    summed on the device.  state is us, or (us, rst) in stream mode (rst
-    returned as a new dict: its words advance in place, its scalars are
-    replaced).  Stage order, stage ids, the tracked kind and the reunit
-    condition are the reference's (ops/pallas/engine.py
-    make_pallas_sweep)."""
+    summed on the device.  state is (us, rst); rst is returned as a new
+    dict (its words advance in place, its scalars are replaced).  Stage
+    order, stage ids, the tracked kind and the reunit condition are the
+    reference's (ops/pallas/engine.py make_pallas_sweep)."""
     dims = tuple(cfg.dims)
     kinds = [cfg.algorithm] + ["overrelax"] * cfg.n_or
     track_kind = "heatbath" if cfg.track_kp_exhaust else "metropolis"
@@ -320,7 +321,7 @@ def make_sweep(cfg: SimConfig):
     scalar_names = streams.kernel_scalar_names(gen) if gen else ()
 
     def sweep(state, base_key, sweep_idx):
-        us, rst = (state[0], dict(state[1])) if gen else (state, None)
+        us, rst = state[0], dict(state[1])
         count = (torch.zeros(1, dtype=torch.int64, device=us[0].device)
                  if tracking else None)
         stage_id = 0
@@ -333,7 +334,7 @@ def make_sweep(cfg: SimConfig):
                 for mu in range(NDIM):
                     if gen and kind != "overrelax":
                         scal = {k: rst[k + sfx] for k in scalar_names}
-                        _, scal = cupdate.stage_update(
+                        cupdate.stage_update(
                             us, mu, parity, cfg.beta, None, dims,
                             cfg.kp_trials, gen=gen, words=rst["words" + sfx],
                             scalars=scal, **kw)
@@ -349,10 +350,9 @@ def make_sweep(cfg: SimConfig):
                 and sweep_idx % cfg.reunit_every == cfg.reunit_every - 1):
             for s in us:
                 reunitarize_dir(s, dims)
-        out = (us, rst) if gen else us
         if tracking:
-            return out, count[0].to(torch.float32) / denom
-        return out
+            return (us, rst), count[0].to(torch.float32) / denom
+        return us, rst
 
     return sweep
 
@@ -380,10 +380,11 @@ def measure_all_split(us, dims):
 
 
 def make_chunk_runner(cfg: SimConfig, device="cuda"):
-    """Runner for the packed engine on ``device`` (same contract as the
-    reference's make_pallas_chunk_runner): run(u, key, sweep0, n, me),
-    run.packed, run.pack / run.unpack, and the packed-direct start and
-    measurement entry points."""
+    """Runner for the packed engine on ``device`` (the contract of the
+    reference's make_pallas_chunk_runner, with the state always (us, rst)):
+    run(u, key, sweep0, n, me), run.packed, run.pack / run.unpack (run.pack
+    gives fresh streams from cfg.seed in stream mode), and the
+    packed-direct start and measurement entry points."""
     from ...runner import build_chunk_runner
 
     check_supported(cfg)
@@ -392,17 +393,16 @@ def make_chunk_runner(cfg: SimConfig, device="cuda"):
     gen = streams.stream_mode_name(cfg.rng_mode)
     meas = lambda us: measure_all_split(us, dims)  # noqa: E731
     run = build_chunk_runner(
-        cfg, make_sweep(cfg), (lambda st: meas(st[0])) if gen else meas,
-        pack=lambda u: split_links(u.to(dev)),
-        unpack=lambda us: join_links(us, dims),
+        cfg, make_sweep(cfg), lambda st: meas(st[0]),
+        pack=lambda u: (split_links(u.to(dev)), run.make_stream_state0()),
+        unpack=lambda st: join_links(st[0], dims),
         with_acc=tracks(cfg),
     )
     run.packed_cold_start = lambda: packed_cold_start(cfg, dev)
     run.packed_hot_start = lambda key: packed_hot_start(cfg, key, dev)
     run.measure_packed = meas
+    run.make_stream_state0 = lambda: make_stream_state0(cfg, dev)
     if gen:
-        # in stream mode run.packed takes and returns (us, rst)
-        run.make_stream_state0 = lambda: make_stream_state0(cfg, dev)
         run.packed_stream_hot_start = lambda: packed_stream_hot_start(
             cfg, dev)
     return run

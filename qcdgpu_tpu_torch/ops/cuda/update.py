@@ -37,10 +37,10 @@ which the stage advances in place: subgroup s consumes draws
 ``s * 2 * per_slots`` onwards in the order the threefry slots above name
 them (heat-bath trial t draws 4t..4t+3, the direction 4K, 4K+1; Metropolis
 hit h draws 4h..4h+3), each through ``open01``.  The lag generators' scalars
-(pointer, luxury counter, carry) are host numbers: the stage takes them and
-returns them advanced.  The kernel has one instantiation per generator
-family (csrc/stage_<family>.cu); its plain twin is
-``stage_update_stream_ref``.
+(pointer, luxury counter, carry) are host numbers in a dict the stage
+advances in place, as it does the words.  The kernel has one instantiation
+per generator family (csrc/stage_<family>.cu); its plain twin is
+``stage_update_ref`` with the same arguments.
 
 ``stage_update`` dispatches on the tensors' device: CPU tensors go to
 the plain version, CUDA tensors to the kernel, anything else raises.
@@ -337,26 +337,19 @@ def stream_draw_count(kind, k_trials, n_hit, n):
 
 
 def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
-                     kind="heatbath", n_hit=3, metro_delta=0.35, count=None):
-    """Plain PyTorch stage (threefry); updates us[2*mu + parity] in place
-    and returns it (and adds the tracked count to ``count`` when given).
-    Any device."""
-    _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
-    sidx = core.site_index_packed(parity, tuple(dims),
-                                  us[0].device).reshape(-1)
-    return _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
-                        metro_delta, count,
-                        lambda m: rng.site_uniforms(key2, sidx, m))
-
-
-def stage_update_stream_ref(us, mu, parity, beta, dims, k_trials=4,
-                            kind="heatbath", n_hit=3, metro_delta=0.35,
-                            count=None, *, gen, words, scalars=None):
-    """Plain PyTorch stage drawing from the PRNGCL stream ``gen``: the
-    active parity's words advance in place, as the kernel's do.  Returns
-    (us[2*mu + parity], the advanced scalars).  Any device."""
+                     kind="heatbath", n_hit=3, metro_delta=0.35, count=None, *,
+                     gen=None, words=None, scalars=None):
+    """Plain PyTorch stage with stage_update's arguments: updates
+    us[2*mu + parity] in place and returns it, adds the tracked count to
+    ``count`` when given, and with ``gen`` advances ``words`` and the dict
+    ``scalars`` in place, as the kernel does.  Any device."""
     n, _ = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
-    _check_stream(us, dims, kind, gen, words, scalars)
+    if _check_stream(us, dims, kind, gen, words, scalars) is None:
+        sidx = core.site_index_packed(parity, tuple(dims),
+                                      us[0].device).reshape(-1)
+        return _stage_plain(us, mu, parity, beta, dims, k_trials, kind,
+                            n_hit, metro_delta, count,
+                            lambda m: rng.site_uniforms(key2, sidx, m))
     flat = words.reshape(words.shape[0], -1)
 
     def draw(m):
@@ -365,8 +358,9 @@ def stage_update_stream_ref(us, mu, parity, beta, dims, k_trials=4,
 
     target = _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
                           metro_delta, count, draw)
-    return target, streams.advance_kernel_scalars(
-        gen, scalars, stream_draw_count(kind, k_trials, n_hit, n))
+    scalars.update(streams.advance_kernel_scalars(
+        gen, scalars, stream_draw_count(kind, k_trials, n_hit, n)))
+    return target
 
 
 def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
@@ -378,18 +372,15 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
     int64 [1] tensor the stage adds its tracked count to.
 
     With ``gen`` (a PRNGCL generator name) the stage draws from ``words``,
-    the active parity's stream words, advancing them in place, and returns
-    (us[2*mu + parity], the advanced ``scalars``).  CPU tensors take the
-    plain version, CUDA tensors the kernel."""
+    the active parity's stream words, and advances them and the dict
+    ``scalars`` in place.  CPU tensors take the plain version, CUDA tensors
+    the kernel."""
     n, dev = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
     fam = _check_stream(us, dims, kind, gen, words, scalars)
     if dev == "cpu":
-        if fam is not None:
-            return stage_update_stream_ref(
-                us, mu, parity, beta, dims, k_trials, kind, n_hit,
-                metro_delta, count, gen=gen, words=words, scalars=scalars)
         return stage_update_ref(us, mu, parity, beta, key2, dims, k_trials,
-                                kind, n_hit, metro_delta, count)
+                                kind, n_hit, metro_delta, count, gen=gen,
+                                words=words, scalars=scalars)
     track = count is not None
     name = instance_name(kind, n, track, gen)
     lib = build.library()
@@ -412,7 +403,7 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
                 words[0].numel(), s0, ptr0, skip, *tail)
     build.check(err, name)
     LAUNCHES[name] += 1
-    if fam is None:
-        return us[2 * mu + parity]
-    return us[2 * mu + parity], streams.advance_kernel_scalars(
-        gen, scalars, stream_draw_count(kind, k_trials, n_hit, n))
+    if fam is not None:
+        scalars.update(streams.advance_kernel_scalars(
+            gen, scalars, stream_draw_count(kind, k_trials, n_hit, n)))
+    return us[2 * mu + parity]

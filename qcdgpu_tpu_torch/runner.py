@@ -25,8 +25,8 @@ from .ops.measure import obs_names
 def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
                        with_acc=False):
     """sweep(state, key, sweep_idx) -> state (may update in place), or
-    (state, rate) with with_acc, rate an f32 0-d tensor; state is the link
-    8-tuple, or (links, stream state) in PRNGCL stream mode;
+    (state, rate) with with_acc, rate an f32 0-d tensor; state is
+    (link 8-tuple, stream state);
     measure_state(state) -> f32 row [n_obs] (without the tracked column)
     on the state's device;
     pack / unpack: canonical complex link field <-> engine state."""
@@ -40,9 +40,7 @@ def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
         return out if with_acc else (out, None)
 
     def run_packed(st, base_key, sweep0, n_sweeps, measure_every):
-        # st is the link 8-tuple, or (links, stream state) in stream mode
-        links = st if isinstance(st[0], torch.Tensor) else st[0]
-        device = links[0].device
+        device = st[0][0].device
         me = int(measure_every or 0)
         n_blocks = n_sweeps // me if me else 0
         rows = []

@@ -50,7 +50,7 @@ class Simulation:
         self.sweep_idx = 0
         self.obs_history: list[np.ndarray] = []
         self._gen = stream_mode_name(cfg.rng_mode)
-        self._rst = None  # packed stream state (stream mode)
+        self._rst = None  # packed stream state ({} with threefry)
         if init_u is not None:
             self._us = self._adopt_input(init_u)
         elif init_us is not None:
@@ -66,7 +66,7 @@ class Simulation:
             )
         else:
             self._us = self._run.packed_cold_start()
-        if self._gen and self._rst is None:
+        if self._rst is None:
             self._rst = self._run.make_stream_state0()
 
     def _adopt_input(self, arrays):
@@ -104,18 +104,15 @@ class Simulation:
         return out
 
     def _state(self):
-        return (self._us, self._rst) if self._gen else self._us
+        return self._us, self._rst
 
     def _adopt(self, st):
-        if self._gen:
-            self._us, self._rst = st
-        else:
-            self._us = st
+        self._us, self._rst = st
 
     @property
     def u(self):
         """Canonical complex64 field [4, N, N, X, Y, Z, T] (a new tensor)."""
-        return self._run.unpack(self._us)
+        return self._run.unpack(self._state())
 
     def sync(self):
         """Wait for the queued device work (no-op on the CPU)."""

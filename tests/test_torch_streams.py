@@ -196,10 +196,9 @@ def test_stream_stage_matches_xla(gen, n, kind, stages):
         sfx = ("_e", "_o")[p]
         u, dense[p] = xla_stream_stage(u, mu, p, kind, beta, dense[p], gen,
                                        ndraw)
-        _, scal = tupd.stage_update(
-            us, mu, p, beta, None, DIMS, kind=kind, count=count, gen=gen,
-            words=rst["words" + sfx],
-            scalars={k: rst[k + sfx] for k in names})
+        scal = {k: rst[k + sfx] for k in names}
+        tupd.stage_update(us, mu, p, beta, None, DIMS, kind=kind, count=count,
+                          gen=gen, words=rst["words" + sfx], scalars=scal)
         rst.update({k + sfx: v for k, v in scal.items()})
         got = teng.join_dir((us[2 * mu], us[2 * mu + 1]), DIMS, n).numpy()
         mask = np.asarray(parity_mask(DIMS, p))
