@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and run its main paths on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card
+    python3 chip_smoke.py --cards 4    # the sharded path across 4 cards
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
-and nvcc.  Phases, each timed:
+and nvcc.  With ``--cards N`` it builds the kernels and runs only phase 7:
+the bench configuration on an XY mesh, SU(3) heat-bath + 1 OR with
+track_kp_exhaust on an X mesh and prngcl:ranlux3 on an XY mesh, each with
+its shards spread over N cards, against the unsharded chain on card 0
+(links, series and streams bit-identical).  With no argument, phases 1-6,
+each timed:
 
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
   2. build      — nvcc builds csrc/*.cu into build/ (one process per
                   source, all at once); registers, stack frame and spills
-                  of every kernel instantiation, threefry and stream;
+                  of every kernel instantiation, threefry and stream,
+                  unsharded and on a shard (K1a, K5a, K5b: "_shard");
   3. kernels    — every kernel instantiation against its plain PyTorch
                   version on the card (hot starts, seed 1): K1 threefry for
                   each kind x group x tracking, every (mu, parity), at
@@ -21,12 +28,21 @@ and nvcc.  Phases, each timed:
                   generator of its own phase-5 run, and ranlux3, ranmar,
                   xor128, mrg32k3a at 32^4 (SU(3) heat-bath and tracked
                   Metropolis); K2-K4 for SU(3) and SU(2) at
-                  (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4;
+                  (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4; every K1a
+                  instantiation (threefry and stream) on the shards of
+                  (8,8,4,4) mesh (2,2,1,1) and again at the 8^4 shape,
+                  X, Y or XY mesh and generator of its own phase-5 run,
+                  SU(3) heat-bath (and tracked) at 32^4 on (2,2,1,1),
+                  every (mu, parity) in sweep order with the halo refresh
+                  between stages, streams on carried words; K5a/K5b per
+                  shard at (8,8,4,4) and 32^4 on the XY, X and Y meshes;
   4. timing     — each instantiation and its plain version at 32^4, CUDA
-                  events, in the order plain, kernel, kernel, plain (K2
+                  events, in the order plain, kernel, kernel (K2
                   over the 8 arrays in turn, per array), beside its bound
-                  from bytes (a stream stage's state words included) and
-                  f32 operations;
+                  from bytes (a stream stage's state words included; on a
+                  shard only the halo columns read) and f32 operations;
+                  K1a, K5a and K5b on one shard of 32^4 mesh (2,2,1,1),
+                  and the halo refresh of one array;
   5. main paths — first small hot starts through the library API, CUDA
                   against the CPU path (threefry slices, and ranlux3).
                   Then Simulation(cfg) with no device argument at 32^4
@@ -43,7 +59,14 @@ and nvcc.  Phases, each timed:
                   ranlux3 (QCDGPU's default generator; idle share too),
                   ranmar, xor128 and mrg32k3a, with the time to build the
                   stream state; and every stream instantiation through its
-                  own configuration at 8^4;
+                  own configuration at 8^4.  Then the sharded path:
+                  the bench configuration on mesh (2,2,1,1) (launch counts,
+                  idle share, links bit-identical to the unsharded run),
+                  meshes (4,1,1,1) and (1,4,1,1), prngcl:ranlux3 on
+                  (2,1,1,1) (links and streams bit-identical), and SU(3)
+                  64^4 on (1,8,1,1) against unsharded after 2 sweeps;
+                  and every K1a instantiation through a configuration of
+                  its own at 8^4 on an X, Y or XY mesh;
   6. physics    — SU(3) 16^4 beta=6.0 heat-bath (window 0.5937 +- 5e-4);
                   SU(3) 16^4 beta=6.0 heat-bath + 1 overrelaxation with
                   track_kp_exhaust, seed 7, and SU(2) 8^4 beta=2.4
@@ -53,7 +76,9 @@ and nvcc.  Phases, each timed:
                   literature window; the stream gates: SU(3) 16^4 beta=6.0
                   heat-bath + 1 overrelaxation, track_kp_exhaust, seed 7,
                   prngcl:ranlux3, and SU(2) 8^4 beta=2.4 heat-bath, seed
-                  42, prngcl:ranmar, each with both gates.
+                  42, prngcl:ranmar, each with both gates; SU(3) 16^4
+                  heat-bath on mesh (2,2,1,1), which must reproduce the
+                  unsharded chain's links and plaquette.
 
 Any failed check raises and the script exits non-zero.  The last three
 lines are the kernels' JSON record, the card's `nvidia-smi` name/power
@@ -77,6 +102,11 @@ SMALL = (4, 4, 2, 4)
 ODD_T2 = (8, 8, 8, 6)
 BIG = (32, 32, 32, 32)
 STREAM_SMALL_RUN = (8, 8, 8, 8)
+SHARD_SMALL = (8, 8, 4, 4)  # K1a / K5 against their plain twins
+MESH = (2, 2, 1, 1)
+# the X, Y and XY meshes the K1a instantiations' own 8^4 runs cycle over
+SHARD_MESHES = ((2, 2, 1, 1), (4, 1, 1, 1), (1, 4, 1, 1), (2, 1, 1, 1),
+                (1, 2, 1, 1))
 GROUPS = (3, 2)
 BETA_HOT = {3: 5.5, 2: 2.3}  # couplings of the kernel-vs-plain comparisons
 BETA_RUN = {3: 6.0, 2: 2.4}
@@ -131,6 +161,14 @@ FAMILY_RUN_GENS = {"ranlux": ("ranlux0", "ranlux1", "ranlux2", "ranlux4"),
                    "constant": ("constant",), "ranmar": ("ranmar",)}
 
 
+def parse_instance(name):
+    """(kind, group, tracked, stream family or None) of a stage
+    instantiation's name (update.instance_name)."""
+    parts = name.split("_")
+    fam = parts[3] if parts[3] in FAMILY_RUN_GENS else None
+    return parts[1], int(parts[2][2:]), "track" in parts, fam
+
+
 class Phase:
     def __init__(self, name):
         self.name = name
@@ -152,12 +190,13 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
-def nvidia_smi_line():
+def nvidia_smi_lines():
+    """The `name, power.limit` line of every card."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
 
 
 def sync():
@@ -191,18 +230,20 @@ def kernel_label(mangled, kinds):
     """Readable name of a mangled qg:: kernel; stage instantiations get
     their launch-counter names (kinds: the update kinds in qg::Kind
     order)."""
+    shard = "_shard" if "9ShardDims" in mangled else ""
     m = re.search(r"stage_kernelILi(\d)ELi(\d)ELb([01])ENS_"
                   r"(?:8Threefry|6StreamINS_(\d+)(\w+))", mangled)
     if m:
         n, kind, track = int(m[1]), kinds[int(m[2])], m[3] == "1"
         fam = "" if m[4] is None else "_" + m[5][:int(m[4])].lower()
-        return f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
+        return (f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
+                + shard)
     m = re.match(r"_ZN2qg(\d+)", mangled)  # qg::<length-prefixed name>
     if not m:
         return mangled
     end = m.end() + int(m[1])
     t = re.match(r"ILi(\d)E", mangled[end:])
-    return mangled[m.end():end] + (f"<{t[1]}>" if t else "")
+    return mangled[m.end():end] + (f"<{t[1]}>" if t else "") + shard
 
 
 def ptxas_summary(log, kinds):
@@ -279,22 +320,80 @@ def stream_word_bytes(gen, v2, ndraw, scalars):
     return 4 * v2 * (len(read) + len(written))
 
 
-def work(name, dims, k_trials=4, n_hit=3):
+def unit(axis):
+    """(dx, dy) of one step along lattice axis 0..3 (Z, T stay in the
+    column)."""
+    return ((1, 0), (0, 1), (0, 0), (0, 0))[axis]
+
+
+def stage_reads(mu, p):
+    """The links one stage (mu, parity p) loads, as (array 2d + parity,
+    dx, dy): U_mu(x), and per nu != mu the staple's U_nu(x), U_mu(x+nu),
+    U_nu(x+mu), U_nu(x+mu-nu), U_mu(x-nu), U_nu(x-nu)."""
+    reads = [(2 * mu + p, 0, 0)]
+    m = unit(mu)
+    for nu in range(4):
+        if nu == mu:
+            continue
+        v = unit(nu)
+        reads += [(2 * nu + p, 0, 0), (2 * mu + 1 - p, *v),
+                  (2 * nu + 1 - p, *m),
+                  (2 * nu + p, m[0] - v[0], m[1] - v[1]),
+                  (2 * mu + 1 - p, -v[0], -v[1]),
+                  (2 * nu + 1 - p, -v[0], -v[1])]
+    return reads
+
+
+def plane_reads():
+    """The links the plane sums load over both parities: U_mu(x),
+    U_nu(x+mu), U_nu(x), U_mu(x+nu) for each plane (mu, nu)."""
+    reads = []
+    for p in (0, 1):
+        for mu, nu in itertools.combinations(range(4), 2):
+            reads += [(2 * mu + p, 0, 0), (2 * nu + 1 - p, *unit(mu)),
+                      (2 * nu + p, 0, 0), (2 * mu + 1 - p, *unit(nu))]
+    return reads
+
+
+def columns_read(reads, local, halo):
+    """Distinct (array, X/Y column) pairs that ``reads`` touch when applied
+    to every interior column of a shard: a column holds all Z*T/2 slots of
+    its array, a split axis steps into the halo, an axis that is not split
+    wraps."""
+    lx, ly = local
+    cols = set()
+    for k, dx, dy in reads:
+        for x in range(lx):
+            for y in range(ly):
+                cols.add((k, x + dx if halo[0] else (x + dx) % lx,
+                          y + dy if halo[1] else (y + dy) % ly))
+    return len(cols)
+
+
+def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
     """(bytes, f32 operations) of one call of kernel `name` at dims: each
     input read once, each output written once (a stream stage's words
-    are added by the caller: stream_word_bytes)."""
+    are added by the caller: stream_word_bytes).  A stage is stage (mu,
+    parity).  With shard (a core.Shard: K1a, K5a, K5b) dims are its
+    interior extents, and of its padded arrays only the halo columns that
+    the call reads count."""
     n = int(re.search(r"_su(\d)", name)[1])
     v2 = int(np.prod(dims)) // 2
     arr = 16 * n * v2  # one packed (direction, parity) array
+    col = arr // (dims[0] * dims[1])  # one X/Y column of it
+    local, halo = ((dims[0], dims[1]), (0, 0)) if shard is None else (
+        shard.local, shard.halo)
     if name.startswith("stage_"):
-        # 8 arrays read, the target written
+        # the links the stage loads, the target written
         kind = name.split("_")[1]
-        return 9 * arr, v2 * stage_ops_per_site(n, kind, k_trials, n_hit)
+        return (columns_read(stage_reads(mu, parity), local, halo) * col
+                + arr, v2 * stage_ops_per_site(n, kind, k_trials, n_hit))
     if name.startswith("reunit_"):
         return 2 * arr, v2 * (84 if n == 3 else 23)
-    if name.startswith("plane_sums_"):
+    if name.startswith("plane_sums"):
         per_site = 6 * (2 * mmul_ops(n) + 4 * n * n + 4 * codec_ops(n))
-        return 8 * arr + 6 * 8, 2 * v2 * per_site
+        return (columns_read(plane_reads(), local, halo) * col + 6 * 8,
+                2 * v2 * per_site)
     x, y, z, t = dims  # polyakov_sums: the temporal arrays only
     per_col = (t - 1) * mmul_ops(n) + t * codec_ops(n) + 2 * (n - 1)
     return 2 * arr + 2 * 8, x * y * z * per_col
@@ -350,18 +449,85 @@ def profile_window(sim, n_sweeps):
     return wall, wall_prof, busy, by_name
 
 
+def multicard(n_cards):
+    """``--cards N``: the sharded path with its shards spread over N cards
+    (Simulation(cfg, devices=[cuda:0 .. cuda:N-1]), halo copies between
+    cards) against the unsharded chain on card 0: links, series and
+    stream state bit-identical.  Prints each card's nvidia-smi line and
+    the contract's last line with count N."""
+    from qcdgpu_tpu_torch import SimConfig, Simulation
+    from qcdgpu_tpu_torch.ops.cuda import build
+
+    require(torch.cuda.device_count() >= n_cards,
+            f"{n_cards} cards asked for, {torch.cuda.device_count()} present")
+    cards = [f"cuda:{i}" for i in range(n_cards)]
+    with Phase("1 device"):
+        smi = nvidia_smi_lines()
+        print("cards:", smi)
+    with Phase("2 build"):
+        print(f"library built in {build.build()['seconds']:.1f} s")
+        build.library()
+    bench = SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
+                      start="cold", seed=0)
+    x_only = (n_cards, 1, 1, 1)
+    xy = (2, n_cards // 2, 1, 1) if n_cards % 2 == 0 else x_only
+    runs = (("bench SU(3) heat-bath", bench, xy),
+            ("SU(3) heat-bath + 1 OR, track_kp_exhaust, hot start",
+             bench.replace(n_or=1, track_kp_exhaust=True, start="hot"),
+             x_only),
+            ("SU(3) heat-bath, prngcl:ranlux3", bench.replace(
+                rng_mode="prngcl:ranlux3"), xy))
+    with Phase(f"7 shards on {n_cards} cards"):
+        for label, cfg, mesh in runs:
+            out = []
+            for m, devices in (((1, 1, 1, 1), None), (mesh, cards)):
+                sim = Simulation(cfg.replace(mesh=m), device="cuda:0",
+                                 devices=devices)
+                sim.warmup()
+                t0 = time.perf_counter()
+                sim.thermalize(10)
+                obs = sim.run(10, 1)
+                sim.sync()
+                ms = (time.perf_counter() - t0) / 20 * 1e3
+                out.append((tuple(a.cpu() for a in sim.us), obs,
+                            sim.stream_state, ms,
+                            sorted({str(d) for d in sim._run.grid.devices})))
+                del sim
+            (u1, o1, s1, ms1, _), (un, on, sn, msn, used) = out
+            same = (all(torch.equal(a, b) for a, b in zip(u1, un))
+                    and np.array_equal(o1, on))
+            if s1 is not None:
+                same = same and all(np.array_equal(s1[k], sn[k]) for k in s1)
+            print(f"{label}: mesh {mesh} on {used} vs unsharded on cuda:0, "
+                  f"thermalize(10) + run(10, 1): links, series"
+                  + (" and streams" if s1 is not None else "")
+                  + f" bit-identical {same}; {msn:.3f} vs {ms1:.3f} "
+                  f"ms/sweep  [{smi[0]}]")
+            require(same and len(used) == n_cards,
+                    f"{label}: mesh {mesh} on {n_cards} cards differs")
+    print(smi[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cards"]:
+        return multicard(int(sys.argv[2]))
     from qcdgpu_tpu_torch import SimConfig, Simulation
     from qcdgpu_tpu_torch.ops import prng_streams as ps
     from qcdgpu_tpu_torch.ops import rng
     from qcdgpu_tpu_torch.ops.cuda import build, engine
     from qcdgpu_tpu_torch.ops.cuda import measure as cmeasure
     from qcdgpu_tpu_torch.ops.cuda import reunit as creunit
+    from qcdgpu_tpu_torch.ops.cuda import sharded
     from qcdgpu_tpu_torch.ops.cuda import update as cupdate
+    from qcdgpu_tpu_torch.parallel.mesh import ShardGrid
 
     dev = torch.device("cuda", 0)
     counters = (cupdate.LAUNCHES, creunit.LAUNCHES, cmeasure.LAUNCHES)
@@ -379,7 +545,17 @@ def main():
         # K1's stream branch: the draws of K7 (counter-free) or K8 (lag)
         record[name] = (name, f"stage_{fam}.cu", "prng_streams.py:" + (
             "767" if fam in ("ranlux", "ranmar") else "625"))
+    for name in cupdate.SHARD_INSTANCES:
+        # K1a: the halo-padded shard form of _stage_kernel (_stage_call with
+        # local_x / local_y > 0)
+        fam = name.split("_")[3]
+        record[name] = (name, "stage.cu" if fam in ("track", "shard")
+                        else f"stage_{fam}.cu", "update.py:602")
     for n in GROUPS:
+        record[f"plane_sums_local_su{n}"] = (f"plane_sums_local_su{n}",
+                                             "measure.cu", "measure.py:269")
+        record[f"polyakov_sums_local_su{n}"] = (
+            f"polyakov_sums_local_su{n}", "measure.cu", "measure.py:349")
         record[f"reunit_su{n}"] = (f"reunit_su{n}", "reunit.cu",
                                    "reunit.py:22")
         record[f"plane_sums_su{n}"] = (f"plane_sums_su{n}", "measure.cu",
@@ -397,7 +573,7 @@ def main():
             "launch counters and kernel record disagree")
 
     with Phase("1 device"):
-        smi = nvidia_smi_line()
+        smi = nvidia_smi_lines()[0]
         print("card:", smi)
         print("torch", torch.__version__, "cuda", torch.version.cuda,
               "device", torch.cuda.get_device_name(0),
@@ -479,12 +655,96 @@ def main():
                     cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
 
+    def k1a_compare(n, kind, track, k_trials, gen, dims, mesh):
+        """K1a against its plain twin on the shards of dims on mesh: the 8
+        stages of a sweep in sweep order, each on every shard (the kernel
+        on a copy of the shard, the plain twin on the shard, which carries
+        on), the halo refresh after each stage, stream words and scalars
+        carried and bit-identical.  -> (max |d| links, links beyond
+        STAGE_TOL, links, kernel count, plain count)."""
+        grid = ShardGrid(dims, mesh, [dev])
+        shards = sharded.shard_links(hot(dims, n), grid)
+        rst = (sharded.shard_streams(stream_state(gen, n, dims), grid)
+               if gen else {})
+        names = ps.kernel_scalar_names(gen) if gen else ()
+        base = rng.make_base_key(1)
+        worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
+        for p in (0, 1):
+            sfx = ("_e", "_o")[p]
+            for mu in range(4):
+                key = None if gen else rng.stage_key(base, 0, 4 * p + mu)
+                scal = {k: rst[k + sfx] for k in names}
+                ck, cp = (
+                    (torch.zeros(1, dtype=torch.int64, device=dev)
+                     for _ in range(2)) if track else (None, None))
+                for i, (g, us) in enumerate(zip(grid.shards, shards)):
+                    kw_p = kw_k = {}
+                    if gen:
+                        kw_p = dict(gen=gen, words=rst["words" + sfx][i],
+                                    scalars=dict(scal))
+                        kw_k = dict(kw_p, words=kw_p["words"].clone(),
+                                    scalars=dict(scal))
+                    uk = clone(us)
+                    cupdate.stage_update(uk, mu, p, BETA_HOT[n], key, dims,
+                                         k_trials, kind=kind, count=ck,
+                                         shard=g, **kw_k)
+                    cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key,
+                                             dims, k_trials, kind=kind,
+                                             count=cp, shard=g, **kw_p)
+                    if gen:
+                        require(torch.equal(kw_k["words"], kw_p["words"])
+                                and kw_k["scalars"] == kw_p["scalars"],
+                                f"K1a {gen} {kind} SU({n}) {dims} mesh "
+                                f"{mesh} shard {i} (mu={mu}, p={p}): stream "
+                                "words or scalars differ")
+                    # the whole padded shard: the kernel must leave the
+                    # halos and the other arrays alone
+                    for k, (a, b) in enumerate(zip(uk, us)):
+                        d = (a - b).abs().amax(dim=(0, 1, 2))
+                        worst = max(worst, float(d.max()))
+                        if k == 2 * mu + p:  # its interior links
+                            d = sharded.interior(d, g, 0)
+                            bad += int((d > STAGE_TOL).sum())
+                            links += d.numel()
+                if gen:
+                    rst.update({k + sfx: v
+                                for k, v in kw_p["scalars"].items()})
+                sharded.refresh_halos(shards, grid, (2 * mu + p,))
+                if track:
+                    cnt_k += int(ck)
+                    cnt_p += int(cp)
+        return worst, bad, links, cnt_k, cnt_p
+
+    def require_stage(msg, dims, n, kind, worst, bad, links, ck, cp):
+        """Below 32^4 kernel and plain version agree within STAGE_TOL with
+        equal counts; at 32^4 an accept decision at a rounding boundary may
+        flip (at most FLIP_FRACTION of the links), moving the count by at
+        most the decisions of those links."""
+        if dims != BIG:
+            require(worst < STAGE_TOL and ck == cp, msg)
+        else:
+            n_sg = 3 if n == 3 else 1
+            per_link = 3 if kind == "metropolis" else 1  # decisions/subgroup
+            require(bad <= FLIP_FRACTION * links, msg)
+            require(abs(ck - cp) <= bad * n_sg * per_link, msg)
+
     # phase 5's stream runs at STREAM_SMALL_RUN, one per stream
     # instantiation: (index, generator, group, kind, tracking)
     small_runs = [
         (i, FAMILY_RUN_GENS[fam][i % len(FAMILY_RUN_GENS[fam])], n, kind, t)
         for i, (fam, n, kind, t) in enumerate(itertools.product(
             ps.FAMILIES, GROUPS, ("heatbath", "metropolis"), (False, True)))]
+    # phase 5's K1a runs at STREAM_SMALL_RUN, one per drawing K1a
+    # instantiation, over SHARD_MESHES in turn (the overrelaxation ones ride
+    # on the untracked threefry heat-bath runs' OR pass): (index, name,
+    # generator or None, mesh)
+    k1a_runs = []
+    for i, name in enumerate(n_ for n_ in cupdate.SHARD_INSTANCES
+                             if not n_.startswith("stage_overrelax")):
+        fam = parse_instance(name)[3]
+        gen = FAMILY_RUN_GENS[fam][i % len(FAMILY_RUN_GENS[fam])] if fam \
+            else None
+        k1a_runs.append((i, name, gen, SHARD_MESHES[i % len(SHARD_MESHES)]))
 
     with Phase("3 kernels vs plain versions"):
         # K1 threefry at (4,4,2,4) and 32^4; K1 streams: every generator
@@ -505,7 +765,6 @@ def main():
             name = cupdate.instance_name(kind, n, track, gen)
             # tracked heat-bath with one KP trial, so that exhaustions occur
             k_trials = 1 if (track and kind == "heatbath") else 4
-            per_link = 3 if kind == "metropolis" else 1  # decisions/subgroup
             worst, bad, links, ck, cp = k1_compare(n, kind, track, dims,
                                                    k_trials, gen)
             note_err(name, worst)
@@ -516,12 +775,7 @@ def main():
             if track:
                 msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
             print(msg)
-            if dims != BIG:
-                require(worst < STAGE_TOL and ck == cp, msg)
-            else:
-                n_sg = 3 if n == 3 else 1
-                require(bad <= FLIP_FRACTION * links, msg)
-                require(abs(ck - cp) <= bad * n_sg * per_link, msg)
+            require_stage(msg, dims, n, kind, worst, bad, links, ck, cp)
         for n in GROUPS:
             for dims in (SMALL, ODD_T2, BIG):
                 u_ = hot(dims, n)
@@ -552,6 +806,78 @@ def main():
                 print(msg)
                 require(k2 < REUNIT_TOL and d3 < PLANE_TOL and d4 < POLY_TOL,
                         msg)
+        # K1a: every instantiation on the shards of SHARD_SMALL on MESH
+        # (partly filled blocks), again at the shape, mesh and generator of
+        # its own phase-5 run (the overrelaxation ones: of the runs whose
+        # OR pass drives them), and SU(3) heat-bath at 32^4 on MESH
+        cases = [(name, FAMILY_GEN.get(parse_instance(name)[3]),
+                  SHARD_SMALL, MESH) for name in cupdate.SHARD_INSTANCES]
+        for _, name, gen, mesh in k1a_runs:
+            kind, n, track, _ = parse_instance(name)
+            cases.append((name, gen, STREAM_SMALL_RUN, mesh))
+            if kind == "heatbath" and not track and gen is None:
+                cases.append((cupdate.instance_name("overrelax", n,
+                                                    shard=True),
+                              None, STREAM_SMALL_RUN, mesh))
+        cases += [(cupdate.instance_name("heatbath", 3, track, shard=True),
+                   None, BIG, MESH) for track in (False, True)]
+        for name, gen, dims, mesh in cases:
+            kind, n, track, _ = parse_instance(name)
+            k_trials = 1 if (track and kind == "heatbath") else 4
+            worst, bad, links, ck, cp = k1a_compare(n, kind, track, k_trials,
+                                                    gen, dims, mesh)
+            note_err(name, worst)
+            msg = (f"K1a {name}" + (f" ({gen}; words bit-identical)"
+                                    if gen else "")
+                   + f" {dims} mesh {mesh}: max |d| {worst:.3e}, {bad} of "
+                   f"{links} links beyond {STAGE_TOL}")
+            if track:
+                msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
+            print(msg)
+            require_stage(msg, dims, n, kind, worst, bad, links, ck, cp)
+        # K5a / K5b per shard, on the XY, X and Y meshes
+        for n in GROUPS:
+            for dims, mesh in itertools.product(
+                    (SHARD_SMALL, BIG), SHARD_MESHES[:3]):
+                grid = ShardGrid(dims, mesh, [dev])
+                d5a = d5b = 0.0
+                for g, us in zip(grid.shards,
+                                 sharded.shard_links(hot(dims, n), grid)):
+                    vol = n * int(np.prod(g.interior))
+                    d5a = max(d5a, float(
+                        (cmeasure.plane_sums_local(us, g)
+                         - cmeasure.plane_sums_local_ref(us, g)).abs().max())
+                        / vol)
+                    d5b = max(d5b, float(
+                        (cmeasure.polyakov_sums_local(us, g)
+                         - cmeasure.polyakov_sums_local_ref(us, g)
+                         ).abs().max()) / (vol // dims[3]))
+                note_err(f"plane_sums_local_su{n}", d5a)
+                note_err(f"polyakov_sums_local_su{n}", d5b)
+                msg = (f"SU({n}) {dims} mesh {mesh}, per shard: K5a max "
+                       f"|d sum|/(N vol) {d5a:.3e} (< {PLANE_TOL}); K5b max "
+                       f"|d sum|/(N spatial vol) {d5b:.3e} (< {POLY_TOL})")
+                print(msg)
+                require(d5a < PLANE_TOL and d5b < POLY_TOL, msg)
+
+    def time_pairs(pairs, dims, shard=None):
+        """Time each (plain, kernel) pair: plain, kernel, kernel (the plain
+        version is the correctness twin, timed once for the record);
+        record ms, plain_ms and the bound of work(name, dims, shard) (the
+        stages timed are stage (mu=1, parity=0), work()'s default)."""
+        for name, (plain, kern, r_plain, r_kern, calls,
+                   extra) in pairs.items():
+            p1 = event_ms(plain, r_plain) / calls
+            k1 = event_ms(kern, r_kern) / calls
+            k2_ = event_ms(kern, r_kern) / calls
+            rec = record[name]
+            rec["ms"] = (k1 + k2_) / 2
+            rec["plain_ms"] = p1
+            nbytes, ops = work(name, dims, shard=shard)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes + extra, ops)
+            print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
+                  f"{p1:.4f} ms, bound {rec['bound_ms']:.4f} "
+                  f"ms ({rec['bound_by']})  [{smi}]")
 
     with Phase("4 kernel timing at 32^4"):
         key = rng.stage_key(rng.make_base_key(1), 0, 0)
@@ -605,28 +931,76 @@ def main():
             pairs[f"polyakov_sums_su{n}"] = (
                 lambda: cmeasure.polyakov_sums_ref(w, BIG),
                 lambda: cmeasure.polyakov_sums(w, BIG), 3, 100, 1, 0)
-            for name, (plain, kern, r_plain, r_kern, calls,
-                       extra) in pairs.items():
-                p1 = event_ms(plain, r_plain) / calls
-                k1 = event_ms(kern, r_kern) / calls
-                k2_ = event_ms(kern, r_kern) / calls
-                p2 = event_ms(plain, r_plain) / calls
-                rec = record[name]
-                rec["ms"] = (k1 + k2_) / 2
-                rec["plain_ms"] = (p1 + p2) / 2
-                nbytes, ops = work(name, BIG)
-                rec["bound_ms"], rec["bound_by"] = bound(nbytes + extra, ops)
-                print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
-                      f"{p1:.4f} / {p2:.4f} ms, bound {rec['bound_ms']:.4f} "
-                      f"ms ({rec['bound_by']})  [{smi}]")
-            del w, pairs
+            time_pairs(pairs, BIG)
+            # K1a, K5a and K5b on shard 0 of BIG on MESH; the halo refresh
+            grid = ShardGrid(BIG, MESH, [dev])
+            shards = sharded.shard_links(w, grid)
+            g0, s0 = grid.shards[0], shards[0]
+            v2s = int(np.prod(g0.interior)) // 2
+            spairs = {}
+            for n_, kind, track in k1_cases:
+                if n_ != n:
+                    continue
+                kw = dict(kind=kind, count=cnt if track else None, shard=g0)
+                spairs[cupdate.instance_name(kind, n, track, shard=True)] = (
+                    lambda kw=kw: cupdate.stage_update_ref(
+                        s0, 1, 0, beta, key, BIG, **kw),
+                    lambda kw=kw: cupdate.stage_update(
+                        s0, 1, 0, beta, key, BIG, **kw),
+                    1, 20, 1, 0)
+            for fam, gen in FAMILY_GEN.items():
+                rst = sharded.shard_streams(stream_state(gen, n, BIG), grid)
+                scal = {k: rst[k + "_e"]
+                        for k in ps.kernel_scalar_names(gen)}
+                for kind in ("heatbath", "metropolis"):
+                    ndraw = cupdate.stream_draw_count(kind, 4, 3, n)
+                    extra = stream_word_bytes(gen, v2s, ndraw, scal)
+                    for track in (False, True):
+                        kw = dict(kind=kind, count=cnt if track else None,
+                                  gen=gen, words=rst["words_e"][0],
+                                  scalars=scal, shard=g0)
+                        spairs[cupdate.instance_name(kind, n, track, gen,
+                                                     True)] = (
+                            lambda kw=kw: cupdate.stage_update_ref(
+                                s0, 1, 0, beta, None, BIG, **kw),
+                            lambda kw=kw: cupdate.stage_update(
+                                s0, 1, 0, beta, None, BIG, **kw),
+                            1, 10, 1, extra)
+            spairs[f"plane_sums_local_su{n}"] = (
+                lambda: cmeasure.plane_sums_local_ref(s0, g0),
+                lambda: cmeasure.plane_sums_local(s0, g0), 2, 50, 1, 0)
+            spairs[f"polyakov_sums_local_su{n}"] = (
+                lambda: cmeasure.polyakov_sums_local_ref(s0, g0),
+                lambda: cmeasure.polyakov_sums_local(s0, g0), 2, 50, 1, 0)
+            time_pairs(spairs, g0.interior, g0)
+            # the halo refresh of one array (after each stage): each shard
+            # copies 2 Y rows over its interior X and 2 Y-padded X slabs
+            (lx, ly), (hx, hy) = g0.local, g0.halo
+            row = 16 * n * BIG[2] * BIG[3] // 2  # bytes of one (x, y) column
+            h_bytes = 2 * len(grid) * 2 * row * (hy * lx + hx * (ly + 2 * hy))
+            plan = sharded.halo_copies(shards, grid)  # as the sweep keeps it
+            h1 = event_ms(lambda: sharded.refresh_halos(shards, grid, (2,),
+                                                        plan), 50)
+            h2 = event_ms(lambda: sharded.refresh_halos(shards, grid, (2,),
+                                                        plan), 50)
+            print(f"halo refresh of one array, {BIG} mesh {MESH}, SU({n}): "
+                  f"{h1:.4f} / {h2:.4f} ms for {4 * len(grid)} copies, bound "
+                  f"{h_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes "
+                  f"{h_bytes})  [{smi}]")
+            del w, pairs, spairs, shards, s0, plan
         hots.clear()
 
     with Phase("5 main paths"):
         # the library API on small hot starts: CUDA kernels vs CPU plain
         for label, _, kw in MAIN_PATHS[:4] + (
                 ("streams: SU(3) heat-bath, prngcl:ranlux3", True,
-                 dict(group=3, beta=6.0, rng_mode="prngcl:ranlux3")),):
+                 dict(group=3, beta=6.0, rng_mode="prngcl:ranlux3")),
+                ("sharded: SU(3) heat-bath + 1 OR, track_kp_exhaust, mesh "
+                 f"{MESH}", True, dict(group=3, beta=6.0, n_or=1,
+                                       track_kp_exhaust=True, mesh=MESH)),
+                ("sharded: SU(3) heat-bath, prngcl:ranlux3, mesh (2,1,1,1)",
+                 True, dict(group=3, beta=6.0, rng_mode="prngcl:ranlux3",
+                            mesh=(2, 1, 1, 1)))):
             small = SimConfig(**kw, dims=SMALL, seed=1, start="hot",
                               reunit_every=2)
             obs_gpu = Simulation(small, device="cuda").run(2, 1)
@@ -646,20 +1020,24 @@ def main():
                     c[k] = 0
 
         def expected(cfg, n_sweeps, n_reunit, n_meas):
+            """Launches per counter; on a mesh every launch is one per
+            shard, of the shard instantiations and K5a/K5b."""
             n = cfg.group
             tracked = cfg.track_acceptance or cfg.track_kp_exhaust
             gen = ps.stream_mode_name(cfg.rng_mode)
+            k = int(np.prod(cfg.mesh))
+            sh, loc = k > 1, "_local" if k > 1 else ""
             expect = {
-                cupdate.instance_name(cfg.algorithm, n, tracked, gen):
-                    8 * n_sweeps,
-                f"plane_sums_su{n}": n_meas,
-                f"polyakov_sums_su{n}": n_meas,
+                cupdate.instance_name(cfg.algorithm, n, tracked, gen, sh):
+                    8 * n_sweeps * k,
+                f"plane_sums{loc}_su{n}": n_meas * k,
+                f"polyakov_sums{loc}_su{n}": n_meas * k,
             }
             if n_reunit:
-                expect[f"reunit_su{n}"] = 8 * n_reunit
+                expect[f"reunit_su{n}"] = 8 * n_reunit * k
             if cfg.n_or:
-                expect[cupdate.instance_name("overrelax", n)] = (
-                    8 * cfg.n_or * n_sweeps)
+                expect[cupdate.instance_name("overrelax", n, shard=sh)] = (
+                    8 * cfg.n_or * n_sweeps * k)
             return expect
 
         def check_run(label, sim, obs, launches, expect):
@@ -703,10 +1081,11 @@ def main():
                 print(f"    {ms:9.3f} ms {calls:5d} calls  "
                       f"{kname[:90]}")
 
-        def drive(label, cfg, profile):
+        def drive(label, cfg, profile, keep=False):
             """The 32^4 main path: Simulation(cfg) on the card by default,
             warmup(), thermalize(THERM), run(RUN, 1), counters zeroed
-            before and read after."""
+            before and read after.  -> a copy of the final links (the
+            global packed 8-tuple) with keep, else None."""
             n_sweeps = 2 + THERM + RUN  # warmup() runs 1 sweep + 1 measured
             n_reunit = sum(1 for i in range(THERM + RUN) if i % 10 == 9)
             expect = expected(cfg, n_sweeps, n_reunit, 1 + RUN)
@@ -733,14 +1112,19 @@ def main():
             require(obs.shape == (RUN, len(sim.obs_names)),
                     f"{label}: series shape {obs.shape}")
             check_run(label, sim, obs, launches, expect)
+            final = tuple(a.clone() for a in sim.us) if keep else None
             if profile:
                 idle_share(sim)
             del sim
+            return final
 
+        bench_us = None
         for label, is_slice, kw in MAIN_PATHS:
-            drive(label, SimConfig(**kw, dims=BIG, reunit_every=10,
-                                   start="cold", seed=0,
-                                   rng_mode="threefry"), is_slice)
+            us = drive(label, SimConfig(**kw, dims=BIG, reunit_every=10,
+                                        start="cold", seed=0,
+                                        rng_mode="threefry"), is_slice,
+                       keep=bench_us is None)
+            bench_us = bench_us or us
         for gen in STREAM_BIG:
             drive(f"streams: SU(3) heat-bath, prngcl:{gen}",
                   SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
@@ -771,10 +1155,81 @@ def main():
             print(label)
             check_run(label, sim, obs, launches, expected(cfg, 6, 2, 3))
 
-    def chain(therm, sweeps, **kw):
+        # every K1a instantiation on a path of its own at 8^4, as the
+        # stream instantiations above, over the X, Y and XY meshes in turn;
+        # the untracked threefry heat-bath runs add 1 OR pass (the
+        # overrelaxation instantiations)
+        for i, name, gen, mesh in k1a_runs:
+            kind, n, track, _ = parse_instance(name)
+            kw = dict(group=n, beta=BETA_RUN[n], algorithm=kind,
+                      dims=STREAM_SMALL_RUN, reunit_every=2,
+                      start=("cold", "hot")[i % 2 and gen != "constant"],
+                      seed=i, n_or=int(kind == "heatbath" and not track
+                                       and gen is None),
+                      rng_mode=f"prngcl:{gen}" if gen else "threefry",
+                      mesh=mesh)
+            if track:
+                kw["track_kp_exhaust" if kind == "heatbath"
+                   else "track_acceptance"] = True
+            cfg = SimConfig(**kw)
+            zero_counters()
+            sim = Simulation(cfg)
+            sim.warmup()
+            sim.thermalize(2)
+            obs = sim.run(2, 1)
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            label = (f"K1a {name}: {cfg.rng_mode} n_or={cfg.n_or} "
+                     f"{cfg.start} {STREAM_SMALL_RUN} mesh {cfg.mesh}")
+            print(label)
+            check_run(label, sim, obs, launches, expected(cfg, 6, 2, 3))
+
+        # the sharded path: the bench configuration on MESH through the
+        # library, then links bit-identical to the unsharded chain
+        bench = SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
+                          start="cold", seed=0)
+        us = drive(f"sharded: bench SU(3) heat-bath, mesh {MESH}",
+                   bench.replace(mesh=MESH), True, keep=True)
+        same = all(torch.equal(a, b) for a, b in zip(us, bench_us))
+        print(f"  links after {2 + THERM + RUN} sweeps bit-identical to the "
+              f"unsharded run: {same}")
+        require(same, f"mesh {MESH}: links differ from the unsharded chain")
+        del us, bench_us
+
+        def same_chain(label, cfg, mesh, n_sweeps):
+            """Simulation(cfg) unsharded and on mesh, thermalize(n_sweeps)
+            each from the same start: links (and stream state) must be
+            bit-identical."""
+            states = []
+            for m in ((1, 1, 1, 1), mesh):
+                sim = Simulation(cfg.replace(mesh=m))
+                t0 = time.perf_counter()
+                sim.thermalize(n_sweeps).sync()
+                ms = (time.perf_counter() - t0) / n_sweeps * 1e3
+                states.append((sim.us, sim.stream_state, ms))
+                del sim
+            (u1, s1, ms1), (un, sn, msn) = states
+            same = all(torch.equal(a, b) for a, b in zip(u1, un))
+            if s1 is not None:
+                same = same and all(np.array_equal(s1[k], sn[k]) for k in s1)
+            print(f"{label}: mesh {mesh} vs unsharded after {n_sweeps} "
+                  f"sweeps: bit-identical {same} ({msn:.3f} vs {ms1:.3f} "
+                  f"ms/sweep, first sweeps included)  [{smi}]")
+            require(same, f"{label}: mesh {mesh} differs from unsharded")
+
+        for mesh in ((4, 1, 1, 1), (1, 4, 1, 1)):
+            same_chain("bench SU(3) heat-bath 32^4", bench, mesh, 12)
+        same_chain("SU(3) heat-bath 32^4 prngcl:ranlux3",
+                   bench.replace(rng_mode="prngcl:ranlux3"), (2, 1, 1, 1), 12)
+        # K1b's check: SU(3) 64^4, which the TPU runs Y-tiled, on 8 Y shards
+        same_chain("SU(3) heat-bath 64^4", bench.replace(dims=(64,) * 4),
+                   (1, 8, 1, 1), 2)
+
+    def chain(therm, sweeps, keep=False, **kw):
         sim = Simulation(SimConfig(**kw))
         sim.thermalize(therm)
         sim.run(sweeps, 1)
+        if keep:
+            return sim.analysis(), sim.us
         return sim.analysis()
 
     def self_gate(st, anchor, anchor_err, window):
@@ -784,11 +1239,22 @@ def main():
                 max(window, 3.0 * float(np.hypot(st.err, anchor_err))))
 
     with Phase("6 physics"):
-        st = chain(200, 400, group=3, dims=(16,) * 4, beta=6.0)["plq"]
+        a, u1 = chain(200, 400, keep=True, group=3, dims=(16,) * 4, beta=6.0)
+        st = a["plq"]
         print(f"SU(3) 16^4 beta=6.0 HB: <plq> = {st.mean:.7f} +- "
               f"{st.err:.7f} (tau_int {st.tau_int:.2f}); window 0.5937 +- "
               f"5e-4")
         require(abs(st.mean - 0.5937) < 5e-4, f"<plq> {st.mean}")
+        a, un = chain(200, 400, keep=True, group=3, dims=(16,) * 4, beta=6.0,
+                      mesh=MESH)
+        same = all(torch.equal(x, y) for x, y in zip(u1, un))
+        print(f"SU(3) 16^4 beta=6.0 HB, mesh {MESH}: <plq> = "
+              f"{a['plq'].mean:.7f} +- {a['plq'].err:.7f}; |d mean| from "
+              f"unsharded {abs(a['plq'].mean - st.mean):.1e}; links "
+              f"bit-identical {same}")
+        require(same and abs(a["plq"].mean - st.mean) < 1e-7,
+                f"mesh {MESH} 16^4 chain differs from the unsharded one")
+        del u1, un
 
         a = chain(300, 600, group=3, dims=(16,) * 4, beta=6.0, n_or=1,
                   track_kp_exhaust=True, seed=7)
@@ -850,6 +1316,8 @@ def main():
         require(abs(st.mean - 0.63) < lit and dev_ < tol,
                 f"SU(2) HB ranmar <plq> {st.mean}")
 
+    idle = [k for k, r in record.items() if not r["launches"]]
+    require(not idle, f"kernels no main path launched: {idle}")
     print(json.dumps({"kernels": list(record.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

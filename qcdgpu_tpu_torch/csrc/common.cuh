@@ -40,6 +40,46 @@ __host__ inline Dims make_dims(int X, int Y, int Z, int T) {
   return d;
 }
 
+// One shard of an X/Y-decomposed lattice (ops/cuda/core.py Shard).  Its
+// arrays are [2, N, 2, x + 2 hx, y + 2 hy, Z*T/2]: an axis split over the
+// mesh carries one halo slab on each side (hx / hy = 1), which the halo
+// refresh (ops/cuda/sharded.py) fills with the neighbouring shards' boundary
+// slabs; an axis that is not split wraps periodically inside the shard.
+// Sites are addressed in interior coordinates (-1 and x / y step into the
+// halos); parity and the threefry counter use the global coordinates
+// (x0 + x, y0 + y), so a sharded chain draws what the unsharded one draws.
+// A kernel runs one thread per interior site; its slot in the padded array
+// is encode_slot of the decoded site.  Slots are int: 4 N v2 < 2^31 is
+// checked by the wrappers (core.check_packed).
+struct ShardDims {
+  int x, y, z, t;  // interior extents (Z and T are never split)
+  int t2;          // T / 2
+  int hx, hy;      // 1 where the axis is split, else 0
+  int py;          // padded rows: y + 2 hy
+  int v2;          // slots per padded array: (x + 2 hx) * py * z * t2
+  int n;           // interior sites per parity: x * y * z * t2
+  int x0, y0;      // global coordinates of the first interior slab and row
+  int gy;          // global Y extent (the dense site index's row stride)
+};
+
+__host__ inline ShardDims make_shard_dims(int lx, int ly, int Z, int T, int hx,
+                                          int hy, int x0, int y0, int gy) {
+  ShardDims d;
+  d.x = lx; d.y = ly; d.z = Z; d.t = T; d.t2 = T / 2;
+  d.hx = hx; d.hy = hy;
+  d.py = ly + 2 * hy;
+  d.v2 = (lx + 2 * hx) * d.py * Z * (T / 2);
+  d.n = lx * ly * Z * (T / 2);
+  d.x0 = x0; d.y0 = y0; d.gy = gy;
+  return d;
+}
+
+// threads of a kernel over one parity's sites
+__host__ __device__ __forceinline__ int n_sites(const Dims& d) { return d.v2; }
+__host__ __device__ __forceinline__ int n_sites(const ShardDims& d) {
+  return d.n;
+}
+
 struct Links {
   float* p[8];  // us[2*mu + parity]
 };
@@ -193,10 +233,62 @@ __device__ __forceinline__ uint32_t dense_index(const Site& s, const Dims& d) {
   return (uint32_t)(((s.c[0] * d.y + s.c[1]) * d.z + s.c[2]) * d.t + s.c[3]);
 }
 
-// U_dir at a site whose parity is par
-template <int N>
+// the slot a thread updates: its own slot in an unpadded array
+__device__ __forceinline__ int own_slot(int slot, const Site&, const Dims&) {
+  return slot;
+}
+
+// --- the same on a halo-padded shard (ShardDims) ---------------------------
+
+// interior index -> interior (x, y, z, t), t by the global parity rule
+__device__ __forceinline__ Site decode_slot(int slot, int p,
+                                            const ShardDims& d) {
+  Site s;
+  int k = slot % d.t2;
+  int r = slot / d.t2;
+  s.c[2] = r % d.z;
+  r /= d.z;
+  s.c[1] = r % d.y;
+  s.c[0] = r / d.y;
+  s.c[3] = 2 * k + ((p + d.x0 + s.c[0] + d.y0 + s.c[1] + s.c[2]) & 1);
+  return s;
+}
+
+// site + delta * axis-hat: into the halo on a split axis, periodic otherwise
+__device__ __forceinline__ Site step(Site s, int ax, int delta,
+                                     const ShardDims& d) {
+  if ((ax == 0 && d.hx) || (ax == 1 && d.hy)) {
+    s.c[ax] += delta;
+    return s;
+  }
+  const int n = ax == 0 ? d.x : ax == 1 ? d.y : ax == 2 ? d.z : d.t;
+  s.c[ax] = (s.c[ax] + delta + n) % n;
+  return s;
+}
+
+// slot of a site (interior or halo) in the padded array of its own parity
+__device__ __forceinline__ int encode_slot(const Site& s, const ShardDims& d) {
+  return (((s.c[0] + d.hx) * d.py + s.c[1] + d.hy) * d.z + s.c[2]) * d.t2 +
+         s.c[3] / 2;
+}
+
+// the GLOBAL dense index of an interior site (threefry's counter; the
+// global volume must stay below 2^31)
+__device__ __forceinline__ uint32_t dense_index(const Site& s,
+                                                const ShardDims& d) {
+  return (uint32_t)((((s.c[0] + d.x0) * d.gy + s.c[1] + d.y0) * d.z + s.c[2]) *
+                        d.t + s.c[3]);
+}
+
+__device__ __forceinline__ int own_slot(int, const Site& s,
+                                        const ShardDims& d) {
+  return encode_slot(s, d);
+}
+
+// U_dir at a site whose parity is par (D: Dims or ShardDims)
+template <int N, class D>
 __device__ __forceinline__ Mat<N> load_link(const Links& L, int dir, int par,
-                                            const Site& s, const Dims& d) {
+                                            const Site& s, const D& d) {
   return load_mat<N>(L.p[2 * dir + par], encode_slot(s, d), d.v2);
 }
 

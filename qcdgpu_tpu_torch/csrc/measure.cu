@@ -9,6 +9,14 @@
 // function).  Plain PyTorch twins: ops/cuda/measure.py:plane_sums_ref and
 // polyakov_sums_ref.
 //
+// K5a and K5b are the same kernels on one halo-padded shard of an X/Y mesh
+// (D = ShardDims instead of Dims): they replace measure.py:
+// _plq_sharded_kernel (call :316, plane_sums_local) and _poly_sharded_kernel
+// (call :422, polyakov_sums_local).  K5a reads the +1 neighbours from the
+// shard's halos; K5b walks the interior columns (T is never split) with the
+// global parity.  The caller adds the shards' sums in a fixed order.  Plain
+// twins: ops/cuda/measure.py:plane_sums_local_ref, polyakov_sums_local_ref.
+//
 // K3, per site x (one thread for each site of either parity): for the six
 // planes (0,1), (0,2), (0,3), (1,2), (1,3), (2,3), Re tr[(U_mu(x)
 // U_nu(x+mu)) (U_nu(x) U_mu(x+nu))^+] in f32, summed over sites in f64.
@@ -32,17 +40,18 @@
 
 namespace qg {
 
-template <int N>
-__global__ void plane_sums_kernel(Links L, Dims d,
+template <int N, class D>
+__global__ void plane_sums_kernel(Links L, D d,
                                   double* __restrict__ partials) {
   extern __shared__ double sh[];
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = g < 2 * d.v2;
+  const int nv = n_sites(d);
+  const bool active = g < 2 * nv;
   float tr6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (active) {
-    const int p = g >= d.v2 ? 1 : 0;
+    const int p = g >= nv ? 1 : 0;
     const int q = p ^ 1;
-    const Site x = decode_slot(g - p * d.v2, p, d);
+    const Site x = decode_slot(g - p * nv, p, d);
     const int planes[6][2] = {{0, 1}, {0, 2}, {0, 3}, {1, 2}, {1, 3}, {2, 3}};
 #pragma unroll
     for (int pl = 0; pl < 6; ++pl) {
@@ -70,17 +79,32 @@ __global__ void plane_sums_kernel(Links L, Dims d,
   }
 }
 
-template <int N>
+// a spatial column (x, y, z) of the lattice or of a shard's interior: the
+// parity of (x, y, z, t = 0) and the slot of its t = 0, 1 pair
+__device__ __forceinline__ void poly_column(int col, const Dims& d, int& sig,
+                                            int& base) {
+  sig = (col % d.z + (col / d.z) % d.y + col / (d.z * d.y)) & 1;
+  base = col * d.t2;
+}
+
+__device__ __forceinline__ void poly_column(int col, const ShardDims& d,
+                                            int& sig, int& base) {
+  const int z = col % d.z, y = (col / d.z) % d.y, x = col / (d.z * d.y);
+  sig = (d.x0 + x + d.y0 + y + z) & 1;
+  base = (((x + d.hx) * d.py + y + d.hy) * d.z + z) * d.t2;
+}
+
+template <int N, class D>
 __global__ void polyakov_sums_kernel(const float* __restrict__ u6,
-                                     const float* __restrict__ u7, Dims d,
+                                     const float* __restrict__ u7, D d,
                                      double* __restrict__ partials) {
   extern __shared__ double sh[];
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int n_col = d.x * d.y * d.z;
   float tr_re = 0.f, tr_im = 0.f;
   if (col < n_col) {
-    const int sig = (col % d.z + (col / d.z) % d.y + col / (d.z * d.y)) & 1;
-    const int base = col * d.t2;
+    int sig, base;
+    poly_column(col, d, sig, base);
     Mat<N> prod = load_mat<N>(sig ? u7 : u6, base, d.v2);
     for (int t = 1; t < d.t; ++t) {
       const float* arr = ((sig + t) & 1) ? u7 : u6;
@@ -121,6 +145,40 @@ inline bool pow2_block(int block) {
   return block >= 32 && block <= 1024 && (block & (block - 1)) == 0;
 }
 
+template <class D>
+int plane_sums(const Links& L, int n, const D& d, int block, double* partials,
+               double* out, cudaStream_t s) {
+  if (!pow2_block(block) || (n != 2 && n != 3))
+    return (int)cudaErrorInvalidValue;
+  const int n_blocks = (2 * n_sites(d) + block - 1) / block;
+  const size_t smem = block * sizeof(double);
+  if (n == 3)
+    plane_sums_kernel<3><<<n_blocks, block, smem, s>>>(L, d, partials);
+  else
+    plane_sums_kernel<2><<<n_blocks, block, smem, s>>>(L, d, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  finish_sums_kernel<<<1, block, smem, s>>>(partials, n_blocks, 6, out);
+  return (int)cudaGetLastError();
+}
+
+template <class D>
+int polyakov_sums(const float* u6, const float* u7, int n, const D& d,
+                  int block, double* partials, double* out, cudaStream_t s) {
+  if (!pow2_block(block) || (n != 2 && n != 3))
+    return (int)cudaErrorInvalidValue;
+  const int n_blocks = (d.x * d.y * d.z + block - 1) / block;
+  const size_t smem = block * sizeof(double);
+  if (n == 3)
+    polyakov_sums_kernel<3><<<n_blocks, block, smem, s>>>(u6, u7, d, partials);
+  else
+    polyakov_sums_kernel<2><<<n_blocks, block, smem, s>>>(u6, u7, d, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  finish_sums_kernel<<<1, block, smem, s>>>(partials, n_blocks, 2, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace qg
 
 // n: 2 or 3; partials: f64 [n_blocks * 6] with
@@ -129,25 +187,26 @@ extern "C" int qg_plane_sums(void* u0, void* u1, void* u2, void* u3, void* u4,
                              void* u5, void* u6, void* u7, int n, int X,
                              int Y, int Z, int T, int block, void* partials,
                              void* out, void* stream) {
-  if (!qg::pow2_block(block) || (n != 2 && n != 3))
-    return (int)cudaErrorInvalidValue;
-  qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3, (float*)u4,
-                  (float*)u5, (float*)u6, (float*)u7}};
-  const qg::Dims d = qg::make_dims(X, Y, Z, T);
-  const int n_blocks = (2 * d.v2 + block - 1) / block;
-  const size_t smem = block * sizeof(double);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n == 3)
-    qg::plane_sums_kernel<3><<<n_blocks, block, smem, s>>>(L, d,
-                                                          (double*)partials);
-  else
-    qg::plane_sums_kernel<2><<<n_blocks, block, smem, s>>>(L, d,
-                                                          (double*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  qg::finish_sums_kernel<<<1, block, smem, s>>>((double*)partials, n_blocks, 6,
-                                                (double*)out);
-  return (int)cudaGetLastError();
+  const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
+                        (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
+  return qg::plane_sums(L, n, qg::make_dims(X, Y, Z, T), block,
+                        (double*)partials, (double*)out, (cudaStream_t)stream);
+}
+
+// K5a: qg_plane_sums over one shard's interior sites (u0..u7 its padded
+// arrays, geometry as qg_stage_shard); n_blocks = ceil(2 * lx*ly*Z*T/2 /
+// block).  The caller sums the shards.
+extern "C" int qg_plane_sums_local(void* u0, void* u1, void* u2, void* u3,
+                                   void* u4, void* u5, void* u6, void* u7,
+                                   int n, int lx, int ly, int Z, int T, int hx,
+                                   int hy, int x0, int y0, int gy, int block,
+                                   void* partials, void* out, void* stream) {
+  const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
+                        (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
+  return qg::plane_sums(L, n,
+                        qg::make_shard_dims(lx, ly, Z, T, hx, hy, x0, y0, gy),
+                        block, (double*)partials, (double*)out,
+                        (cudaStream_t)stream);
 }
 
 // n: 2 or 3; partials: f64 [n_blocks * 2] with
@@ -155,21 +214,21 @@ extern "C" int qg_plane_sums(void* u0, void* u1, void* u2, void* u3, void* u4,
 extern "C" int qg_polyakov_sums(void* u6, void* u7, int n, int X, int Y,
                                 int Z, int T, int block, void* partials,
                                 void* out, void* stream) {
-  if (!qg::pow2_block(block) || (n != 2 && n != 3))
-    return (int)cudaErrorInvalidValue;
-  const qg::Dims d = qg::make_dims(X, Y, Z, T);
-  const int n_blocks = (X * Y * Z + block - 1) / block;
-  const size_t smem = block * sizeof(double);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n == 3)
-    qg::polyakov_sums_kernel<3><<<n_blocks, block, smem, s>>>(
-        (const float*)u6, (const float*)u7, d, (double*)partials);
-  else
-    qg::polyakov_sums_kernel<2><<<n_blocks, block, smem, s>>>(
-        (const float*)u6, (const float*)u7, d, (double*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  qg::finish_sums_kernel<<<1, block, smem, s>>>((double*)partials, n_blocks, 2,
-                                                (double*)out);
-  return (int)cudaGetLastError();
+  return qg::polyakov_sums((const float*)u6, (const float*)u7, n,
+                           qg::make_dims(X, Y, Z, T), block, (double*)partials,
+                           (double*)out, (cudaStream_t)stream);
+}
+
+// K5b: qg_polyakov_sums over one shard's interior columns (u6, u7 its padded
+// temporal arrays; T is never split, so no halo is read); n_blocks =
+// ceil(lx*ly*Z / block).
+extern "C" int qg_polyakov_sums_local(void* u6, void* u7, int n, int lx,
+                                      int ly, int Z, int T, int hx, int hy,
+                                      int x0, int y0, int gy, int block,
+                                      void* partials, void* out,
+                                      void* stream) {
+  return qg::polyakov_sums(
+      (const float*)u6, (const float*)u7, n,
+      qg::make_shard_dims(lx, ly, Z, T, hx, hy, x0, y0, gy), block,
+      (double*)partials, (double*)out, (cudaStream_t)stream);
 }

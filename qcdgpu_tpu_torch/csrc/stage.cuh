@@ -9,6 +9,14 @@
 // "prngcl:<gen>" (stage_<family>.cu, with the draws of streams.cuh).  Plain
 // PyTorch twin: ops/cuda/update.py:stage_update_ref.
 //
+// K1a, the same kernel on a halo-padded shard of an X/Y mesh (the TPU
+// kernel's local_x / local_y > 0 form, update.py:602-726, driven by
+// ops/pallas/sharded.py), is the geometry parameter D = ShardDims
+// (common.cuh) instead of Dims: one thread per interior site, neighbours
+// stepping into the halo slabs on a split axis, parity and the threefry
+// counter from global coordinates.  Every unsharded instantiation has a
+// sharded twin; with D = Dims the code is the unsharded kernel's.
+//
 // What it computes, for every site x of parity p (one thread each):
 //   A = sum_{nu != mu} [ U_nu(x+mu) (U_nu(x) U_mu(x+nu))^+
 //                        + (U_mu(x-nu) U_nu(x+mu-nu))^+ U_nu(x-nu) ],
@@ -117,7 +125,8 @@ struct Threefry {
     __device__ __forceinline__ void close() {}
   };
 
-  __device__ __forceinline__ Src open(int, const Site& x, const Dims& d) const {
+  template <class D>
+  __device__ __forceinline__ Src open(int, const Site& x, const D& d) const {
     return {k0, k1, dense_index(x, d), 0u};
   }
 };
@@ -207,10 +216,12 @@ __device__ __forceinline__ Quat metropolis_flip(const Quat& q_w, float tbn,
   return acc_u;
 }
 
-// One site's stage; returns its tracked count (0 unless TRACK).
-template <int N, int KIND, bool TRACK, class R>
+// One site's stage; returns its tracked count (0 unless TRACK).  slot: the
+// thread's site index (over the interior of a shard, D = ShardDims; over the
+// whole lattice, D = Dims, where it is also the site's array slot).
+template <int N, int KIND, bool TRACK, class R, class D>
 __device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
-                                               int parity, const Dims& d,
+                                               int parity, const D& d,
                                                const R& rng, float tbn,
                                                int k_trials, int n_hit,
                                                float delta) {
@@ -240,7 +251,8 @@ __device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
     first = false;
   }
   float* target = L.p[2 * mu + p];
-  Mat<N> u = load_mat<N>(target, slot, d.v2);
+  const int own = own_slot(slot, x, d);
+  Mat<N> u = load_mat<N>(target, own, d.v2);
   Mat<N> w = mmul(u, acc);
 
   typename R::Src src = rng.open(slot, x, d);
@@ -268,46 +280,46 @@ __device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
     subgroup_left_mul(flip, i, j, u);
     subgroup_left_mul(flip, i, j, w);
   }
-  store_rows(target, slot, d.v2, u);
+  store_rows(target, own, d.v2, u);
   src.close();
   return TRACK ? count : 0u;
 }
 
-template <int N, int KIND, bool TRACK, class R>
+template <int N, int KIND, bool TRACK, class R, class D>
 __global__ void __launch_bounds__(128)
-stage_kernel(Links L, int mu, int parity, Dims d, R rng, float tbn,
+stage_kernel(Links L, int mu, int parity, D d, R rng, float tbn,
              int k_trials, int n_hit, float delta, unsigned long long* count) {
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (TRACK) {
     // every thread joins the block's count reduction
-    const unsigned c = slot < d.v2
+    const unsigned c = slot < n_sites(d)
         ? stage_site<N, KIND, TRACK>(L, slot, mu, parity, d, rng, tbn,
                                      k_trials, n_hit, delta)
         : 0u;
     block_count_add(c, count);
   } else {
-    if (slot >= d.v2) return;
+    if (slot >= n_sites(d)) return;
     stage_site<N, KIND, TRACK>(L, slot, mu, parity, d, rng, tbn, k_trials,
                                n_hit, delta);
   }
 }
 
-template <int N, int KIND, bool TRACK, class R>
-int launch_stage(const Links& L, int mu, int parity, const Dims& d,
+template <int N, int KIND, bool TRACK, class R, class D>
+int launch_stage(const Links& L, int mu, int parity, const D& d,
                  const R& rng, float tbn, int k_trials, int n_hit, float delta,
                  unsigned long long* count, cudaStream_t s) {
   const int threads = 128;
-  const int blocks = (d.v2 + threads - 1) / threads;
-  stage_kernel<N, KIND, TRACK, R><<<blocks, threads, 0, s>>>(
+  const int blocks = (n_sites(d) + threads - 1) / threads;
+  stage_kernel<N, KIND, TRACK, R, D><<<blocks, threads, 0, s>>>(
       L, mu, parity, d, rng, tbn, k_trials, n_hit, delta, count);
   return (int)cudaGetLastError();
 }
 
-// The drawing kinds (heat-bath, Metropolis) of one random source: 8
-// instantiations, chosen at run time.
-template <class R>
+// The drawing kinds (heat-bath, Metropolis) of one random source on one
+// geometry: 8 instantiations, chosen at run time.
+template <class R, class D>
 int launch_drawing(const Links& L, int n, int kind, bool track, int mu,
-                   int parity, const Dims& d, const R& rng, float tbn,
+                   int parity, const D& d, const R& rng, float tbn,
                    int k_trials, int n_hit, float delta,
                    unsigned long long* cnt, cudaStream_t s) {
 #define QG_STAGE(NN, KK, TT)                                                  \
@@ -326,20 +338,25 @@ int launch_drawing(const Links& L, int n, int kind, bool track, int mu,
   return (int)cudaErrorInvalidValue;
 }
 
-// One launcher per stream family, each defined in its own source
-// (stage_<family>.cu) so that nvcc builds them in parallel.
-#define QG_STREAM_LAUNCHER(fam)                                               \
+// One launcher per stream family and geometry (D: Dims or ShardDims), each
+// family defined in its own source (stage_<family>.cu) so that nvcc builds
+// them in parallel.
+#define QG_STREAM_LAUNCHER(fam, D)                                            \
   int launch_stream_##fam(const Links& L, int n, int kind, bool track,        \
-                          int mu, int parity, const Dims& d, void* ws,        \
+                          int mu, int parity, const D& d, void* ws,           \
                           int stride, uint32_t s0, int ptr0, int skip,        \
                           float tbn, int k_trials, int n_hit, float delta,    \
                           unsigned long long* cnt, cudaStream_t s)
-QG_STREAM_LAUNCHER(xor128);
-QG_STREAM_LAUNCHER(xor7);
-QG_STREAM_LAUNCHER(mrg32k3a);
-QG_STREAM_LAUNCHER(parkmiller);
-QG_STREAM_LAUNCHER(constant);
-QG_STREAM_LAUNCHER(ranlux);
-QG_STREAM_LAUNCHER(ranmar);
+#define QG_DECLARE_STREAM_LAUNCHERS(D)                                        \
+  QG_STREAM_LAUNCHER(xor128, D);                                              \
+  QG_STREAM_LAUNCHER(xor7, D);                                                \
+  QG_STREAM_LAUNCHER(mrg32k3a, D);                                            \
+  QG_STREAM_LAUNCHER(parkmiller, D);                                          \
+  QG_STREAM_LAUNCHER(constant, D);                                            \
+  QG_STREAM_LAUNCHER(ranlux, D);                                              \
+  QG_STREAM_LAUNCHER(ranmar, D);
+QG_DECLARE_STREAM_LAUNCHERS(Dims)
+QG_DECLARE_STREAM_LAUNCHERS(ShardDims)
+#undef QG_DECLARE_STREAM_LAUNCHERS
 
 }  // namespace qg

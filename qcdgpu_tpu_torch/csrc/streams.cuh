@@ -279,7 +279,10 @@ struct Stream {
     __device__ __forceinline__ void close() { g.store(); }
   };
 
-  __device__ __forceinline__ Src open(int slot, const Site&, const Dims&) const {
+  // slot: the thread's site index, which is also its words' index (a
+  // shard's words are unpadded: [W, x, y, Z*T/2] of its interior)
+  template <class D>
+  __device__ __forceinline__ Src open(int slot, const Site&, const D&) const {
     Src src;
     src.g.load(ws, slot, stride, s0, ptr0, skip);
     return src;
@@ -288,11 +291,16 @@ struct Stream {
 
 }  // namespace qg
 
-// The body of stage_<family>.cu: the launcher of family `fam` (generator
-// struct `Gen`), 8 instantiations.
+// The body of stage_<family>.cu: the launchers of family `fam` (generator
+// struct `Gen`), unsharded and on a shard, 8 instantiations each.
 #define QG_DEFINE_STREAM_LAUNCHER(fam, Gen)                                   \
   namespace qg {                                                              \
-  QG_STREAM_LAUNCHER(fam) {                                                   \
+  QG_STREAM_LAUNCHER(fam, Dims) {                                             \
+    const Stream<Gen> rng = {ws, stride, s0, ptr0, skip};                     \
+    return launch_drawing(L, n, kind, track, mu, parity, d, rng, tbn,         \
+                          k_trials, n_hit, delta, cnt, s);                    \
+  }                                                                           \
+  QG_STREAM_LAUNCHER(fam, ShardDims) {                                        \
     const Stream<Gen> rng = {ws, stride, s0, ptr0, skip};                     \
     return launch_drawing(L, n, kind, track, mu, parity, d, rng, tbn,         \
                           k_trials, n_hit, delta, cnt, s);                    \

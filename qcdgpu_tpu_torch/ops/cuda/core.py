@@ -28,6 +28,7 @@ the CUDA kernel (built with ``-fmad=false``) and the reference round alike.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -122,9 +123,58 @@ def _codec_rows(rows, n):
 # ---------------------------------------------------------------------------
 
 
-def packed_coords(parity, dims, device):
+class Shard(NamedTuple):
+    """One shard of an X/Y-decomposed lattice (csrc/common.cuh ShardDims).
+
+    Its packed arrays are ``[2, N, 2, lx + 2*hx, ly + 2*hy, Z*T/2]``: the
+    interior is the plain X/Y slice ``[x0:x0+lx, y0:y0+ly]`` of the global
+    packed array, and an axis that is split over the mesh (hx / hy = 1)
+    carries one halo slab on each side holding the neighbouring shards'
+    boundary slabs (the reference's ``local_x`` / ``local_y`` > 0 contract,
+    ops/pallas/update.py:602-616).  An axis that is not split wraps
+    periodically inside the shard.  Sites are addressed in interior
+    coordinates (-1 and lx / ly reach the halos); parity and the threefry
+    counter use the global ones."""
+
+    dims: tuple    # the global lattice (X, Y, Z, T)
+    local: tuple   # interior extents (lx, ly)
+    offset: tuple  # global (x0, y0) of the first interior slab and row
+    halo: tuple    # (hx, hy): 1 where the axis is split
+
+    @property
+    def interior(self):
+        return (self.local[0], self.local[1]) + tuple(self.dims[2:])
+
+    @property
+    def padded(self):
+        return ((self.local[0] + 2 * self.halo[0],
+                 self.local[1] + 2 * self.halo[1]) + tuple(self.dims[2:]))
+
+    def kernel_args(self):
+        """The geometry as the C entry points take it: lx, ly, Z, T, hx,
+        hy, x0, y0, global Y."""
+        return tuple(int(v) for v in (*self.interior, *self.halo,
+                                      *self.offset, self.dims[1]))
+
+
+def whole(dims) -> Shard:
+    """The unsharded lattice as a Shard: no halo, no offset."""
+    dims = tuple(int(d) for d in dims)
+    return Shard(dims, dims[:2], (0, 0), (0, 0))
+
+
+def padded_or_none(shard):
+    """``shard``, or None when it has no halo: an axis is padded exactly
+    when it is split, so a Shard without halo is the whole lattice, which
+    the unsharded kernels run (on arrays the callers check to be the
+    whole lattice's)."""
+    return None if shard is None or shard.halo == (0, 0) else shard
+
+
+def packed_coords(parity, dims, device, offset=(0, 0)):
     """(x, y, z, t) int64 tensors [X*Y*Z*T/2] of the packed slots of one
-    parity, in slot order."""
+    parity, in slot order; with ``offset`` (a shard's (x0, y0)), dims are
+    its interior extents and t follows the global parity rule."""
     x_dim, y_dim, z_dim, t_dim = dims
     t2 = t_dim // 2
     s = torch.arange(x_dim * y_dim * z_dim * t2, dtype=torch.int64,
@@ -133,35 +183,71 @@ def packed_coords(parity, dims, device):
     z = (s // t2) % z_dim
     y = (s // (t2 * z_dim)) % y_dim
     x = s // (t2 * z_dim * y_dim)
-    t = 2 * k + (parity + x + y + z) % 2
+    t = 2 * k + (parity + x + offset[0] + y + offset[1] + z) % 2
     return x, y, z, t
 
 
-def packed_slot(x, y, z, t, dims):
-    """Slot of site (x, y, z, t) in the array of its own parity."""
+def packed_slot(x, y, z, t, dims, halo=(0, 0)):
+    """Slot of site (x, y, z, t) in the array of its own parity; with
+    ``halo``, dims are a shard's interior extents, the array is padded and
+    x, y may reach the halos (-1, lx / ly)."""
     _, y_dim, z_dim, t_dim = dims
-    return ((x * y_dim + y) * z_dim + z) * (t_dim // 2) + t // 2
+    rows = y_dim + 2 * halo[1]
+    return ((((x + halo[0]) * rows + y + halo[1]) * z_dim + z)
+            * (t_dim // 2) + t // 2)
 
 
 @lru_cache(maxsize=None)
-def neighbor_slots(parity, dims, shifts, device):
+def neighbor_slots(parity, dims, shifts, device, shard=None):
     """int64 [X*Y*Z*T/2]: for each slot of parity ``parity``, the slot of
     the site displaced by ``shifts`` ((axis, +-1), ...) — in the array of
-    parity (parity + len(shifts)) % 2.  Cached; callers must not mutate."""
-    c = list(packed_coords(parity, dims, device))
+    parity (parity + len(shifts)) % 2.  With ``shard`` (a Shard), over its
+    interior sites, stepping into the halo on a split axis.  Cached;
+    callers must not mutate."""
+    g = shard or whole(dims)
+    ext = g.interior
+    c = list(packed_coords(parity, ext, device, g.offset))
     for ax, d in shifts:
-        c[ax] = (c[ax] + d) % dims[ax]
-    return packed_slot(*c, dims)
+        split = ax < 2 and g.halo[ax]
+        c[ax] = c[ax] + d if split else (c[ax] + d) % ext[ax]
+    return packed_slot(*c, ext, g.halo)
 
 
-def site_index_packed(parity, dims, device):
+@lru_cache(maxsize=None)
+def interior_slots(shard, device):
+    """int64 slots of a shard's interior sites in its padded arrays, in
+    site order (either parity: the slot does not depend on it), or None
+    when the shard has no halo (the slots are then 0, 1, ...)."""
+    if shard is None or shard.halo == (0, 0):
+        return None
+    return packed_slot(*packed_coords(0, shard.interior, device),
+                       shard.interior, shard.halo)
+
+
+def site_index_packed(parity, dims, device, shard=None):
     """int64 [X, Y, Z*T/2] of global DENSE site indices of the packed slots
     (the threefry counter; equal to ops.lattice.site_index on the dense
-    lattice, so both layouts draw the same numbers per physical site)."""
-    x_dim, y_dim, z_dim, t_dim = dims
-    x, y, z, t = packed_coords(parity, dims, device)
-    idx = ((x * y_dim + y) * z_dim + z) * t_dim + t
+    lattice, so both layouts draw the same numbers per physical site).
+    With ``shard``: [lx, ly, Z*T/2] over its interior, still global."""
+    g = shard or whole(dims)
+    x_dim, y_dim, z_dim, t_dim = g.interior
+    x, y, z, t = packed_coords(parity, g.interior, device, g.offset)
+    gy = g.dims[1]
+    idx = (((x + g.offset[0]) * gy + y + g.offset[1]) * z_dim + z) * t_dim + t
     return idx.reshape(x_dim, y_dim, z_dim * (t_dim // 2))
+
+
+def site_index_padded(parity, shard, device):
+    """int64 [lx + 2hx, ly + 2hy, Z*T/2]: the global dense site index of
+    every slot of a shard's padded array, halo slots included (wrapped
+    round the lattice): the sites whose links those slots hold."""
+    x_dim, y_dim = shard.dims[:2]
+    off = (shard.offset[0] - shard.halo[0], shard.offset[1] - shard.halo[1])
+    px, py, z_dim, t_dim = shard.padded
+    x, y, z, t = packed_coords(parity, shard.padded, device, off)
+    idx = ((((x + off[0]) % x_dim) * y_dim + (y + off[1]) % y_dim) * z_dim
+           + z) * t_dim + t
+    return idx.reshape(px, py, z_dim * (t_dim // 2))
 
 
 def load_mat(arr, n, idx=None):
@@ -178,10 +264,12 @@ def load_mat(arr, n, idx=None):
 class LinkLoader:
     """Loads U_d at (base site of parity p) + shifts from the packed
     8-tuple, through cached neighbour-slot gathers (each (d, shifts)
-    gathered once per loader)."""
+    gathered once per loader); with ``shard``, over its interior sites in
+    its padded arrays."""
 
-    def __init__(self, us, parity, dims, n):
+    def __init__(self, us, parity, dims, n, shard=None):
         self.us, self.p, self.dims, self.n = us, parity, tuple(dims), n
+        self.shard = shard
         self.device = us[0].device
         self._cache = {}
 
@@ -189,23 +277,35 @@ class LinkLoader:
         key = (d, shifts)
         if key not in self._cache:
             par = (self.p + len(shifts)) % 2
-            idx = (neighbor_slots(self.p, self.dims, shifts, self.device)
-                   if shifts else None)
+            idx = (neighbor_slots(self.p, self.dims, shifts, self.device,
+                                  self.shard)
+                   if shifts else interior_slots(self.shard, self.device))
             self._cache[key] = load_mat(self.us[2 * d + par], self.n, idx)
         return self._cache[key]
 
 
-def store_rows(arr, m, n):
-    """Write the first two rows of matrix tuple m into packed array arr."""
+def store_rows(arr, m, n, idx=None):
+    """Write the first two rows of matrix tuple m into packed array arr, at
+    the slots ``idx`` (all slots in order when None)."""
     out = torch.stack([
         torch.stack([torch.stack([m[r][j][0], m[r][j][1]]) for j in range(n)])
         for r in range(2)
     ])
-    arr.copy_(out.reshape(arr.shape))
+    if idx is None:
+        arr.copy_(out.reshape(arr.shape))
+    else:
+        arr.view(2, n, 2, -1).index_copy_(3, idx, out.reshape(2, n, 2, -1))
+
+
+# The kernels address a component as ``c * v2 + slot`` in int: an array
+# must hold fewer than 2^31 floats (SU(3) 64^4 unsharded: 1.0e8).
+MAX_ARRAY_FLOATS = 2 ** 31 - 1
 
 
 def check_packed(arr, n, dims, name="links"):
-    """Raise unless arr is a contiguous f32 packed array for (n, dims)."""
+    """Raise unless arr is a contiguous f32 packed array for (n, dims)
+    (dims: the array's own extents, a shard's padded ones included) that
+    the kernels' int slot arithmetic can address."""
     shape = (2, n, 2, dims[0], dims[1], dims[2] * (dims[3] // 2))
     if arr.dtype != torch.float32 or tuple(arr.shape) != shape:
         raise ValueError(
@@ -214,6 +314,9 @@ def check_packed(arr, n, dims, name="links"):
         )
     if not arr.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if arr.numel() > MAX_ARRAY_FLOATS:
+        raise ValueError(f"{name}: {arr.numel()} floats exceed the kernels' "
+                         "int32 addressing")
 
 
 def check_device(*tensors):

@@ -3,9 +3,13 @@
 Port of qcdgpu_tpu/ops/pallas/engine.py (threefry and the PRNGCL streams,
 SU(2) and SU(3), every update algorithm, the tracked statistics).
 
-Engine state is ``(us, rst)``: us is the reference's flat 8-tuple
-``us[2*mu + parity]`` of f32 tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py
-for the layout), rst the stream state below (``{}`` with threefry).  A sweep
+The packed links are the reference's flat 8-tuple ``us[2*mu + parity]`` of
+f32 tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py for the layout), the
+stream state ``rst`` is described below (``{}`` with threefry).  The sweep
+and the runner work on the shards of cfg.mesh (sharded.py, parallel/
+mesh.py): engine state is ``(shards, rst)``, one halo-padded 8-tuple per
+shard and each parity's words split the same way; without a mesh it is one
+shard without halo, the whole lattice.  A sweep
 is one pass of cfg.algorithm and cfg.n_or overrelaxation passes, each 8
 stages (parity 0, 1 x mu 0..3); stage ids run on across the passes, and
 each stage is keyed ``rng.stage_key(base, sweep, stage_id)``.  On every
@@ -33,10 +37,12 @@ import numpy as np
 import torch
 
 from ...config import SimConfig
+from ...parallel.mesh import shard_grid
 from .. import prng_streams as streams
 from .. import rng, sun
 from . import core
 from . import measure as cmeasure
+from . import sharded
 from . import update as cupdate
 from .reunit import reunitarize_dir
 
@@ -67,8 +73,10 @@ def check_supported(cfg: SimConfig) -> None:
         todo.append("get_fmunu / wilson_loops / get_qtop (M12)")
     if cfg.rng_mode == "hw":
         todo.append("rng_mode='hw' (M9, Philox)")
-    if tuple(cfg.mesh) != (1, 1, 1, 1):
-        todo.append(f"mesh={tuple(cfg.mesh)} (M15, multi-GPU)")
+    if cfg.mesh[2] != 1 or cfg.mesh[3] != 1:
+        # the reference runs Z/T meshes on its XLA engine (sim.py:273-285)
+        todo.append(f"mesh={tuple(cfg.mesh)} splits Z/T (M11, dense "
+                    "engine)")
     if cfg.dtype != "complex64" or cfg.meas_dtype != "same":
         todo.append("dtype='complex128' / meas_dtype='double' (M11)")
     if cfg.engine == "xla":
@@ -193,12 +201,13 @@ def from_reference(arrays, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def packed_cold_start(cfg: SimConfig, device="cuda"):
+def packed_cold_start(cfg: SimConfig, device="cuda", shard=None):
     """Unit links in the engine layout (8 separate tensors: the stages
-    update them in place)."""
+    update them in place); with ``shard`` (a core.Shard) its padded
+    arrays."""
     dev = resolve_device(device)
     n = cfg.group
-    x, y, z, t = cfg.dims
+    x, y, z, t = cfg.dims if shard is None else shard.padded
     eye = torch.zeros((2, n, 2, 1, 1, 1), dtype=torch.float32, device=dev)
     eye[0, 0, 0] = 1.0
     eye[1, 1, 0] = 1.0
@@ -206,10 +215,12 @@ def packed_cold_start(cfg: SimConfig, device="cuda"):
     return tuple(eye.expand(shape).contiguous() for _ in range(2 * NDIM))
 
 
-def packed_hot_start(cfg: SimConfig, base_key, device="cuda"):
+def packed_hot_start(cfg: SimConfig, base_key, device="cuda", shard=None):
     """Disordered (exactly Haar) start in the engine layout: the reference's
     per-site threefry normals, keyed by the global dense site index, and
-    the same per-site Gram–Schmidt, one (mu, parity) array at a time."""
+    the same per-site Gram–Schmidt, one (mu, parity) array at a time.
+    With ``shard`` (a core.Shard): its padded arrays, halos included, built
+    from global coordinates (the global field is never built)."""
     dev = resolve_device(device)
     n = cfg.group
     dims = tuple(cfg.dims)
@@ -218,7 +229,8 @@ def packed_hot_start(cfg: SimConfig, base_key, device="cuda"):
     for mu in range(NDIM):
         kmu = rng.stage_key(key2, mu, STAGE_INIT + 1)
         for p in range(2):
-            sidx = core.site_index_packed(p, dims, dev)
+            sidx = (core.site_index_packed(p, dims, dev) if shard is None
+                    else core.site_index_padded(p, shard, dev))
             zn = rng.site_normals(kmu, sidx, 2 * n * n, slot0=0)
             re = zn[0: 2 * n * n: 2].reshape((n, n) + tuple(sidx.shape))
             im = zn[1: 2 * n * n: 2].reshape((n, n) + tuple(sidx.shape))
@@ -271,12 +283,17 @@ def packed_stream_hot_start(cfg: SimConfig, device="cuda"):
 
 
 def clone_state(st):
-    """A copy of engine state (us, rst) that the in-place kernels cannot
-    touch."""
+    """A copy of engine state (shards, rst), whose links and words are
+    per-shard tuples, that the in-place kernels cannot touch."""
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, tuple):
+            return tuple(copy(a) for a in v)
+        return v
+
     us, rst = st
-    return (tuple(a.clone() for a in us),
-            {k: v.clone() if isinstance(v, torch.Tensor) else v
-             for k, v in rst.items()})
+    return copy(us), {k: copy(v) for k, v in rst.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -304,55 +321,98 @@ def tracked_stat_denom(cfg: SimConfig, dims) -> float:
     return float(np.float32(max(stages * vol2 * cfg.n_hit * n_sg, 1)))
 
 
-def make_sweep(cfg: SimConfig):
-    """sweep(state, base_key, sweep_idx) -> state, in place; with tracking
-    (``tracks(cfg)``) -> (state, rate), rate an f32 0-d tensor on the
-    state's device: the sweep's tracked count over ``tracked_stat_denom``,
-    summed on the device.  state is (us, rst); rst is returned as a new
-    dict (its words advance in place, its scalars are replaced).  Stage
-    order, stage ids, the tracked kind and the reunit condition are the
-    reference's (ops/pallas/engine.py make_pallas_sweep)."""
-    dims = tuple(cfg.dims)
+def stage_schedule(cfg: SimConfig):
+    """The stages of one sweep in order, as (kind, parity, mu, stage_id,
+    counted): cfg.algorithm, then cfg.n_or overrelaxation passes, each 8
+    stages (parity 0, 1 x mu 0..3), stage ids running on across the
+    passes; ``counted`` marks the stages whose tracked count the sweep
+    keeps (reference ops/pallas/engine.py make_pallas_sweep)."""
     kinds = [cfg.algorithm] + ["overrelax"] * cfg.n_or
     track_kind = "heatbath" if cfg.track_kp_exhaust else "metropolis"
+    return [(kind, parity, mu, 8 * i + 4 * parity + mu,
+             tracks(cfg) and kind == track_kind)
+            for i, kind in enumerate(kinds) for parity in (0, 1)
+            for mu in range(NDIM)]
+
+
+def stage_key2(cfg: SimConfig, kind, base_key, sweep_idx, stage_id):
+    """The threefry key of a stage, or None where the stage draws nothing
+    from threefry (overrelaxation: (0, 0), unused; a stream stage)."""
+    if kind == "overrelax":
+        return (0, 0)
+    if streams.stream_mode_name(cfg.rng_mode):
+        return None
+    return rng.stage_key(base_key, sweep_idx, stage_id)
+
+
+def reunit_due(cfg: SimConfig, sweep_idx) -> bool:
+    """Whether sweep ``sweep_idx`` ends with reunitarization."""
+    return (cfg.reunit_every > 0
+            and sweep_idx % cfg.reunit_every == cfg.reunit_every - 1)
+
+
+def make_sweep(cfg: SimConfig, grid):
+    """sweep(state, base_key, sweep_idx) -> state, in place on the shards of
+    ``grid`` (parallel/mesh.py ShardGrid); with tracking (``tracks(cfg)``)
+    -> (state, rate), rate an f32 0-d tensor on the first shard's device:
+    the sweep's tracked count over the GLOBAL ``tracked_stat_denom``.
+    state is (shards, rst) as ``sharded.shard_state`` makes it; rst is
+    returned as a new dict (its words advance in place, its scalars are
+    replaced).  Stages follow ``stage_schedule``; each runs on every shard
+    (K1 on a shard without halo, K1a on a padded one), then the halos of the
+    array it wrote are refreshed.  The stream scalars advance once per
+    stage, not once per shard: every shard starts the stage from the same
+    ones and every site draws the same count.  The reunit condition is the
+    reference's."""
+    dims = tuple(cfg.dims)
     tracking = tracks(cfg)
     denom = tracked_stat_denom(cfg, dims)
     gen = streams.stream_mode_name(cfg.rng_mode)
     scalar_names = streams.kernel_scalar_names(gen) if gen else ()
+    schedule = stage_schedule(cfg)
+    devices = list(dict.fromkeys(grid.devices))
+    # the halo views of the last state swept (the sweeps of a run update
+    # the same tensors in place)
+    last = {"shards": None, "plan": None}
 
     def sweep(state, base_key, sweep_idx):
-        us, rst = state[0], dict(state[1])
-        count = (torch.zeros(1, dtype=torch.int64, device=us[0].device)
-                 if tracking else None)
-        stage_id = 0
-        for kind in kinds:
-            stage_count = count if kind == track_kind else None
-            kw = dict(kind=kind, n_hit=cfg.n_hit,
-                      metro_delta=cfg.metro_delta, count=stage_count)
-            for parity in (0, 1):
-                sfx = ("_e", "_o")[parity]
-                for mu in range(NDIM):
-                    if gen and kind != "overrelax":
-                        scal = {k: rst[k + sfx] for k in scalar_names}
-                        cupdate.stage_update(
-                            us, mu, parity, cfg.beta, None, dims,
-                            cfg.kp_trials, gen=gen, words=rst["words" + sfx],
-                            scalars=scal, **kw)
-                        rst.update({k + sfx: v for k, v in scal.items()})
-                    else:
-                        # overrelaxation draws nothing: no key to derive
-                        key2 = ((0, 0) if kind == "overrelax" else
-                                rng.stage_key(base_key, sweep_idx, stage_id))
-                        cupdate.stage_update(us, mu, parity, cfg.beta, key2,
-                                             dims, cfg.kp_trials, **kw)
-                    stage_id += 1
-        if (cfg.reunit_every > 0
-                and sweep_idx % cfg.reunit_every == cfg.reunit_every - 1):
-            for s in us:
-                reunitarize_dir(s, dims)
+        shards, rst = state[0], dict(state[1])
+        if last["shards"] is not shards:
+            last.update(shards=shards,
+                        plan=sharded.halo_copies(shards, grid))
+        counts = ({d: torch.zeros(1, dtype=torch.int64, device=d)
+                   for d in devices} if tracking else None)
+        for kind, parity, mu, stage_id, counted in schedule:
+            sfx = ("_e", "_o")[parity]
+            key2 = stage_key2(cfg, kind, base_key, sweep_idx, stage_id)
+            draws = bool(gen) and kind != "overrelax"
+            scal = {k: rst[k + sfx] for k in scalar_names}
+            for s, (g, us) in enumerate(zip(grid.shards, shards)):
+                src = {}
+                if draws:
+                    src = dict(gen=gen, words=rst["words" + sfx][s],
+                               scalars=dict(scal))
+                cupdate.stage_update(
+                    us, mu, parity, cfg.beta, key2, dims, cfg.kp_trials,
+                    kind=kind, n_hit=cfg.n_hit, metro_delta=cfg.metro_delta,
+                    count=counts[grid.devices[s]] if counted else None,
+                    shard=g, **src)
+            if draws:
+                rst.update({k + sfx: v for k, v in src["scalars"].items()})
+            sharded.refresh_halos(shards, grid, (2 * mu + parity,),
+                                  last["plan"])
+        if reunit_due(cfg, sweep_idx):
+            # K2 over each padded array whole: a halo slot holds its
+            # owner's bits and comes out with the owner's new ones
+            for g, us in zip(grid.shards, shards):
+                for a in us:
+                    reunitarize_dir(a, g.padded)
         if tracking:
-            return (us, rst), count[0].to(torch.float32) / denom
-        return us, rst
+            total = counts[devices[0]]
+            for d in devices[1:]:
+                total = total + counts[d].to(devices[0])
+            return (shards, rst), total[0].to(torch.float32) / denom
+        return shards, rst
 
     return sweep
 
@@ -371,38 +431,80 @@ def obs_base_from_sums(sums, poly, n, dims):
                        ).to(torch.float32)
 
 
+def measure_shards(shards, geoms):
+    """Observable vector (ops.measure.OBS_NAMES) of the lattice that the
+    shards cover (``geoms``: their core.Shard geometries): K3/K4 on a shard
+    without halo, K5a/K5b on a padded one, the f64 sums added in shard
+    order on the first shard's device; deterministic run to run."""
+    dev = shards[0][0].device
+    sums = poly = None
+    for g, us in zip(geoms, shards):
+        s = cmeasure.plane_sums_local(us, g).to(dev)
+        p = cmeasure.polyakov_sums_local(us, g).to(dev)
+        sums = s if sums is None else sums + s
+        poly = p if poly is None else poly + p
+    return obs_base_from_sums(sums, poly, shards[0][0].shape[1],
+                              tuple(geoms[0].dims))
+
+
 def measure_all_split(us, dims):
-    """Observable vector (ops.measure.OBS_NAMES) from packed state, through
-    the plane-sum and Polyakov-sum kernels; stays on the state's device."""
-    n = us[0].shape[1]
-    return obs_base_from_sums(cmeasure.plane_sums(us, dims),
-                              cmeasure.polyakov_sums(us, dims), n, tuple(dims))
+    """Observable vector of one unsharded packed 8-tuple; stays on its
+    device."""
+    return measure_shards((us,), (core.whole(dims),))
 
 
-def make_chunk_runner(cfg: SimConfig, device="cuda"):
-    """Runner for the packed engine on ``device`` (the contract of the
-    reference's make_pallas_chunk_runner, with the state always (us, rst)):
-    run(u, key, sweep0, n, me), run.packed, run.pack / run.unpack (run.pack
-    gives fresh streams from cfg.seed in stream mode), and the
-    packed-direct start and measurement entry points."""
+def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
+    """Runner for the packed engine (the contract of the reference's
+    make_pallas_chunk_runner): run(u, key, sweep0, n, me), run.packed on
+    engine state, run.pack / run.unpack (run.pack gives fresh streams from
+    cfg.seed in stream mode), run.packed_cold_start, run.packed_hot_start,
+    run.measure_packed, run.make_stream_state0 and, in stream mode,
+    run.packed_stream_hot_start; run.scatter / run.gather between the
+    global packed state and the runner's; run.grid.
+
+    Engine state is (shards, rst): one 8-tuple per shard of cfg.mesh
+    (parallel/mesh.py), halo-padded on a split axis, and rst with each
+    parity's words split the same way (sharded.shard_state).  Without a
+    mesh the grid is one shard without halo, which is the whole lattice.
+    The shards sit on ``device`` unless ``devices`` lists the devices to
+    spread them over.
+
+    The threefry starts build each shard from global coordinates, so the
+    global field is never built (the reference's out_shardings rule,
+    ops/pallas/sharded.py:302-312).  The stream starts build the global
+    stream state on ``device`` and split it."""
     from ...runner import build_chunk_runner
 
     check_supported(cfg)
     dev = resolve_device(device)
-    dims = tuple(cfg.dims)
+    grid = shard_grid(cfg, dev, None if devices is None
+                      else [resolve_device(d) for d in devices])
     gen = streams.stream_mode_name(cfg.rng_mode)
-    meas = lambda us: measure_all_split(us, dims)  # noqa: E731
+    dims = tuple(cfg.dims)
+
+    def meas(shards):
+        return measure_shards(shards, grid.shards)
+
     run = build_chunk_runner(
-        cfg, make_sweep(cfg), lambda st: meas(st[0]),
-        pack=lambda u: (split_links(u.to(dev)), run.make_stream_state0()),
-        unpack=lambda st: join_links(st[0], dims),
-        with_acc=tracks(cfg),
+        cfg, make_sweep(cfg, grid), lambda st: meas(st[0]),
+        pack=lambda u: sharded.shard_state(
+            (split_links(u.to(dev)), make_stream_state0(cfg, dev)), grid),
+        unpack=lambda st: join_links(sharded.gather_links(st[0], grid), dims),
+        with_acc=tracks(cfg), device=grid.devices[0],
     )
-    run.packed_cold_start = lambda: packed_cold_start(cfg, dev)
-    run.packed_hot_start = lambda key: packed_hot_start(cfg, key, dev)
+    run.grid = grid
+    run.scatter = lambda us: sharded.shard_links(us, grid)
+    run.gather = lambda st: sharded.gather_state(st, grid)
+    run.packed_cold_start = lambda: tuple(
+        packed_cold_start(cfg, d, g) for g, d in zip(grid.shards,
+                                                     grid.devices))
+    run.packed_hot_start = lambda key: tuple(
+        packed_hot_start(cfg, key, d, g) for g, d in zip(grid.shards,
+                                                        grid.devices))
     run.measure_packed = meas
-    run.make_stream_state0 = lambda: make_stream_state0(cfg, dev)
+    run.make_stream_state0 = lambda: sharded.shard_streams(
+        make_stream_state0(cfg, dev), grid)
     if gen:
-        run.packed_stream_hot_start = lambda: packed_stream_hot_start(
-            cfg, dev)
+        run.packed_stream_hot_start = lambda: sharded.shard_state(
+            packed_stream_hot_start(cfg, dev), grid)
     return run

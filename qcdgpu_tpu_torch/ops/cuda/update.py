@@ -42,6 +42,15 @@ advances in place, as it does the words.  The kernel has one instantiation
 per generator family (csrc/stage_<family>.cu); its plain twin is
 ``stage_update_ref`` with the same arguments.
 
+K1a, the stage on one shard of an X/Y-decomposed lattice (the reference's
+``local_x`` / ``local_y`` > 0 form, driven by ops/pallas/sharded.py): pass
+``shard`` (a ``core.Shard``).  us are then the shard's halo-padded arrays,
+the stage updates its interior sites only, reading neighbours from the
+halos on a split axis, and keys threefry by the GLOBAL site index, so the
+sharded chain is the unsharded one; stream words are the shard's unpadded
+``[W, lx, ly, Z*T/2]``.  Every instantiation has such a sharded twin
+(``instance_name(..., shard=True)``).
+
 ``stage_update`` dispatches on the tensors' device: CPU tensors go to
 the plain version, CUDA tensors to the kernel, anything else raises.
 There is no fallback from a failed build or launch.
@@ -62,11 +71,13 @@ KINDS = ("heatbath", "overrelax", "metropolis")
 SUBGROUPS = {2: ((0, 1),), 3: ((0, 1), (0, 2), (1, 2))}
 
 
-def instance_name(kind, n, track=False, gen=None):
+def instance_name(kind, n, track=False, gen=None, shard=False):
     """Name of the kernel instantiation (and its launch counter); ``gen``
-    names a PRNGCL generator (its family's instantiation)."""
+    names a PRNGCL generator (its family's instantiation), ``shard`` the
+    K1a twin on a halo-padded shard."""
     fam = "" if gen is None else "_" + streams.family(gen)
-    return f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
+    return (f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
+            + ("_shard" if shard else ""))
 
 
 # the kernel instantiations: every kind and group, tracked where the kind
@@ -78,8 +89,13 @@ STREAM_INSTANCES = tuple(
     for fam in streams.FAMILIES for n in (3, 2)
     for k in ("heatbath", "metropolis") for t in (False, True))
 
+# K1a: the sharded twin of every instantiation
+SHARD_INSTANCES = tuple(name + "_shard"
+                        for name in INSTANCES + STREAM_INSTANCES)
+
 # kernel launches, counted where the kernel is launched (never on the CPU)
-LAUNCHES = {name: 0 for name in INSTANCES + STREAM_INSTANCES}
+LAUNCHES = {name: 0
+            for name in INSTANCES + STREAM_INSTANCES + SHARD_INSTANCES}
 
 
 def two_beta_over_n(beta, n):
@@ -243,14 +259,17 @@ def staple_W(ld, mu):
     return u_mu, core.mmul(u_mu, acc)
 
 
-def _check(us, mu, parity, dims, kind, k_trials, n_hit, count):
+def _check(us, mu, parity, dims, kind, k_trials, n_hit, count, shard):
     if len(us) != 2 * NDIM:
         raise ValueError("us must be the 8-tuple us[2*mu + parity]")
     n = us[0].shape[1]
     if n not in SUBGROUPS:
         raise ValueError(f"packed links are SU(2) or SU(3), got N={n}")
+    if shard is not None and tuple(shard.dims) != tuple(dims):
+        raise ValueError(f"shard of {shard.dims}, lattice {tuple(dims)}")
+    ext = dims if shard is None else shard.padded
     for i, a in enumerate(us):
-        core.check_packed(a, n, dims, f"us[{i}]")
+        core.check_packed(a, n, ext, f"us[{i}]")
     if mu not in range(NDIM) or parity not in (0, 1):
         raise ValueError(f"bad stage (mu={mu}, parity={parity})")
     if kind not in KINDS:
@@ -271,7 +290,8 @@ def _check(us, mu, parity, dims, kind, k_trials, n_hit, count):
 
 
 def _check_stream(us, dims, kind, gen, words, scalars):
-    """Validate the stream arguments of a stage; returns the family."""
+    """Validate the stream arguments of a stage (dims: the extents the
+    words cover, a shard's interior); returns the family."""
     if gen is None:
         if words is not None or scalars is not None:
             raise ValueError("stream words/scalars given without gen")
@@ -294,12 +314,13 @@ def _check_stream(us, dims, kind, gen, words, scalars):
 
 
 def _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
-                 metro_delta, count, draw):
+                 metro_delta, count, draw, shard=None):
     """The plain stage on the uniforms ``draw(m)`` returns (m tensors over
-    the active sites, slot order); updates us[2*mu + parity] in place."""
+    the active sites, slot order); updates us[2*mu + parity] in place (on
+    a shard: its interior)."""
     n = us[0].shape[1]
     dims = tuple(dims)
-    ld = core.LinkLoader(us, parity, dims, n)
+    ld = core.LinkLoader(us, parity, dims, n, shard)
     u_mu, w = staple_W(ld, mu)
     sgs = SUBGROUPS[n]
     per = uniforms_per_subgroup(kind, k_trials, n_hit)
@@ -324,7 +345,7 @@ def _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
         u_mu = subgroup_left_mul(flip, i, j, u_mu)
         w = subgroup_left_mul(flip, i, j, w)
     target = us[2 * mu + parity]
-    core.store_rows(target, u_mu, n)
+    core.store_rows(target, u_mu, n, core.interior_slots(shard, us[0].device))
     return target
 
 
@@ -338,18 +359,20 @@ def stream_draw_count(kind, k_trials, n_hit, n):
 
 def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
                      kind="heatbath", n_hit=3, metro_delta=0.35, count=None, *,
-                     gen=None, words=None, scalars=None):
+                     gen=None, words=None, scalars=None, shard=None):
     """Plain PyTorch stage with stage_update's arguments: updates
     us[2*mu + parity] in place and returns it, adds the tracked count to
     ``count`` when given, and with ``gen`` advances ``words`` and the dict
     ``scalars`` in place, as the kernel does.  Any device."""
-    n, _ = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
-    if _check_stream(us, dims, kind, gen, words, scalars) is None:
-        sidx = core.site_index_packed(parity, tuple(dims),
-                                      us[0].device).reshape(-1)
+    shard = core.padded_or_none(shard)
+    n, _ = _check(us, mu, parity, dims, kind, k_trials, n_hit, count, shard)
+    ext = dims if shard is None else shard.interior
+    if _check_stream(us, ext, kind, gen, words, scalars) is None:
+        sidx = core.site_index_packed(parity, tuple(dims), us[0].device,
+                                      shard).reshape(-1)
         return _stage_plain(us, mu, parity, beta, dims, k_trials, kind,
                             n_hit, metro_delta, count,
-                            lambda m: rng.site_uniforms(key2, sidx, m))
+                            lambda m: rng.site_uniforms(key2, sidx, m), shard)
     flat = words.reshape(words.shape[0], -1)
 
     def draw(m):
@@ -357,7 +380,7 @@ def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
                 for u in streams.draw_words(gen, flat, m, scalars)]
 
     target = _stage_plain(us, mu, parity, beta, dims, k_trials, kind, n_hit,
-                          metro_delta, count, draw)
+                          metro_delta, count, draw, shard)
     scalars.update(streams.advance_kernel_scalars(
         gen, scalars, stream_draw_count(kind, k_trials, n_hit, n)))
     return target
@@ -365,7 +388,7 @@ def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
 
 def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
                  kind="heatbath", n_hit=3, metro_delta=0.35, count=None, *,
-                 gen=None, words=None, scalars=None):
+                 gen=None, words=None, scalars=None, shard=None):
     """One stage of ``kind`` on the packed 8-tuple, in place on
     us[2*mu + parity] (returned).  key2: the (k0, k1) stage key as ints
     (rng.stage_key; unused by overrelaxation and streams).  count: optional
@@ -373,31 +396,38 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
 
     With ``gen`` (a PRNGCL generator name) the stage draws from ``words``,
     the active parity's stream words, and advances them and the dict
-    ``scalars`` in place.  CPU tensors take the plain version, CUDA tensors
-    the kernel."""
-    n, dev = _check(us, mu, parity, dims, kind, k_trials, n_hit, count)
-    fam = _check_stream(us, dims, kind, gen, words, scalars)
+    ``scalars`` in place.  With ``shard`` (a ``core.Shard``) us and words
+    are that shard's (K1a; a shard without halo is the whole lattice:
+    K1).  CPU tensors take the plain version, CUDA tensors the kernel."""
+    shard = core.padded_or_none(shard)
+    n, dev = _check(us, mu, parity, dims, kind, k_trials, n_hit, count,
+                    shard)
+    fam = _check_stream(us, dims if shard is None else shard.interior, kind,
+                        gen, words, scalars)
     if dev == "cpu":
         return stage_update_ref(us, mu, parity, beta, key2, dims, k_trials,
                                 kind, n_hit, metro_delta, count, gen=gen,
-                                words=words, scalars=scalars)
+                                words=words, scalars=scalars, shard=shard)
     track = count is not None
-    name = instance_name(kind, n, track, gen)
+    name = instance_name(kind, n, track, gen, shard is not None)
     lib = build.library()
-    x, y, z, t = (int(d) for d in dims)
-    common = (n, KINDS.index(kind), int(track), int(mu), int(parity),
-              x, y, z, t)
+    geom = (tuple(int(d) for d in dims) if shard is None
+            else shard.kernel_args())
+    common = (n, KINDS.index(kind), int(track), int(mu), int(parity), *geom)
     tail = (two_beta_over_n(beta, n), int(k_trials), int(n_hit),
             fm.f32(metro_delta), None if count is None else count.data_ptr(),
             build.stream_handle(us[0].device))
     with torch.cuda.device(us[0].device):
         if fam is None:
-            err = lib.qg_stage(*[a.data_ptr() for a in us], *common,
-                               int(key2[0]), int(key2[1]), *tail)
+            entry = lib.qg_stage if shard is None else lib.qg_stage_shard
+            err = entry(*[a.data_ptr() for a in us], *common,
+                        int(key2[0]), int(key2[1]), *tail)
         else:
             s0, ptr0 = streams.encode_kernel_scalars(gen, scalars)
             skip = (streams.ranlux_skip_len(gen) if fam == "ranlux" else 0)
-            err = lib.qg_stage_stream(
+            entry = (lib.qg_stage_stream if shard is None
+                     else lib.qg_stage_stream_shard)
+            err = entry(
                 *[a.data_ptr() for a in us], *common,
                 streams.FAMILIES.index(fam), words.data_ptr(),
                 words[0].numel(), s0, ptr0, skip, *tail)

@@ -23,12 +23,12 @@ from .ops.measure import obs_names
 
 
 def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
-                       with_acc=False):
+                       with_acc=False, *, device):
     """sweep(state, key, sweep_idx) -> state (may update in place), or
-    (state, rate) with with_acc, rate an f32 0-d tensor; state is
-    (link 8-tuple, stream state);
+    (state, rate) with with_acc, rate an f32 0-d tensor on ``device``;
+    state is (links, stream state) — the link 8-tuple, or one per shard;
     measure_state(state) -> f32 row [n_obs] (without the tracked column)
-    on the state's device;
+    on ``device``;
     pack / unpack: canonical complex link field <-> engine state."""
     n_obs = len(obs_names(cfg))
     pack = pack or (lambda u: u)
@@ -40,7 +40,6 @@ def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
         return out if with_acc else (out, None)
 
     def run_packed(st, base_key, sweep0, n_sweeps, measure_every):
-        device = st[0][0].device
         me = int(measure_every or 0)
         n_blocks = n_sweeps // me if me else 0
         rows = []

@@ -5,12 +5,17 @@
     obs = sim.run(n, measure_every)      # numpy [n // me, len(obs_names)]
     sim.measure(); sim.analysis(); sim.unitarity_defect()
 
-The state is the packed 8-tuple on ``device`` (ops/cuda/engine.py), and the
-stage and reunitarization kernels update it in place.  The canonical
+The state is the packed 8-tuple on ``device`` (ops/cuda/engine.py), held as
+the runner's shards, and the stage and reunitarization kernels update it
+in place.  The canonical
 complex field [4, N, N, X, Y, Z, T] is built only when something asks for
 it (``sim.u``, ``unitarity_defect``).  With ``rng_mode="prngcl:<gen>"`` the
 Simulation also owns the packed PRNGCL stream state (``stream_state``),
-which the drawing stages advance in place.
+which the drawing stages advance in place.  With ``cfg.mesh = (mx, my, 1,
+1)`` the lattice is split over X/Y shards (ops/cuda/sharded.py), all on
+``device`` unless ``devices`` spreads them; ``us``, ``u`` and
+``stream_state`` then gather the shards into the global state (without a
+mesh the one shard is the whole lattice).
 """
 
 from __future__ import annotations
@@ -39,22 +44,24 @@ class Simulation:
     a given state — numpy arrays from the JAX package or tensors — with
     fresh streams from cfg.seed in stream mode; otherwise cfg.start picks a
     cold or hot start (a stream-mode hot start draws from the streams).
+    ``devices``: where the shards of an X/Y mesh go (default: all on
+    ``device``).
     """
 
     def __init__(self, cfg: SimConfig, init_u=None, init_us=None, *,
-                 device="cuda"):
+                 device="cuda", devices=None):
         self.cfg = cfg
         self.device = engine.resolve_device(device)
         self.base_key = rng.make_base_key(cfg.seed)
-        self._run = engine.make_chunk_runner(cfg, self.device)
+        self._run = engine.make_chunk_runner(cfg, self.device, devices)
         self.sweep_idx = 0
         self.obs_history: list[np.ndarray] = []
         self._gen = stream_mode_name(cfg.rng_mode)
         self._rst = None  # packed stream state ({} with threefry)
         if init_u is not None:
-            self._us = self._adopt_input(init_u)
+            self._us = self._run.scatter(self._adopt_input(init_u))
         elif init_us is not None:
-            self._us = self._adopt_input(tuple(init_us))
+            self._us = self._run.scatter(self._adopt_input(tuple(init_us)))
         elif cfg.start == "hot" and self._gen:
             self._us, self._rst = self._run.packed_stream_hot_start()
         elif cfg.start == "hot":
@@ -83,8 +90,9 @@ class Simulation:
     # -- state ------------------------------------------------------------
     @property
     def us(self):
-        """The live packed state (updated in place by the sweeps)."""
-        return self._us
+        """The packed 8-tuple: the live state (updated in place by the
+        sweeps), or on a mesh the shards gathered into a new one."""
+        return self._run.gather(self._state())[0]
 
     @property
     def stream_state(self):
@@ -94,7 +102,7 @@ class Simulation:
         if self._gen is None:
             return None
         out = {}
-        for k, v in self._rst.items():
+        for k, v in self._run.gather(self._state())[1].items():
             if isinstance(v, torch.Tensor):
                 out[k] = streams.words_to_numpy(self._gen, v)
             elif k.startswith("c_"):
@@ -115,9 +123,11 @@ class Simulation:
         return self._run.unpack(self._state())
 
     def sync(self):
-        """Wait for the queued device work (no-op on the CPU)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the queued work of every device that holds a shard
+        (no-op on the CPU)."""
+        for dev in dict.fromkeys(self._run.grid.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     # -- simulation -------------------------------------------------------

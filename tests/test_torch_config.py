@@ -59,7 +59,6 @@ def test_validation_matches_reference(kw):
 # each ported feature paired with an unported one: the pair is still refused
 @pytest.mark.parametrize("kw", [
     dict(group=2, rng_mode="hw"),
-    dict(n_or=1, mesh=(1, 2, 1, 1)),
     dict(algorithm="metropolis", rng_mode="prngcl:ranmar", get_qtop=True),
     dict(algorithm="metropolis", track_acceptance=True, get_qtop=True),
     dict(track_kp_exhaust=True, meas_dtype="double"),
@@ -67,8 +66,7 @@ def test_validation_matches_reference(kw):
     dict(wilson_loops=((1, 1),)),
     dict(get_qtop=True),
     dict(rng_mode="hw"),
-    dict(rng_mode="prngcl:xor128", mesh=(2, 1, 1, 1)),
-    dict(mesh=(2, 1, 1, 1)),
+    dict(mesh=(2, 2, 1, 1), get_qtop=True),
     dict(dtype="complex128"),
     dict(meas_dtype="double"),
     dict(engine="xla"),
@@ -77,6 +75,14 @@ def test_unported_features_raise(kw):
     cfg = SimConfig(**{**TINY, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.make_chunk_runner(cfg, "cpu")
+
+
+# Z/T splits run on the reference's XLA engine, which is not ported
+@pytest.mark.parametrize("mesh", [(1, 1, 2, 1), (2, 1, 1, 2), (1, 1, 1, 2)])
+def test_zt_meshes_raise(mesh):
+    cfg = SimConfig(dims=(4, 4, 4, 4), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="M11"):
+        Simulation(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
@@ -90,12 +96,16 @@ def test_unported_features_raise(kw):
          track_acceptance=True),
     dict(rng_mode="prngcl:xor128", group=2, n_or=1),
     dict(rng_mode="prngcl:mrg32k3a", track_kp_exhaust=True),
+    dict(n_or=1, mesh=(1, 2, 1, 1)),
+    dict(rng_mode="prngcl:xor128", mesh=(2, 1, 1, 1)),
+    dict(mesh=(2, 1, 1, 1)),
 ])
 def test_ported_features_accepted(kw):
     cfg = SimConfig(**{**TINY, **kw})
     engine.check_supported(cfg)
     run = engine.make_chunk_runner(cfg, "cpu")
-    assert run.packed_cold_start()[0].shape[1] == cfg.group
+    u = run.unpack((run.packed_cold_start(), run.make_stream_state0()))
+    assert u.shape == (4, cfg.group, cfg.group) + TINY["dims"]
 
 
 def test_checkpoints_raise():
@@ -137,6 +147,8 @@ def test_default_device_is_the_card():
 def test_import_leaves_jax_out():
     code = ("import sys, qcdgpu_tpu_torch, qcdgpu_tpu_torch.sim, "
             "qcdgpu_tpu_torch.ops.cuda.engine, "
+            "qcdgpu_tpu_torch.ops.cuda.sharded, "
+            "qcdgpu_tpu_torch.parallel.mesh, "
             "qcdgpu_tpu_torch.ops.prng_streams; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'qcdgpu_tpu' or "
