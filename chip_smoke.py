@@ -15,8 +15,9 @@ each timed:
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
   2. build      — nvcc builds csrc/*.cu into build/ (one process per
                   source, all at once); registers, stack frame and spills
-                  of every kernel instantiation, threefry and stream,
-                  unsharded and on a shard (K1a, K5a, K5b: "_shard");
+                  of every kernel instantiation, threefry, Philox and
+                  stream, unsharded and on a shard (K1a, K5a, K5b:
+                  "_shard");
   3. kernels    — every kernel instantiation against its plain PyTorch
                   version on the card (hot starts, seed 1): K1 threefry for
                   each kind x group x tracking, every (mu, parity), at
@@ -27,20 +28,28 @@ each timed:
                   every stream instantiation again at 8^4 with the
                   generator of its own phase-5 run, and ranlux3, ranmar,
                   xor128, mrg32k3a at 32^4 (SU(3) heat-bath and tracked
-                  Metropolis); K2-K4 for SU(3) and SU(2) at
+                  Metropolis); K1 Philox (rng_mode "hw", K9's port) for
+                  each drawing kind x group x tracking at (4,4,2,4) and at
+                  its own phase-5 run's 8^4 shape, SU(3) heat-bath (and
+                  tracked) at 32^4, all bit-identical with equal counts;
+                  K2-K4 for SU(3) and SU(2) at
                   (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4; every K1a
                   instantiation (threefry and stream) on the shards of
                   (8,8,4,4) mesh (2,2,1,1) and again at the 8^4 shape,
                   X, Y or XY mesh and generator of its own phase-5 run,
                   SU(3) heat-bath (and tracked) at 32^4 on (2,2,1,1),
-                  every (mu, parity) in sweep order with the halo refresh
-                  between stages, streams on carried words; K5a/K5b per
-                  shard at (8,8,4,4) and 32^4 on the XY, X and Y meshes;
+                  Philox SU(3) heat-bath (and tracked) at 32^4 on
+                  (2,2,1,1) too, every (mu, parity) in sweep order with
+                  the halo refresh between stages, streams on carried
+                  words; K5a/K5b per shard at (8,8,4,4) and 32^4 on the
+                  XY, X and Y meshes;
   4. timing     — each instantiation and its plain version at 32^4, CUDA
                   events, in the order plain, kernel, kernel (K2
                   over the 8 arrays in turn, per array), beside its bound
                   from bytes (a stream stage's state words included; on a
-                  shard only the halo columns read) and f32 operations;
+                  shard only the halo columns read), f32 operations and
+                  threefry's and Philox's integer operations, each
+                  operation kind at its own pipe's rate;
                   K1a, K5a and K5b on one shard of 32^4 mesh (2,2,1,1),
                   and the halo refresh of one array;
   5. main paths — first small hot starts through the library API, CUDA
@@ -58,27 +67,34 @@ each timed:
                   Then the PRNGCL stream path: SU(3) heat-bath at 32^4 with
                   ranlux3 (QCDGPU's default generator; idle share too),
                   ranmar, xor128 and mrg32k3a, with the time to build the
-                  stream state; and every stream instantiation through its
-                  own configuration at 8^4.  Then the sharded path:
-                  the bench configuration on mesh (2,2,1,1) (launch counts,
-                  idle share, links bit-identical to the unsharded run),
+                  stream state; the bench's exact configuration with
+                  rng_mode="hw" (Philox; launch counts, idle share); and
+                  every stream and Philox instantiation through its own
+                  configuration at 8^4.  Then the sharded path: the bench
+                  configuration, threefry and hw, on mesh (2,2,1,1)
+                  (launch counts, idle share, links bit-identical to the
+                  unsharded run),
                   meshes (4,1,1,1) and (1,4,1,1), prngcl:ranlux3 on
                   (2,1,1,1) (links and streams bit-identical), and SU(3)
                   64^4 on (1,8,1,1) against unsharded after 2 sweeps;
                   and every K1a instantiation through a configuration of
-                  its own at 8^4 on an X, Y or XY mesh;
-  6. physics    — SU(3) 16^4 beta=6.0 heat-bath (window 0.5937 +- 5e-4);
-                  SU(3) 16^4 beta=6.0 heat-bath + 1 overrelaxation with
-                  track_kp_exhaust, seed 7, and SU(2) 8^4 beta=2.4
-                  heat-bath, seed 42, each with the reference's literature
-                  and self-anchor gates (qcdgpu_tpu/validate.py); SU(2) 8^4
+                  its own at 8^4 on an X, Y or XY mesh.  Then the command
+                  line on the bench's hw configuration: `cli.main(["run",
+                  ..., "--ckpt-every", "5"])` and `resume`, each with
+                  exact launch counts, whose series and links must equal
+                  an uninterrupted run's;
+  6. physics    — through the port's validate.py (its anchors, windows and
+                  chains): SU(3) 16^4 beta=6.0 heat-bath (window 0.5937 +-
+                  5e-4) and the same on mesh (2,2,1,1), which must
+                  reproduce the unsharded chain's links and plaquette;
+                  check_su3 (16^4 heat-bath + 1 overrelaxation,
+                  track_kp_exhaust, seed 7) and check_su2 (8^4 beta=2.4
+                  heat-bath, seed 42), each with the literature and
+                  self-anchor gates, for threefry, a PRNGCL stream
+                  (ranlux3; ranmar on SU(2)) and hw (Philox); SU(2) 8^4
                   beta=2.4 Metropolis with track_acceptance in the
-                  literature window; the stream gates: SU(3) 16^4 beta=6.0
-                  heat-bath + 1 overrelaxation, track_kp_exhaust, seed 7,
-                  prngcl:ranlux3, and SU(2) 8^4 beta=2.4 heat-bath, seed
-                  42, prngcl:ranmar, each with both gates; SU(3) 16^4
-                  heat-bath on mesh (2,2,1,1), which must reproduce the
-                  unsharded chain's links and plaquette.
+                  literature window; `python -m qcdgpu_tpu_torch rngtest`
+                  with the native host generators built.
 
 Any failed check raises and the script exits non-zero.  The last three
 lines are the kernels' JSON record, the card's `nvidia-smi` name/power
@@ -122,14 +138,18 @@ RATE_TOL = 2e-3
 THERM, RUN = 20, 20
 
 # One H100 SXM, NVIDIA's data sheet: HBM bandwidth and f32 rate outside the
-# tensor cores (the bound of every kernel here).
+# tensor cores.  Integer operations run on their own pipe: 64 32-bit integer
+# results per clock per SM (the CUDA C++ Programming Guide's throughput
+# table, compute capability 9.0), times 132 SMs at the 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
-# Main-path runs of phase 5: (label, is a slice configuration, SimConfig
-# fields beyond dims=32^4, cold start, reunit_every=10, seed 0, threefry).
+# Main-path runs of phase 5: (label, idle share measured (the bench and
+# the slice configurations), SimConfig fields beyond dims=32^4, cold start,
+# reunit_every=10, seed 0, threefry).
 MAIN_PATHS = (
-    ("bench: SU(3) heat-bath", False, dict(group=3, beta=6.0)),
+    ("bench: SU(3) heat-bath", True, dict(group=3, beta=6.0)),
     ("slice 1: SU(3) heat-bath + 1 OR, track_kp_exhaust", True,
      dict(group=3, beta=6.0, n_or=1, track_kp_exhaust=True)),
     ("slice 2: SU(3) Metropolis, track_acceptance", True,
@@ -154,19 +174,49 @@ STREAM_BIG = ("ranlux3", "ranmar", "xor128", "mrg32k3a")
 FAMILY_GEN = {"xor128": "xor128", "xor7": "xor7", "mrg32k3a": "mrg32k3a",
               "parkmiller": "parkmiller", "constant": "constant",
               "ranlux": "ranlux3", "ranmar": "ranmar"}
-# generators that drive each family's 8 instantiations at 8^4 in turn
+# the random sources that drive each family's 8 instantiations at 8^4 in
+# turn: PRNGCL generators, and "hw" (Philox) for the philox family
 FAMILY_RUN_GENS = {"ranlux": ("ranlux0", "ranlux1", "ranlux2", "ranlux4"),
                    "xor128": ("xor128",), "xor7": ("xor7",),
                    "mrg32k3a": ("mrg32k3a",), "parkmiller": ("parkmiller",),
-                   "constant": ("constant",), "ranmar": ("ranmar",)}
+                   "constant": ("constant",), "ranmar": ("ranmar",),
+                   "philox": ("hw",)}
+DRAWING = ("heatbath", "metropolis")
+
+# A random source ("src" below) is None (threefry), "hw" (Philox) or a
+# PRNGCL generator name.
+
+
+def is_stream(src):
+    return src not in (None, "hw")
+
+
+def rng_mode_of(src):
+    return ("threefry" if src is None else "hw" if src == "hw"
+            else f"prngcl:{src}")
 
 
 def parse_instance(name):
-    """(kind, group, tracked, stream family or None) of a stage
-    instantiation's name (update.instance_name)."""
+    """(kind, group, tracked, family or None) of a stage instantiation's
+    name (update.instance_name): a stream family, "philox" or None
+    (threefry)."""
     parts = name.split("_")
-    fam = parts[3] if parts[3] in FAMILY_RUN_GENS else None
+    fam = parts[3] if parts[3:4] and parts[3] in FAMILY_RUN_GENS else None
     return parts[1], int(parts[2][2:]), "track" in parts, fam
+
+
+def family_source(fam):
+    """The source standing for family fam where one stands for it."""
+    return "hw" if fam == "philox" else FAMILY_GEN.get(fam)
+
+
+def instance(kind, n, track, src, shard=False):
+    """update.instance_name of the instantiation that source src runs."""
+    from qcdgpu_tpu_torch.ops.cuda import update as cupdate
+
+    return cupdate.instance_name(kind, n, track,
+                                 src if is_stream(src) else None, shard,
+                                 philox=src == "hw" and kind != "overrelax")
 
 
 class Phase:
@@ -232,10 +282,11 @@ def kernel_label(mangled, kinds):
     order)."""
     shard = "_shard" if "9ShardDims" in mangled else ""
     m = re.search(r"stage_kernelILi(\d)ELi(\d)ELb([01])ENS_"
-                  r"(?:8Threefry|6StreamINS_(\d+)(\w+))", mangled)
+                  r"(?:8Threefry|(6Philox)|6StreamINS_(\d+)(\w+))", mangled)
     if m:
         n, kind, track = int(m[1]), kinds[int(m[2])], m[3] == "1"
-        fam = "" if m[4] is None else "_" + m[5][:int(m[4])].lower()
+        fam = ("_philox" if m[4] else "" if m[5] is None
+               else "_" + m[6][:int(m[5])].lower())
         return (f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
                 + shard)
     m = re.match(r"_ZN2qg(\d+)", mangled)  # qg::<length-prefixed name>
@@ -283,14 +334,38 @@ def codec_ops(n):
 
 # f32 operations per subgroup touch, counted from csrc/stage.cu: the
 # heat-bath's set-up, one Kennedy-Pendleton trial and its direction +
-# product; the overrelaxation flip; one Metropolis hit.  Threefry's integer
-# operations are not counted: the data sheet gives no int32 rate.
+# product; the overrelaxation flip; one Metropolis hit.
 HB_SETUP, HB_TRIAL, HB_FINISH = 19, 97, 89
 OR_FLIP = 42
 METRO_HIT = 134
+# Integer operations of one call of a counter-based source
+# (csrc/common.cuh): threefry2x32-20, 2 key adds, 20 rounds of add, rotate
+# (one funnel shift: the rotations are constants) and xor, 5 key
+# injections of 3 adds, 2 xors for the parity key; Philox-4x32-10, 10
+# rounds of two 32x32->64 multiplies (one wide multiply-add each) and 4
+# xors, 9 key bumps of 2 adds.  A stream generator's steps are not
+# counted.
+THREEFRY_CALL_OPS = 20 * 3 + 2 + 5 * 3 + 2
+PHILOX_CALL_OPS = 10 * (2 + 4) + 9 * 2
+
+
+def rng_ops_per_site(n, kind, k_trials, n_hit, fam):
+    """Integer operations of a site's draws: one threefry call per slot, or
+    one Philox call per block of two slots (the kernel keeps the last
+    block, and the slots are drawn in ascending order)."""
+    from qcdgpu_tpu_torch.ops.cuda import update as cupdate
+
+    per = cupdate.uniforms_per_subgroup(kind, k_trials, n_hit)
+    slots = (3 if n == 3 else 1) * ((per + 1) // 2)
+    if fam is None:
+        return THREEFRY_CALL_OPS * slots
+    if fam == "philox":
+        return PHILOX_CALL_OPS * ((slots + 1) // 2)
+    return 0
 
 
 def stage_ops_per_site(n, kind, k_trials, n_hit):
+    """f32 operations of a site's stage."""
     staples = 13 * mmul_ops(n) + 5 * 2 * n * n + 19 * codec_ops(n)
     flip = {"heatbath": HB_SETUP + k_trials * HB_TRIAL + HB_FINISH,
             "overrelax": OR_FLIP, "metropolis": n_hit * METRO_HIT}[kind]
@@ -371,8 +446,8 @@ def columns_read(reads, local, halo):
 
 
 def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
-    """(bytes, f32 operations) of one call of kernel `name` at dims: each
-    input read once, each output written once (a stream stage's words
+    """(bytes, f32 operations, integer operations) of one call of kernel
+    `name` at dims: each input read once, each output written once (a stream stage's words
     are added by the caller: stream_word_bytes).  A stage is stage (mu,
     parity).  With shard (a core.Shard: K1a, K5a, K5b) dims are its
     interior extents, and of its padded arrays only the halo columns that
@@ -385,23 +460,27 @@ def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
         shard.local, shard.halo)
     if name.startswith("stage_"):
         # the links the stage loads, the target written
-        kind = name.split("_")[1]
+        kind, _, _, fam = parse_instance(name)
         return (columns_read(stage_reads(mu, parity), local, halo) * col
-                + arr, v2 * stage_ops_per_site(n, kind, k_trials, n_hit))
+                + arr, v2 * stage_ops_per_site(n, kind, k_trials, n_hit),
+                v2 * rng_ops_per_site(n, kind, k_trials, n_hit, fam))
     if name.startswith("reunit_"):
-        return 2 * arr, v2 * (84 if n == 3 else 23)
+        return 2 * arr, v2 * (84 if n == 3 else 23), 0
     if name.startswith("plane_sums"):
         per_site = 6 * (2 * mmul_ops(n) + 4 * n * n + 4 * codec_ops(n))
         return (columns_read(plane_reads(), local, halo) * col + 6 * 8,
-                2 * v2 * per_site)
+                2 * v2 * per_site, 0)
     x, y, z, t = dims  # polyakov_sums: the temporal arrays only
     per_col = (t - 1) * mmul_ops(n) + t * codec_ops(n) + 2 * (n - 1)
-    return 2 * arr + 2 * 8, x * y * z * per_col
+    return 2 * arr + 2 * 8, x * y * z * per_col, 0
 
 
-def bound(nbytes, ops):
+def bound(nbytes, f32_ops, int_ops):
+    """The least ms of a call: its bytes at the HBM rate, or its f32 and
+    its integer operations each at its own pipe's rate, whichever is
+    longest."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = max(f32_ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -519,7 +598,7 @@ def main():
         return 2
     if sys.argv[1:2] == ["--cards"]:
         return multicard(int(sys.argv[2]))
-    from qcdgpu_tpu_torch import SimConfig, Simulation
+    from qcdgpu_tpu_torch import SimConfig, Simulation, cli, validate
     from qcdgpu_tpu_torch.ops import prng_streams as ps
     from qcdgpu_tpu_torch.ops import rng
     from qcdgpu_tpu_torch.ops.cuda import build, engine
@@ -545,12 +624,17 @@ def main():
         # K1's stream branch: the draws of K7 (counter-free) or K8 (lag)
         record[name] = (name, f"stage_{fam}.cu", "prng_streams.py:" + (
             "767" if fam in ("ranlux", "ranmar") else "625"))
+    for name in cupdate.PHILOX_INSTANCES:
+        # K9: the hardware-PRNG branch of _stage_kernel, drawn from Philox
+        record[name] = (name, "stage_philox.cu", "update.py:543")
     for name in cupdate.SHARD_INSTANCES:
         # K1a: the halo-padded shard form of _stage_kernel (_stage_call with
-        # local_x / local_y > 0)
+        # local_x / local_y > 0); its Philox twins K9's too
         fam = name.split("_")[3]
         record[name] = (name, "stage.cu" if fam in ("track", "shard")
-                        else f"stage_{fam}.cu", "update.py:602")
+                        else f"stage_{fam}.cu",
+                        "update.py:543" if fam == "philox" else
+                        "update.py:602")
     for n in GROUPS:
         record[f"plane_sums_local_su{n}"] = (f"plane_sums_local_su{n}",
                                              "measure.cu", "measure.py:269")
@@ -609,23 +693,24 @@ def main():
 
     def k1_compare(n, kind, track, dims, k_trials, gen=None):
         """The 8 stages of a sweep, in sweep order, on one hot start (and,
-        with gen, one set of streams, so each parity's words, pointer and
-        luxury counter carry over its 4 stages): the kernel runs on a copy
-        of the inputs, the plain version on the originals, which carry on
-        to the next stage.  Stream words and scalars must come out
-        bit-identical.  -> (max |d| links, links beyond STAGE_TOL, links,
-        kernel count, plain count)."""
+        with a stream generator gen, one set of streams, so each parity's
+        words, pointer and luxury counter carry over its 4 stages; gen "hw":
+        Philox): the kernel runs on a copy of the inputs, the plain version
+        on the originals, which carry on to the next stage.  Stream words
+        and scalars must come out bit-identical.  -> (max |d| links, links
+        beyond STAGE_TOL, links, kernel count, plain count)."""
         us = clone(hot(dims, n))
-        rst = stream_state(gen, n, dims) if gen else {}
-        names = ps.kernel_scalar_names(gen) if gen else ()
+        stream = is_stream(gen)
+        rst = stream_state(gen, n, dims) if stream else {}
+        names = ps.kernel_scalar_names(gen) if stream else ()
         base = rng.make_base_key(1)
         worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
         for p in (0, 1):
             sfx = ("_e", "_o")[p]
             for mu in range(4):
-                key = None if gen else rng.stage_key(base, 0, 4 * p + mu)
-                kw_p = kw_k = {}
-                if gen:
+                key = None if stream else rng.stage_key(base, 0, 4 * p + mu)
+                kw_p = kw_k = {"rng_mode": "hw"} if gen == "hw" else {}
+                if stream:
                     kw_p = dict(gen=gen, words=rst["words" + sfx],
                                 scalars={k: rst[k + sfx] for k in names})
                     kw_k = dict(kw_p, words=kw_p["words"].clone(),
@@ -638,7 +723,7 @@ def main():
                                      k_trials, kind=kind, count=ck, **kw_k)
                 cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key, dims,
                                          k_trials, kind=kind, count=cp, **kw_p)
-                if gen:
+                if stream:
                     require(torch.equal(kw_k["words"], kw_p["words"])
                             and kw_k["scalars"] == kw_p["scalars"],
                             f"K1 {gen} {kind} SU({n}) {dims} (mu={mu}, "
@@ -664,22 +749,23 @@ def main():
         STAGE_TOL, links, kernel count, plain count)."""
         grid = ShardGrid(dims, mesh, [dev])
         shards = sharded.shard_links(hot(dims, n), grid)
+        stream = is_stream(gen)
         rst = (sharded.shard_streams(stream_state(gen, n, dims), grid)
-               if gen else {})
-        names = ps.kernel_scalar_names(gen) if gen else ()
+               if stream else {})
+        names = ps.kernel_scalar_names(gen) if stream else ()
         base = rng.make_base_key(1)
         worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
         for p in (0, 1):
             sfx = ("_e", "_o")[p]
             for mu in range(4):
-                key = None if gen else rng.stage_key(base, 0, 4 * p + mu)
+                key = None if stream else rng.stage_key(base, 0, 4 * p + mu)
                 scal = {k: rst[k + sfx] for k in names}
                 ck, cp = (
                     (torch.zeros(1, dtype=torch.int64, device=dev)
                      for _ in range(2)) if track else (None, None))
                 for i, (g, us) in enumerate(zip(grid.shards, shards)):
-                    kw_p = kw_k = {}
-                    if gen:
+                    kw_p = kw_k = {"rng_mode": "hw"} if gen == "hw" else {}
+                    if stream:
                         kw_p = dict(gen=gen, words=rst["words" + sfx][i],
                                     scalars=dict(scal))
                         kw_k = dict(kw_p, words=kw_p["words"].clone(),
@@ -691,7 +777,7 @@ def main():
                     cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key,
                                              dims, k_trials, kind=kind,
                                              count=cp, shard=g, **kw_p)
-                    if gen:
+                    if stream:
                         require(torch.equal(kw_k["words"], kw_p["words"])
                                 and kw_k["scalars"] == kw_p["scalars"],
                                 f"K1a {gen} {kind} SU({n}) {dims} mesh "
@@ -706,7 +792,7 @@ def main():
                             d = sharded.interior(d, g, 0)
                             bad += int((d > STAGE_TOL).sum())
                             links += d.numel()
-                if gen:
+                if stream:
                     rst.update({k + sfx: v
                                 for k, v in kw_p["scalars"].items()})
                 sharded.refresh_halos(shards, grid, (2 * mu + p,))
@@ -715,12 +801,20 @@ def main():
                     cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
 
-    def require_stage(msg, dims, n, kind, worst, bad, links, ck, cp):
+    def source_note(gen):
+        return (f" ({gen}; words bit-identical)" if is_stream(gen)
+                else " (hw: Philox; bit-identical)" if gen else "")
+
+    def require_stage(msg, dims, n, kind, worst, bad, links, ck, cp, gen):
         """Below 32^4 kernel and plain version agree within STAGE_TOL with
         equal counts; at 32^4 an accept decision at a rounding boundary may
         flip (at most FLIP_FRACTION of the links), moving the count by at
-        most the decisions of those links."""
-        if dims != BIG:
+        most the decisions of those links.  The Philox instantiations (K9's
+        port, new here) must be bit-identical with equal counts at every
+        shape."""
+        if gen == "hw":
+            require(worst == 0.0 and ck == cp, msg)
+        elif dims != BIG:
             require(worst < STAGE_TOL and ck == cp, msg)
         else:
             n_sg = 3 if n == 3 else 1
@@ -733,7 +827,7 @@ def main():
     small_runs = [
         (i, FAMILY_RUN_GENS[fam][i % len(FAMILY_RUN_GENS[fam])], n, kind, t)
         for i, (fam, n, kind, t) in enumerate(itertools.product(
-            ps.FAMILIES, GROUPS, ("heatbath", "metropolis"), (False, True)))]
+            ps.FAMILIES + ("philox",), GROUPS, DRAWING, (False, True)))]
     # phase 5's K1a runs at STREAM_SMALL_RUN, one per drawing K1a
     # instantiation, over SHARD_MESHES in turn (the overrelaxation ones ride
     # on the untracked threefry heat-bath runs' OR pass): (index, name,
@@ -759,23 +853,26 @@ def main():
         cases += [(gen, n, kind, track, STREAM_SMALL_RUN)
                   for _, gen, n, kind, track in small_runs]
         cases += [(gen, 3, kind, kind == "metropolis", BIG)
-                  for gen in STREAM_BIG
-                  for kind in ("heatbath", "metropolis")]
+                  for gen in STREAM_BIG for kind in DRAWING]
+        # K9 -> Philox: every instantiation at (4,4,2,4) (its own 8^4 run's
+        # shape is in small_runs), SU(3) heat-bath at 32^4
+        cases += [("hw", n, kind, track, SMALL) for n in GROUPS
+                  for kind in DRAWING for track in (False, True)]
+        cases += [("hw", 3, "heatbath", track, BIG) for track in (False, True)]
         for gen, n, kind, track, dims in cases:
-            name = cupdate.instance_name(kind, n, track, gen)
+            name = instance(kind, n, track, gen)
             # tracked heat-bath with one KP trial, so that exhaustions occur
             k_trials = 1 if (track and kind == "heatbath") else 4
             worst, bad, links, ck, cp = k1_compare(n, kind, track, dims,
                                                    k_trials, gen)
             note_err(name, worst)
-            msg = (f"K1 {name}" + (f" ({gen}; words bit-identical)"
-                                   if gen else "")
+            msg = (f"K1 {name}" + source_note(gen)
                    + f" {dims}: max |d| {worst:.3e}, {bad} of {links} links "
                    f"beyond {STAGE_TOL}")
             if track:
                 msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
             print(msg)
-            require_stage(msg, dims, n, kind, worst, bad, links, ck, cp)
+            require_stage(msg, dims, n, kind, worst, bad, links, ck, cp, gen)
         for n in GROUPS:
             for dims in (SMALL, ODD_T2, BIG):
                 u_ = hot(dims, n)
@@ -810,7 +907,7 @@ def main():
         # (partly filled blocks), again at the shape, mesh and generator of
         # its own phase-5 run (the overrelaxation ones: of the runs whose
         # OR pass drives them), and SU(3) heat-bath at 32^4 on MESH
-        cases = [(name, FAMILY_GEN.get(parse_instance(name)[3]),
+        cases = [(name, family_source(parse_instance(name)[3]),
                   SHARD_SMALL, MESH) for name in cupdate.SHARD_INSTANCES]
         for _, name, gen, mesh in k1a_runs:
             kind, n, track, _ = parse_instance(name)
@@ -819,22 +916,21 @@ def main():
                 cases.append((cupdate.instance_name("overrelax", n,
                                                     shard=True),
                               None, STREAM_SMALL_RUN, mesh))
-        cases += [(cupdate.instance_name("heatbath", 3, track, shard=True),
-                   None, BIG, MESH) for track in (False, True)]
+        cases += [(instance("heatbath", 3, track, src, True), src, BIG, MESH)
+                  for src in (None, "hw") for track in (False, True)]
         for name, gen, dims, mesh in cases:
             kind, n, track, _ = parse_instance(name)
             k_trials = 1 if (track and kind == "heatbath") else 4
             worst, bad, links, ck, cp = k1a_compare(n, kind, track, k_trials,
                                                     gen, dims, mesh)
             note_err(name, worst)
-            msg = (f"K1a {name}" + (f" ({gen}; words bit-identical)"
-                                    if gen else "")
+            msg = (f"K1a {name}" + source_note(gen)
                    + f" {dims} mesh {mesh}: max |d| {worst:.3e}, {bad} of "
                    f"{links} links beyond {STAGE_TOL}")
             if track:
                 msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
             print(msg)
-            require_stage(msg, dims, n, kind, worst, bad, links, ck, cp)
+            require_stage(msg, dims, n, kind, worst, bad, links, ck, cp, gen)
         # K5a / K5b per shard, on the XY, X and Y meshes
         for n in GROUPS:
             for dims, mesh in itertools.product(
@@ -873,8 +969,9 @@ def main():
             rec = record[name]
             rec["ms"] = (k1 + k2_) / 2
             rec["plain_ms"] = p1
-            nbytes, ops = work(name, dims, shard=shard)
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes + extra, ops)
+            nbytes, f32_ops, int_ops = work(name, dims, shard=shard)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes + extra, f32_ops,
+                                                     int_ops)
             print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
                   f"{p1:.4f} ms, bound {rec['bound_ms']:.4f} "
                   f"ms ({rec['bound_by']})  [{smi}]")
@@ -898,6 +995,16 @@ def main():
                         w, 1, 0, beta, key, BIG, kind=kind, count=c),
                     lambda kind=kind, c=c: cupdate.stage_update(
                         w, 1, 0, beta, key, BIG, kind=kind, count=c),
+                    3, 50, 1, 0)
+            # K9 -> Philox, under the same stage key
+            for kind, track in itertools.product(DRAWING, (False, True)):
+                kw = dict(kind=kind, count=cnt if track else None,
+                          rng_mode="hw")
+                pairs[instance(kind, n, track, "hw")] = (
+                    lambda kw=kw: cupdate.stage_update_ref(
+                        w, 1, 0, beta, key, BIG, **kw),
+                    lambda kw=kw: cupdate.stage_update(
+                        w, 1, 0, beta, key, BIG, **kw),
                     3, 50, 1, 0)
             # K1 streams: each family through one generator, on parity 0's
             # words and scalars (advanced by every call: the cost of a stage
@@ -943,6 +1050,15 @@ def main():
                     continue
                 kw = dict(kind=kind, count=cnt if track else None, shard=g0)
                 spairs[cupdate.instance_name(kind, n, track, shard=True)] = (
+                    lambda kw=kw: cupdate.stage_update_ref(
+                        s0, 1, 0, beta, key, BIG, **kw),
+                    lambda kw=kw: cupdate.stage_update(
+                        s0, 1, 0, beta, key, BIG, **kw),
+                    1, 20, 1, 0)
+            for kind, track in itertools.product(DRAWING, (False, True)):
+                kw = dict(kind=kind, count=cnt if track else None, shard=g0,
+                          rng_mode="hw")
+                spairs[instance(kind, n, track, "hw", True)] = (
                     lambda kw=kw: cupdate.stage_update_ref(
                         s0, 1, 0, beta, key, BIG, **kw),
                     lambda kw=kw: cupdate.stage_update(
@@ -1028,7 +1144,8 @@ def main():
             k = int(np.prod(cfg.mesh))
             sh, loc = k > 1, "_local" if k > 1 else ""
             expect = {
-                cupdate.instance_name(cfg.algorithm, n, tracked, gen, sh):
+                cupdate.instance_name(cfg.algorithm, n, tracked, gen, sh,
+                                      philox=cfg.rng_mode == "hw"):
                     8 * n_sweeps * k,
                 f"plane_sums{loc}_su{n}": n_meas * k,
                 f"polyakov_sums{loc}_su{n}": n_meas * k,
@@ -1091,7 +1208,8 @@ def main():
             expect = expected(cfg, n_sweeps, n_reunit, 1 + RUN)
             zero_counters()
             t0 = time.perf_counter()
-            sim = Simulation(cfg).sync()  # the card, by default
+            sim = Simulation(cfg)  # the card, by default
+            sim.sync()
             t_init = time.perf_counter()
             sim.warmup()
             t1 = time.perf_counter()
@@ -1118,11 +1236,13 @@ def main():
             del sim
             return final
 
+        bench = SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
+                          start="cold", seed=0)
         bench_us = None
-        for label, is_slice, kw in MAIN_PATHS:
+        for label, profiled, kw in MAIN_PATHS:
             us = drive(label, SimConfig(**kw, dims=BIG, reunit_every=10,
                                         start="cold", seed=0,
-                                        rng_mode="threefry"), is_slice,
+                                        rng_mode="threefry"), profiled,
                        keep=bench_us is None)
             bench_us = bench_us or us
         for gen in STREAM_BIG:
@@ -1130,16 +1250,21 @@ def main():
                   SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
                             start="cold", seed=0, rng_mode=f"prngcl:{gen}"),
                   gen == "ranlux3")
+        # K9 -> Philox: the bench's own configuration (bench.py:270-291,
+        # rng_mode="hw")
+        hw_us = drive("bench hw: SU(3) heat-bath, rng_mode='hw' (Philox)",
+                      bench.replace(rng_mode="hw"), True, keep=True)
 
-        # every stream instantiation on a path of its own at 8^4: warmup(),
-        # thermalize(2), run(2, 1), reunit_every=2, alternating cold and
-        # hot starts (the stream hot start; the constant generator's would
-        # be degenerate), one in three with 1 OR pass
+        # every stream and Philox instantiation on a path of its own at 8^4:
+        # warmup(), thermalize(2), run(2, 1), reunit_every=2, alternating
+        # cold and hot starts (the stream hot start, or threefry's for hw;
+        # the constant generator's would be degenerate), one in three with
+        # 1 OR pass
         for i, gen, n, kind, track in small_runs:
             kw = dict(group=n, beta=BETA_RUN[n], algorithm=kind,
                       dims=STREAM_SMALL_RUN, reunit_every=2,
                       start=("cold", "hot")[i % 2 and gen != "constant"],
-                      seed=i, n_or=int(i % 3 == 0), rng_mode=f"prngcl:{gen}")
+                      seed=i, n_or=int(i % 3 == 0), rng_mode=rng_mode_of(gen))
             if track:
                 kw["track_kp_exhaust" if kind == "heatbath"
                    else "track_acceptance"] = True
@@ -1166,8 +1291,7 @@ def main():
                       start=("cold", "hot")[i % 2 and gen != "constant"],
                       seed=i, n_or=int(kind == "heatbath" and not track
                                        and gen is None),
-                      rng_mode=f"prngcl:{gen}" if gen else "threefry",
-                      mesh=mesh)
+                      rng_mode=rng_mode_of(gen), mesh=mesh)
             if track:
                 kw["track_kp_exhaust" if kind == "heatbath"
                    else "track_acceptance"] = True
@@ -1183,17 +1307,73 @@ def main():
             print(label)
             check_run(label, sim, obs, launches, expected(cfg, 6, 2, 3))
 
-        # the sharded path: the bench configuration on MESH through the
-        # library, then links bit-identical to the unsharded chain
-        bench = SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
-                          start="cold", seed=0)
-        us = drive(f"sharded: bench SU(3) heat-bath, mesh {MESH}",
-                   bench.replace(mesh=MESH), True, keep=True)
-        same = all(torch.equal(a, b) for a, b in zip(us, bench_us))
-        print(f"  links after {2 + THERM + RUN} sweeps bit-identical to the "
-              f"unsharded run: {same}")
-        require(same, f"mesh {MESH}: links differ from the unsharded chain")
-        del us, bench_us
+        # the sharded path: the bench configuration (threefry and hw) on
+        # MESH through the library, then links bit-identical to the
+        # unsharded chain
+        for mode, ref_us, prof in (("threefry", bench_us, True),
+                                   ("hw", hw_us, True)):
+            us = drive(f"sharded: bench SU(3) heat-bath, {mode}, mesh {MESH}",
+                       bench.replace(mesh=MESH, rng_mode=mode), prof,
+                       keep=True)
+            same = all(torch.equal(a, b) for a, b in zip(us, ref_us))
+            print(f"  links after {2 + THERM + RUN} sweeps bit-identical to "
+                  f"the unsharded run: {same}")
+            require(same, f"{mode} mesh {MESH}: links differ from the "
+                    "unsharded chain")
+        del us, bench_us, hw_us, ref_us
+
+        # the command line on the bench's hw configuration: run with
+        # periodic checkpoints, then resume, each with its launches counted;
+        # the resumed chain (series and links) equals an uninterrupted one
+        # bit for bit
+        def cli_launches(label, argv, expect):
+            zero_counters()
+            cli.main(argv)
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            print(f"CLI {label}: launches {launches}")
+            require(launches == expect,
+                    f"CLI {label}: launches {launches}, expected {expect}")
+            for k, v in launches.items():
+                record[k]["launches"] += v
+
+        hw = bench.replace(rng_mode="hw")
+        with tempfile.TemporaryDirectory() as tmp:
+            a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+            # warmup() runs 1 sweep + 1 measured, thermalize 10 and run 10
+            # sweeps 0-19 (reunitarized after 9 and 19); resume's warmup
+            # and run 10 sweeps 20-29 (after 29)
+            cli_launches("run", ["run", "--dims", "32", "--rng-mode", "hw",
+                                 "--therm", "10", "--sweeps", "10",
+                                 "--ckpt-every", "5", "--out", a],
+                         expected(hw, 22, 2, 11))
+            cli_launches("resume", ["resume", os.path.join(a, "state.npz"),
+                                    "--sweeps", "10", "--out", b],
+                         expected(hw, 12, 1, 11))
+            recs = []
+            for d in (a, b):
+                with open(os.path.join(d, "results.json")) as f:
+                    recs.append(json.load(f))
+            links_b = [np.load(os.path.join(b, "state.npz",
+                                            f"links_pk_{k}.npy"))
+                       for k in range(8)]
+        for label, rec in zip(("run", "resume"), recs):
+            print(f"CLI {label} (32^4 hw) timings: {rec['timings']}  [{smi}]")
+        sim = Simulation(hw.replace(sweeps_therm=10, sweeps=20,
+                                    ckpt_every=5))
+        sim.warmup().thermalize()
+        obs = sim.run()
+        series = recs[1]["series"]
+        same_series = all(
+            np.array_equal(np.asarray(series[name], np.float32), obs[:, k])
+            for k, name in enumerate(sim.obs_names))
+        same_links = all(np.array_equal(x, y.cpu().numpy())
+                         for x, y in zip(links_b, sim.us))
+        print(f"CLI run 10 + 10 sweeps, then resume 10: series "
+              f"({len(series['plq'])} rows) and links bit-identical to an "
+              f"uninterrupted run: {same_series and same_links}")
+        require(same_series and same_links and len(series["plq"]) == 20,
+                "CLI run + resume differs from the uninterrupted chain")
+        del sim, links_b
 
         def same_chain(label, cfg, mesh, n_sweeps):
             """Simulation(cfg) unsharded and on mesh, thermalize(n_sweeps)
@@ -1224,97 +1404,72 @@ def main():
         same_chain("SU(3) heat-bath 64^4", bench.replace(dims=(64,) * 4),
                    (1, 8, 1, 1), 2)
 
-    def chain(therm, sweeps, keep=False, **kw):
-        sim = Simulation(SimConfig(**kw))
-        sim.thermalize(therm)
-        sim.run(sweeps, 1)
-        if keep:
-            return sim.analysis(), sim.us
-        return sim.analysis()
-
-    def self_gate(st, anchor, anchor_err, window):
-        """|mean - anchor| and the reference's tolerance
-        max(window, 3 sigma_comb) (validate.py:_self_gate)."""
-        return (abs(st.mean - anchor),
-                max(window, 3.0 * float(np.hypot(st.err, anchor_err))))
+    def gate(r):
+        """Print a validate.py check's result and require it to pass."""
+        sg = r.get("self_regression")
+        print(f"{r['name']}: measured {r['measured']} +- {r['err']:.7f}; "
+              f"literature {r['expected']} within {r['tolerance']:.2e}"
+              + (f"; self-anchor {sg['anchor']}: |d| {sg['dev']:.2e} < "
+                 f"{sg['tolerance']:.2e} ({sg['tolerance_bound']})"
+                 if sg else "")
+              + f"; pass {r['pass']}")
+        require(r["pass"], f"{r['name']}: {r}")
 
     with Phase("6 physics"):
-        a, u1 = chain(200, 400, keep=True, group=3, dims=(16,) * 4, beta=6.0)
-        st = a["plq"]
+        # the port's validate.py: its anchors, windows and chains
+        su3 = SimConfig(group=3, dims=(16,) * 4, beta=6.0, sweeps_therm=200,
+                        sweeps=400)
+        sim1, st = validate._run_chain(su3)
         print(f"SU(3) 16^4 beta=6.0 HB: <plq> = {st.mean:.7f} +- "
-              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); window 0.5937 +- "
-              f"5e-4")
-        require(abs(st.mean - 0.5937) < 5e-4, f"<plq> {st.mean}")
-        a, un = chain(200, 400, keep=True, group=3, dims=(16,) * 4, beta=6.0,
-                      mesh=MESH)
-        same = all(torch.equal(x, y) for x, y in zip(u1, un))
+              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); window "
+              f"{validate.SU3_B60_PLQ} +- {validate.SU3_WINDOW}")
+        require(abs(st.mean - validate.SU3_B60_PLQ) < validate.SU3_WINDOW,
+                f"<plq> {st.mean}")
+        simn, stn = validate._run_chain(su3.replace(mesh=MESH))
+        same = all(torch.equal(x, y) for x, y in zip(sim1.us, simn.us))
         print(f"SU(3) 16^4 beta=6.0 HB, mesh {MESH}: <plq> = "
-              f"{a['plq'].mean:.7f} +- {a['plq'].err:.7f}; |d mean| from "
-              f"unsharded {abs(a['plq'].mean - st.mean):.1e}; links "
-              f"bit-identical {same}")
-        require(same and abs(a["plq"].mean - st.mean) < 1e-7,
+              f"{stn.mean:.7f} +- {stn.err:.7f}; |d mean| from unsharded "
+              f"{abs(stn.mean - st.mean):.1e}; links bit-identical {same}")
+        require(same and abs(stn.mean - st.mean) < 1e-7,
                 f"mesh {MESH} 16^4 chain differs from the unsharded one")
-        del u1, un
+        del sim1, simn
 
-        a = chain(300, 600, group=3, dims=(16,) * 4, beta=6.0, n_or=1,
-                  track_kp_exhaust=True, seed=7)
-        st = a["plq"]
-        dev_, tol = self_gate(st, 0.5937234, 4.2e-5, 1e-4)
-        print(f"SU(3) 16^4 beta=6.0 HB + 1 OR, seed 7: <plq> = "
-              f"{st.mean:.7f} +- {st.err:.7f} (tau_int {st.tau_int:.2f}); "
-              f"|d| from 0.5937: {abs(st.mean - 0.5937):.2e} (< 5e-4); "
-              f"from anchor 0.5937234: {dev_:.2e} (< {tol:.2e}); "
-              f"kp_exhaust_rate {a['kp_exhaust_rate'].mean:.3e}")
-        require(abs(st.mean - 0.5937) < 5e-4 and dev_ < tol,
-                f"SU(3) HB + OR <plq> {st.mean}")
+        # SU(3) HB + 1 OR with track_kp_exhaust, seed 7, and SU(2) HB, seed
+        # 42: threefry, then the PRNGCL streams QCDGPU users run (ranlux3,
+        # its default; ranmar on SU(2)), then hw (Philox)
+        for mode in ("threefry", "prngcl:ranlux3", "hw"):
+            gate(validate.check_su3(rng_mode=mode))
+        for mode in ("threefry", "prngcl:ranmar", "hw"):
+            gate(validate.check_su2(rng_mode=mode))
 
-        st = chain(300, 1000, group=2, dims=(8,) * 4, beta=2.4,
-                   seed=42)["plq"]
-        lit = max(5 * st.err, 0.002)
-        dev_, tol = self_gate(st, 0.6304030, 2.7e-4, 2.5e-4)
-        print(f"SU(2) 8^4 beta=2.4 HB, seed 42: <plq> = {st.mean:.7f} +- "
-              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); |d| from 0.6300: "
-              f"{abs(st.mean - 0.63):.2e} (< {lit:.2e}); from anchor "
-              f"0.6304030: {dev_:.2e} (< {tol:.2e})")
-        require(abs(st.mean - 0.63) < lit and dev_ < tol,
-                f"SU(2) HB <plq> {st.mean}")
-
-        a = chain(500, 1000, group=2, dims=(8,) * 4, beta=2.4,
-                  algorithm="metropolis", track_acceptance=True, seed=42)
-        st = a["plq"]
-        lit = max(5 * st.err, 0.002)
-        acc = a["acc_rate"].mean
+        # SU(2) Metropolis with track_acceptance: the literature window
+        cfg = SimConfig(group=2, dims=(8,) * 4, beta=2.4,
+                        algorithm="metropolis", track_acceptance=True,
+                        sweeps_therm=500, sweeps=1000, seed=42)
+        sim, st = validate._run_chain(cfg)
+        lit = max(5 * st.err, validate.SU2_WINDOW)
+        acc = sim.analysis()["acc_rate"].mean
         print(f"SU(2) 8^4 beta=2.4 Metropolis: <plq> = {st.mean:.7f} +- "
-              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); |d| from 0.6300: "
-              f"{abs(st.mean - 0.63):.2e} (< {lit:.2e}); acc_rate {acc:.4f}")
-        require(abs(st.mean - 0.63) < lit, f"SU(2) Metropolis <plq> {st.mean}")
+              f"{st.err:.7f} (tau_int {st.tau_int:.2f}); |d| from "
+              f"{validate.SU2_B24_PLQ}: "
+              f"{abs(st.mean - validate.SU2_B24_PLQ):.2e} (< {lit:.2e}); "
+              f"acc_rate {acc:.4f}")
+        require(abs(st.mean - validate.SU2_B24_PLQ) < lit,
+                f"SU(2) Metropolis <plq> {st.mean}")
         require(0.0 < acc < 1.0, f"acc_rate {acc}")
+        del sim
 
-        # the stream path: QCDGPU's default generator on the production
-        # point, and ranmar on SU(2)
-        a = chain(300, 600, group=3, dims=(16,) * 4, beta=6.0, n_or=1,
-                  track_kp_exhaust=True, seed=7, rng_mode="prngcl:ranlux3")
-        st = a["plq"]
-        dev_, tol = self_gate(st, 0.5937234, 4.2e-5, 1e-4)
-        print(f"SU(3) 16^4 beta=6.0 HB + 1 OR, seed 7, prngcl:ranlux3: "
-              f"<plq> = {st.mean:.7f} +- {st.err:.7f} (tau_int "
-              f"{st.tau_int:.2f}); |d| from 0.5937: "
-              f"{abs(st.mean - 0.5937):.2e} (< 5e-4); from anchor "
-              f"0.5937234: {dev_:.2e} (< {tol:.2e}); kp_exhaust_rate "
-              f"{a['kp_exhaust_rate'].mean:.3e}")
-        require(abs(st.mean - 0.5937) < 5e-4 and dev_ < tol,
-                f"SU(3) HB + OR ranlux3 <plq> {st.mean}")
-
-        st = chain(300, 1000, group=2, dims=(8,) * 4, beta=2.4, seed=42,
-                   rng_mode="prngcl:ranmar")["plq"]
-        lit = max(5 * st.err, 0.002)
-        dev_, tol = self_gate(st, 0.6304030, 2.7e-4, 2.5e-4)
-        print(f"SU(2) 8^4 beta=2.4 HB, seed 42, prngcl:ranmar: <plq> = "
-              f"{st.mean:.7f} +- {st.err:.7f} (tau_int {st.tau_int:.2f}); "
-              f"|d| from 0.6300: {abs(st.mean - 0.63):.2e} (< {lit:.2e}); "
-              f"from anchor 0.6304030: {dev_:.2e} (< {tol:.2e})")
-        require(abs(st.mean - 0.63) < lit and dev_ < tol,
-                f"SU(2) HB ranmar <plq> {st.mean}")
+        # the PRNG self-test from the command line; the native host
+        # generators must build here
+        proc = subprocess.run(
+            [sys.executable, "-m", "qcdgpu_tpu_torch", "rngtest"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True)
+        print(proc.stdout.strip())
+        require(proc.returncode == 0 and "unavailable" not in proc.stdout
+                and all(f" {g} " in proc.stdout
+                        for g in ("ranlux3", "xor128", "mrg32k3a", "ranmar")),
+                f"rngtest exited {proc.returncode}: {proc.stderr[-2000:]}")
 
     idle = [k for k, r in record.items() if not r["launches"]]
     require(not idle, f"kernels no main path launched: {idle}")

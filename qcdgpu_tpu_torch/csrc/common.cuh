@@ -1,6 +1,7 @@
 // Device helpers shared by the qcdgpu_tpu_torch kernels: (re, im) complex
 // and N x N matrix algebra (Mat<2>, Mat<3>), the two-row codec, direct
-// packed-neighbour addressing, threefry2x32-20, the sampler's polynomial
+// packed-neighbour addressing, threefry2x32-20, Philox-4x32-10 (the fast
+// counter-based source of rng_mode "hw"), the sampler's polynomial
 // transcendentals and the block reductions.
 // They replace the TPU kernels' inlined helpers (qcdgpu_tpu/ops/pallas/
 // core.py: threefry2x32, bits_to_uniform, _codec_rows, shift_comp_packed,
@@ -320,6 +321,34 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
   o0 = x0;
   o1 = x1;
+}
+
+// ---------------------------------------------------------------------------
+// Philox-4x32-10 (Salmon et al., SC'11: Random123's philox4x32 with 10
+// rounds; bit-identical to ops/rng.py philox4x32)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void philox4x32(uint32_t k0, uint32_t k1,
+                                           uint32_t c0, uint32_t c1,
+                                           uint32_t c2, uint32_t c3,
+                                           uint32_t o[4]) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  o[0] = c0;
+  o[1] = c1;
+  o[2] = c2;
+  o[3] = c3;
 }
 
 // u32 -> f32 in the open interval (0, 1) on the 24-bit grid

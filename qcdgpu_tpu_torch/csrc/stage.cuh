@@ -1,11 +1,12 @@
 // K1: one checkerboard stage of SU(2) or SU(3) on the packed link state:
 // Kennedy-Pendleton heat-bath, overrelaxation or n-hit Metropolis, with an
-// optional tracked count, drawing from threefry or a PRNGCL stream.
+// optional tracked count, drawing from threefry, Philox or a PRNGCL stream.
 //
 // Replaces the TPU kernel qcdgpu_tpu/ops/pallas/update.py:_stage_kernel
 // (built by _stage_call, and by _stage_call_ytiled for the Y-tiled grid that
 // the TPU runs at 32^4): kind in {heatbath, overrelax, metropolis}, N in
-// {2, 3}, track_acc on or off, rng_mode "threefry" (stage.cu) or
+// {2, 3}, track_acc on or off, rng_mode "threefry" (stage.cu), "hw" (the
+// TPU's hardware PRNG, K9, replaced by Philox: stage_philox.cu) or
 // "prngcl:<gen>" (stage_<family>.cu, with the draws of streams.cuh).  Plain
 // PyTorch twin: ops/cuda/update.py:stage_update_ref.
 //
@@ -49,13 +50,14 @@
 // registers; __launch_bounds__(128) lets the compiler use up to 255
 // registers per thread, so it need not spill.
 //
-// The random source R (struct Threefry here, Stream<G> in streams.cuh) opens
-// a per-site source after the staples; its pair(j, a, b) gives uniforms
-// 2j and 2j+1 of the current subgroup, in the reference's order: heat-bath
-// trial t takes pairs 2t and 2t+1, the direction pair 2K; Metropolis hit h
-// pairs 2h and 2h+1.  Threefry computes a pair from its slot; a stream's
-// pairs are its next two draws, which the samplers request in exactly that
-// order.
+// The random source R (struct Threefry or Philox here, Stream<G> in
+// streams.cuh) opens a per-site source after the staples; its pair(j, a, b)
+// gives uniforms 2j and 2j+1 of the current subgroup, in the reference's
+// order: heat-bath trial t takes pairs 2t and 2t+1, the direction pair 2K;
+// Metropolis hit h pairs 2h and 2h+1.  Threefry computes a pair from its
+// slot, Philox (rng_mode "hw", stage_philox.cu) half a block from the
+// slot's block; a stream's pairs are its next two draws, which the samplers
+// request in exactly that order.
 //
 // In place is safe: the stage writes us[2*mu + p] only at the thread's own
 // slot and reads that array nowhere else (U_mu at x +- nu has parity 1 - p),
@@ -128,6 +130,42 @@ struct Threefry {
   template <class D>
   __device__ __forceinline__ Src open(int, const Site& x, const D& d) const {
     return {k0, k1, dense_index(x, d), 0u};
+  }
+};
+
+// Philox-4x32-10 keyed by the stage key (rng_mode "hw": the counter-based
+// source that replaces the TPU kernel's hardware PRNG, update.py:543-554 and
+// core.hw_uniforms): slot s, numbered as threefry's, is words 2 (s & 1) and
+// 2 (s & 1) + 1 of the block at counter (dense site index, s >> 1, 0, 0)
+// (ops/cuda/update.py stage_update_ref).  The source keeps the last block,
+// so two consecutive slots cost one Philox call; the draws are the same
+// words whichever order the slots are asked for in.
+struct Philox {
+  uint32_t k0, k1;
+
+  struct Src {
+    uint32_t k0, k1, sidx, slot0, blk;
+    uint32_t w[4];
+    __device__ __forceinline__ void subgroup(uint32_t first_slot) {
+      slot0 = first_slot;
+    }
+    __device__ __forceinline__ void pair(uint32_t j, float& a, float& b) {
+      const uint32_t s = slot0 + j;
+      if ((s >> 1) != blk) {
+        blk = s >> 1;
+        philox4x32(k0, k1, sidx, blk, 0u, 0u, w);
+      }
+      const bool odd = (s & 1u) != 0u;
+      a = bits_to_uniform(odd ? w[2] : w[0]);
+      b = bits_to_uniform(odd ? w[3] : w[1]);
+    }
+    __device__ __forceinline__ void close() {}
+  };
+
+  template <class D>
+  __device__ __forceinline__ Src open(int, const Site& x, const D& d) const {
+    // blk: no block yet (a slot's block index is below 2^31)
+    return {k0, k1, dense_index(x, d), 0u, 0xFFFFFFFFu, {0u, 0u, 0u, 0u}};
   }
 };
 

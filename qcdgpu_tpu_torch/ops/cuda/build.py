@@ -31,9 +31,9 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-# K1's stream families get a source each, so that their 56 instantiations
-# compile in parallel with the rest
-SOURCES = ("stage.cu", "reunit.cu", "measure.cu") + tuple(
+# K1's Philox build and its stream families get a source each, so that
+# their instantiations compile in parallel with the rest
+SOURCES = ("stage.cu", "stage_philox.cu", "reunit.cu", "measure.cu") + tuple(
     f"stage_{fam}.cu" for fam in ("xor128", "xor7", "mrg32k3a", "parkmiller",
                                   "constant", "ranlux", "ranmar"))
 HEADERS = ("common.cuh", "stage.cuh", "streams.cuh")
@@ -50,6 +50,9 @@ SIGNATURES = {
     "qg_stage": [_P] * 8 + [_I] * 9 + [
         ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I,
         ctypes.c_float, _P, _P],
+    "qg_stage_philox": [_P] * 8 + [_I] * 9 + [
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I,
+        ctypes.c_float, _P, _P],
     "qg_stage_stream": [_P] * 8 + [_I] * 10 + [
         _P, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _I, _I,
         ctypes.c_float, _P, _P],
@@ -58,6 +61,9 @@ SIGNATURES = {
     "qg_polyakov_sums": [_P, _P] + [_I] * 6 + [_P, _P, _P],
     # a shard's geometry: lx, ly, Z, T, hx, hy, x0, y0, global Y
     "qg_stage_shard": [_P] * 8 + [_I] * 14 + [
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I,
+        ctypes.c_float, _P, _P],
+    "qg_stage_philox_shard": [_P] * 8 + [_I] * 14 + [
         ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I,
         ctypes.c_float, _P, _P],
     "qg_stage_stream_shard": [_P] * 8 + [_I] * 15 + [

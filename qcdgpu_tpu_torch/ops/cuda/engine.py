@@ -1,7 +1,8 @@
 """The packed engine: state layout, start states, sweeps and measurements.
 
-Port of qcdgpu_tpu/ops/pallas/engine.py (threefry and the PRNGCL streams,
-SU(2) and SU(3), every update algorithm, the tracked statistics).
+Port of qcdgpu_tpu/ops/pallas/engine.py (threefry, rng_mode "hw" as
+Philox, and the PRNGCL streams; SU(2) and SU(3), every update algorithm,
+the tracked statistics).
 
 The packed links are the reference's flat 8-tuple ``us[2*mu + parity]`` of
 f32 tensors ``[2, N, 2, X, Y, Z*T/2]`` (see core.py for the layout), the
@@ -12,7 +13,9 @@ shard and each parity's words split the same way; without a mesh it is one
 shard without halo, the whole lattice.  A sweep
 is one pass of cfg.algorithm and cfg.n_or overrelaxation passes, each 8
 stages (parity 0, 1 x mu 0..3); stage ids run on across the passes, and
-each stage is keyed ``rng.stage_key(base, sweep, stage_id)``.  On every
+each stage is keyed ``rng.stage_key(base, sweep, stage_id)``, which keys
+threefry, or Philox with rng_mode "hw" (whose hot start is threefry's, as
+in the reference, sim.py:467-473).  On every
 reunit_every-th sweep the 8 arrays are reunitarized.  Stages and
 reunitarization update the links IN PLACE; a runner returns the same
 tensors it was given.
@@ -71,8 +74,6 @@ def check_supported(cfg: SimConfig) -> None:
     todo = []
     if cfg.get_fmunu or cfg.wilson_loops or cfg.get_qtop:
         todo.append("get_fmunu / wilson_loops / get_qtop (M12)")
-    if cfg.rng_mode == "hw":
-        todo.append("rng_mode='hw' (M9, Philox)")
     if cfg.mesh[2] != 1 or cfg.mesh[3] != 1:
         # the reference runs Z/T meshes on its XLA engine (sim.py:273-285)
         todo.append(f"mesh={tuple(cfg.mesh)} splits Z/T (M11, dense "
@@ -252,6 +253,12 @@ def pack_stream_state(gen, dense, dims):
     return out
 
 
+def stream_state_keys(gen):
+    """Keys of the packed stream state of generator ``gen``."""
+    return frozenset(k + sfx for sfx in ("_e", "_o")
+                     for k in ("words",) + streams.kernel_scalar_names(gen))
+
+
 def make_stream_state0(cfg: SimConfig, device="cuda"):
     """The packed stream state of a fresh run, seeded from cfg.seed ({}
     with threefry)."""
@@ -336,8 +343,9 @@ def stage_schedule(cfg: SimConfig):
 
 
 def stage_key2(cfg: SimConfig, kind, base_key, sweep_idx, stage_id):
-    """The threefry key of a stage, or None where the stage draws nothing
-    from threefry (overrelaxation: (0, 0), unused; a stream stage)."""
+    """The counter-based key of a stage (threefry's, or Philox's with
+    rng_mode "hw": the same stage key), or None where the stage draws from
+    a stream ((0, 0), unused, for overrelaxation)."""
     if kind == "overrelax":
         return (0, 0)
     if streams.stream_mode_name(cfg.rng_mode):
@@ -369,6 +377,7 @@ def make_sweep(cfg: SimConfig, grid):
     denom = tracked_stat_denom(cfg, dims)
     gen = streams.stream_mode_name(cfg.rng_mode)
     scalar_names = streams.kernel_scalar_names(gen) if gen else ()
+    counter = "threefry" if gen else cfg.rng_mode  # threefry or hw (Philox)
     schedule = stage_schedule(cfg)
     devices = list(dict.fromkeys(grid.devices))
     # the halo views of the last state swept (the sweeps of a run update
@@ -396,7 +405,7 @@ def make_sweep(cfg: SimConfig, grid):
                     us, mu, parity, cfg.beta, key2, dims, cfg.kp_trials,
                     kind=kind, n_hit=cfg.n_hit, metro_delta=cfg.metro_delta,
                     count=counts[grid.devices[s]] if counted else None,
-                    shard=g, **src)
+                    shard=g, rng_mode=counter, **src)
             if draws:
                 rst.update({k + sfx: v for k, v in src["scalars"].items()})
             sharded.refresh_halos(shards, grid, (2 * mu + parity,),

@@ -42,6 +42,13 @@ advances in place, as it does the words.  The kernel has one instantiation
 per generator family (csrc/stage_<family>.cu); its plain twin is
 ``stage_update_ref`` with the same arguments.
 
+rng_mode "hw" (the reference's TPU hardware PRNG, K9, update.py:543-554):
+the stage draws Philox-4x32-10 instead of threefry, keyed by the same
+stage key, each slot half a block of the site's Philox stream
+(ops/rng.py site_uniforms_philox).  The kernel instantiations are the
+``_philox`` family (csrc/stage_philox.cu); overrelaxation draws nothing
+and runs the threefry build's instantiation.
+
 K1a, the stage on one shard of an X/Y-decomposed lattice (the reference's
 ``local_x`` / ``local_y`` > 0 form, driven by ops/pallas/sharded.py): pass
 ``shard`` (a ``core.Shard``).  us are then the shard's halo-padded arrays,
@@ -71,11 +78,14 @@ KINDS = ("heatbath", "overrelax", "metropolis")
 SUBGROUPS = {2: ((0, 1),), 3: ((0, 1), (0, 2), (1, 2))}
 
 
-def instance_name(kind, n, track=False, gen=None, shard=False):
+def instance_name(kind, n, track=False, gen=None, shard=False,
+                  philox=False):
     """Name of the kernel instantiation (and its launch counter); ``gen``
-    names a PRNGCL generator (its family's instantiation), ``shard`` the
-    K1a twin on a halo-padded shard."""
-    fam = "" if gen is None else "_" + streams.family(gen)
+    names a PRNGCL generator (its family's instantiation), ``philox`` the
+    Philox instantiation of rng_mode "hw", ``shard`` the K1a twin on a
+    halo-padded shard."""
+    fam = ("_philox" if philox else "" if gen is None
+           else "_" + streams.family(gen))
     return (f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
             + ("_shard" if shard else ""))
 
@@ -89,13 +99,20 @@ STREAM_INSTANCES = tuple(
     for fam in streams.FAMILIES for n in (3, 2)
     for k in ("heatbath", "metropolis") for t in (False, True))
 
+# rng_mode "hw": the drawing kinds on Philox
+PHILOX_INSTANCES = tuple(
+    instance_name(k, n, t, philox=True) for n in (3, 2)
+    for k in ("heatbath", "metropolis") for t in (False, True))
+
 # K1a: the sharded twin of every instantiation
-SHARD_INSTANCES = tuple(name + "_shard"
-                        for name in INSTANCES + STREAM_INSTANCES)
+SHARD_INSTANCES = tuple(
+    name + "_shard" for name in INSTANCES + STREAM_INSTANCES
+    + PHILOX_INSTANCES)
 
 # kernel launches, counted where the kernel is launched (never on the CPU)
-LAUNCHES = {name: 0
-            for name in INSTANCES + STREAM_INSTANCES + SHARD_INSTANCES}
+LAUNCHES = {name: 0 for name in INSTANCES + STREAM_INSTANCES
+            + PHILOX_INSTANCES + SHARD_INSTANCES}
+RNG_MODES = ("threefry", "hw")
 
 
 def two_beta_over_n(beta, n):
@@ -289,9 +306,14 @@ def _check(us, mu, parity, dims, kind, k_trials, n_hit, count, shard):
     return n, dev
 
 
-def _check_stream(us, dims, kind, gen, words, scalars):
-    """Validate the stream arguments of a stage (dims: the extents the
-    words cover, a shard's interior); returns the family."""
+def _check_stream(us, dims, kind, gen, words, scalars, rng_mode):
+    """Validate the random-source arguments of a stage (dims: the extents
+    the words cover, a shard's interior); returns the stream family."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"rng_mode {rng_mode!r}: one of {RNG_MODES} (a "
+                         "PRNGCL stream is passed as gen)")
+    if rng_mode == "hw" and gen is not None:
+        raise ValueError("rng_mode='hw' draws Philox; it takes no stream gen")
     if gen is None:
         if words is not None or scalars is not None:
             raise ValueError("stream words/scalars given without gen")
@@ -359,7 +381,8 @@ def stream_draw_count(kind, k_trials, n_hit, n):
 
 def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
                      kind="heatbath", n_hit=3, metro_delta=0.35, count=None, *,
-                     gen=None, words=None, scalars=None, shard=None):
+                     gen=None, words=None, scalars=None, shard=None,
+                     rng_mode="threefry"):
     """Plain PyTorch stage with stage_update's arguments: updates
     us[2*mu + parity] in place and returns it, adds the tracked count to
     ``count`` when given, and with ``gen`` advances ``words`` and the dict
@@ -367,12 +390,14 @@ def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
     shard = core.padded_or_none(shard)
     n, _ = _check(us, mu, parity, dims, kind, k_trials, n_hit, count, shard)
     ext = dims if shard is None else shard.interior
-    if _check_stream(us, ext, kind, gen, words, scalars) is None:
+    if _check_stream(us, ext, kind, gen, words, scalars, rng_mode) is None:
         sidx = core.site_index_packed(parity, tuple(dims), us[0].device,
                                       shard).reshape(-1)
+        uniforms = (rng.site_uniforms_philox if rng_mode == "hw"
+                    else rng.site_uniforms)
         return _stage_plain(us, mu, parity, beta, dims, k_trials, kind,
                             n_hit, metro_delta, count,
-                            lambda m: rng.site_uniforms(key2, sidx, m), shard)
+                            lambda m: uniforms(key2, sidx, m), shard)
     flat = words.reshape(words.shape[0], -1)
 
     def draw(m):
@@ -388,11 +413,13 @@ def stage_update_ref(us, mu, parity, beta, key2, dims, k_trials=4,
 
 def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
                  kind="heatbath", n_hit=3, metro_delta=0.35, count=None, *,
-                 gen=None, words=None, scalars=None, shard=None):
+                 gen=None, words=None, scalars=None, shard=None,
+                 rng_mode="threefry"):
     """One stage of ``kind`` on the packed 8-tuple, in place on
     us[2*mu + parity] (returned).  key2: the (k0, k1) stage key as ints
     (rng.stage_key; unused by overrelaxation and streams).  count: optional
-    int64 [1] tensor the stage adds its tracked count to.
+    int64 [1] tensor the stage adds its tracked count to.  rng_mode "hw"
+    draws Philox under key2 in place of threefry.
 
     With ``gen`` (a PRNGCL generator name) the stage draws from ``words``,
     the active parity's stream words, and advances them and the dict
@@ -403,13 +430,15 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
     n, dev = _check(us, mu, parity, dims, kind, k_trials, n_hit, count,
                     shard)
     fam = _check_stream(us, dims if shard is None else shard.interior, kind,
-                        gen, words, scalars)
+                        gen, words, scalars, rng_mode)
     if dev == "cpu":
         return stage_update_ref(us, mu, parity, beta, key2, dims, k_trials,
                                 kind, n_hit, metro_delta, count, gen=gen,
-                                words=words, scalars=scalars, shard=shard)
+                                words=words, scalars=scalars, shard=shard,
+                                rng_mode=rng_mode)
     track = count is not None
-    name = instance_name(kind, n, track, gen, shard is not None)
+    philox = rng_mode == "hw" and kind != "overrelax"
+    name = instance_name(kind, n, track, gen, shard is not None, philox)
     lib = build.library()
     geom = (tuple(int(d) for d in dims) if shard is None
             else shard.kernel_args())
@@ -419,7 +448,9 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
             build.stream_handle(us[0].device))
     with torch.cuda.device(us[0].device):
         if fam is None:
-            entry = lib.qg_stage if shard is None else lib.qg_stage_shard
+            entry = ((lib.qg_stage_philox, lib.qg_stage_philox_shard)
+                     if philox else (lib.qg_stage, lib.qg_stage_shard)
+                     )[shard is not None]
             err = entry(*[a.data_ptr() for a in us], *common,
                         int(key2[0]), int(key2[1]), *tail)
         else:

@@ -255,6 +255,20 @@ def words_to_numpy(name: str, words) -> np.ndarray:
 _U32_FAMILIES = ("xor128", "xor7", "mrg32k3a")
 
 
+def words_from_numpy(name: str, a, device) -> torch.Tensor:
+    """Inverse of words_to_numpy: numpy words in the reference's dtype ->
+    the stored tensor on ``device``."""
+    a = np.asarray(a)
+    want = np.uint32 if family(name) in _U32_FAMILIES else (
+        np.int32 if stream_word_dtype(name) == torch.int32 else np.float32)
+    if a.dtype != want:
+        raise ValueError(f"{name} words: expected {np.dtype(want)}, got "
+                         f"{a.dtype}")
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def state_to_words(name: str, state) -> torch.Tensor:
     """Dense state dict -> stacked words [W, *site_shape] (new tensor).  For
     the lag generators the window is in the rolled-canonical rotation, which

@@ -1,9 +1,22 @@
-"""Counter-based, site-keyed random numbers (threefry2x32-20).
+"""Counter-based, site-keyed random numbers (threefry2x32-20, and
+Philox-4x32-10 for rng_mode "hw").
 
 Port of qcdgpu_tpu/ops/rng.py, bit for bit:
 
   bits(site, slot) = threefry2x32(stage_key, (global_site_index, slot))
   stage_key        = threefry2x32(base_key, (sweep_index, stage_id))
+
+rng_mode "hw" selects the TPU's hardware PRNG in the reference, which no
+other machine reproduces (the reference calls it "statistically
+equivalent, NOT bit-compatible", ops/pallas/core.py:164-167).  The port
+draws Philox-4x32-10 (Salmon et al., SC'11; Random123's philox4x32) there,
+keyed by the same stage key, with threefry's slot numbering:
+
+  block(site, b) = philox4x32(stage_key, (global_site_index, b, 0, 0))
+  slot s         = words 2 (s & 1), 2 (s & 1) + 1 of block(site, s >> 1)
+
+so uniforms 4b .. 4b+3 of a site are block b's four words, and the chain
+is a function of (seed, sweep index, site) as with threefry.
 
 Two forms of the same function:
 
@@ -56,6 +69,40 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m, x):
+    """(hi, lo) 32-bit halves of the 64-bit product m * x (m a u32 int, x
+    u32 values), in 16-bit limbs so that no partial product leaves int64."""
+    p_lo = m * (x & 0xFFFF)
+    p_hi = m * (x >> 16)
+    lo = (p_lo + ((p_hi & 0xFFFF) << 16)) & _M32
+    hi = ((p_hi + (p_lo >> 16)) >> 16) & _M32
+    return hi, lo
+
+
+def philox4x32(k0, k1, c0, c1, c2, c3):
+    """10-round Philox-4x32 on int64 tensors (or ints) holding u32 values.
+
+    Key (k0, k1) ints; counter words broadcast; returns four int64 tensors
+    (or ints) in [0, 2**32)."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _M32
+            k1 = (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox4x32_host(k0: int, k1: int, c0: int, c1: int, c2: int, c3: int):
+    """philox4x32 on Python ints (u32 values) -> 4 ints."""
+    return philox4x32(*(int(v) & _M32 for v in (k0, k1, c0, c1, c2, c3)))
+
+
 def threefry2x32_host(k0: int, k1: int, x0: int, x1: int):
     """threefry2x32 on Python ints (u32 values) -> (int, int)."""
     return threefry2x32(int(k0) & _M32, int(k1) & _M32,
@@ -96,6 +143,20 @@ def site_uniforms(key2, site_idx, n, slot0=0):
     u = torch.stack([bits_to_uniform(b0), bits_to_uniform(b1)], dim=1)
     u = u.reshape((2 * npairs,) + tuple(site_idx.shape))
     return u[:n]
+
+
+def site_uniforms_philox(key2, site_idx, n):
+    """rng_mode "hw": the first n uniforms per site, f32 [n,
+    *site_idx.shape]: uniforms 4b .. 4b+3 are the words of block b =
+    philox4x32(key2, (site, b, 0, 0)), so uniforms 2s, 2s+1 are slot s."""
+    nblk = (n + 3) // 4
+    blk = torch.arange(nblk, dtype=torch.int64, device=site_idx.device
+                       ).reshape((nblk,) + (1,) * site_idx.ndim)
+    # ten rounds mix the counter words, so every output word has the
+    # broadcast shape [nblk, *site_idx.shape]
+    words = philox4x32(int(key2[0]), int(key2[1]), site_idx[None], blk, 0, 0)
+    u = torch.stack([bits_to_uniform(w) for w in words], dim=1)
+    return u.reshape((4 * nblk,) + tuple(site_idx.shape))[:n]
 
 
 def normals_from_uniforms(u):

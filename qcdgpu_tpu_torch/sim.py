@@ -4,6 +4,7 @@
     sim.warmup().thermalize(n)
     obs = sim.run(n, measure_every)      # numpy [n // me, len(obs_names)]
     sim.measure(); sim.analysis(); sim.unitarity_defect()
+    sim.save(path); sim = Simulation.load(path)   # exact resume
 
 The state is the packed 8-tuple on ``device`` (ops/cuda/engine.py), held as
 the runner's shards, and the stage and reunitarization kernels update it
@@ -15,11 +16,14 @@ which the drawing stages advance in place.  With ``cfg.mesh = (mx, my, 1,
 1)`` the lattice is split over X/Y shards (ops/cuda/sharded.py), all on
 ``device`` unless ``devices`` spreads them; ``us``, ``u`` and
 ``stream_state`` then gather the shards into the global state (without a
-mesh the one shard is the whole lattice).
+mesh the one shard is the whole lattice).  Checkpoints
+(utils/checkpoint.py) are the JAX package's: ``save`` writes the packed
+directory, ``load`` reads either format from either package.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -28,7 +32,7 @@ import torch
 from .config import SimConfig, stream_mode_name
 from .ops import prng_streams as streams
 from .ops import rng, sun
-from .ops.cuda import engine
+from .ops.cuda import engine, sharded
 from .ops.measure import measure_obs_names, obs_names
 
 NDIM = 4
@@ -45,11 +49,12 @@ class Simulation:
     fresh streams from cfg.seed in stream mode; otherwise cfg.start picks a
     cold or hot start (a stream-mode hot start draws from the streams).
     ``devices``: where the shards of an X/Y mesh go (default: all on
-    ``device``).
+    ``device``).  ``_stream_rst``: the packed stream state, as numpy in the
+    reference's keys and dtypes, that goes with ``init_us`` (``load``).
     """
 
     def __init__(self, cfg: SimConfig, init_u=None, init_us=None, *,
-                 device="cuda", devices=None):
+                 device="cuda", devices=None, _stream_rst=None):
         self.cfg = cfg
         self.device = engine.resolve_device(device)
         self.base_key = rng.make_base_key(cfg.seed)
@@ -68,13 +73,44 @@ class Simulation:
             self._us = self._run.packed_hot_start(self.base_key)
         elif cfg.start == "continue":
             raise ValueError(
-                "start='continue' resumes a checkpoint: pass init_u or "
-                "init_us (checkpoint loading is not ported yet, M8)"
+                "start='continue' resumes a checkpoint: use "
+                "Simulation.load(path) (CLI: `resume`) or pass init_u"
             )
         else:
             self._us = self._run.packed_cold_start()
+        if _stream_rst is not None and self._gen:
+            self._rst = self._adopt_streams(_stream_rst)
         if self._rst is None:
             self._rst = self._run.make_stream_state0()
+
+    def _adopt_streams(self, rst):
+        """A saved packed stream state (numpy, the reference's keys and
+        dtypes) -> the runner's sharded state on this device; refuses a
+        layout this engine does not run, as the reference does."""
+        want = engine.stream_state_keys(self._gen)
+        if set(rst) != want:
+            raise ValueError(
+                "PRNGCL stream-state layout mismatch: checkpoint has "
+                f"{sorted(rst)} but the resolved engine expects "
+                f"{sorted(want)} — resume with the same engine "
+                "(XLA dense vs Pallas packed states are different "
+                "randomness provenances)"
+            )
+        dims = tuple(self.cfg.dims)
+        shape = (streams.stream_word_count(self._gen), dims[0], dims[1],
+                 dims[2] * (dims[3] // 2))
+        out = {}
+        for k, v in rst.items():
+            if k.startswith("words"):
+                out[k] = streams.words_from_numpy(self._gen, v, self.device)
+                if tuple(out[k].shape) != shape:
+                    raise ValueError(f"stream {k}: shape {tuple(v.shape)}, "
+                                     f"expected {shape}")
+            elif k.startswith("c_"):
+                out[k] = float(v)
+            else:
+                out[k] = int(v)
+        return sharded.shard_streams(out, self._run.grid)
 
     def _adopt_input(self, arrays):
         if isinstance(arrays, tuple):
@@ -122,13 +158,14 @@ class Simulation:
         """Canonical complex64 field [4, N, N, X, Y, Z, T] (a new tensor)."""
         return self._run.unpack(self._state())
 
-    def sync(self):
+    def sync(self) -> float:
         """Wait for the queued work of every device that holds a shard
-        (no-op on the CPU)."""
+        (no-op on the CPU); returns the seconds spent waiting."""
+        t0 = time.perf_counter()
         for dev in dict.fromkeys(self._run.grid.devices):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-        return self
+        return time.perf_counter() - t0
 
     # -- simulation -------------------------------------------------------
     def warmup(self):
@@ -143,7 +180,8 @@ class Simulation:
                                       1, 0)
         if me:
             self._run.packed(scratch, self.base_key, self.sweep_idx, me, me)
-        return self.sync()
+        self.sync()
+        return self
 
     def thermalize(self, n: Optional[int] = None):
         n = self.cfg.sweeps_therm if n is None else n
@@ -155,19 +193,47 @@ class Simulation:
         return self
 
     def run(self, n: Optional[int] = None,
-            measure_every: Optional[int] = None):
+            measure_every: Optional[int] = None,
+            ckpt_path: Optional[str] = None, progress_every: int = 0,
+            progress=None):
         """Production sweeps; returns the observable series
-        [n_meas, len(obs_names)] as numpy (this waits for the device)."""
+        [n_meas, len(obs_names)] as numpy (this waits for the device).
+
+        With ckpt_path and cfg.ckpt_every > 0 the full state is saved every
+        ckpt_every sweeps; progress(sweeps_done, n, last_row_or_None) is
+        called every progress_every sweeps.  Both cadences are rounded up
+        to whole measurement blocks, so the series does not depend on
+        them (the reference's chunking, qcdgpu_tpu/sim.py:589-643)."""
         n = self.cfg.sweeps if n is None else n
         me = self.cfg.meas_every if measure_every is None else measure_every
-        st, obs = self._run.packed(self._state(), self.base_key,
-                                   self.sweep_idx, n, me)
-        self._adopt(st)
-        self.sweep_idx += n
-        obs = obs.cpu().numpy()
-        if obs.size:
-            self.obs_history.append(obs)
-        return obs
+        every = self.cfg.ckpt_every if ckpt_path else 0
+        if every and me:
+            every = -(-every // me) * me
+        if progress_every and me:
+            progress_every = -(-progress_every // me) * me
+        rows = []
+        done = 0
+        while done < n:
+            step = n - done
+            if every:
+                step = min(step, every - done % every)
+            if progress_every:
+                step = min(step, progress_every - done % progress_every)
+            st, obs = self._run.packed(self._state(), self.base_key,
+                                       self.sweep_idx, step, me)
+            self._adopt(st)
+            self.sweep_idx += step
+            done += step
+            obs = obs.cpu().numpy()
+            if obs.size:
+                rows.append(obs)
+                self.obs_history.append(obs)
+            if every and done % every == 0:
+                self.save(ckpt_path)
+            if progress is not None:
+                progress(done, n, obs[-1] if obs.size else None)
+        return (np.concatenate(rows, axis=0) if rows
+                else np.zeros((0, len(obs_names(self.cfg))), np.float32))
 
     # -- measurement ------------------------------------------------------
     def measure(self) -> dict:
@@ -197,10 +263,32 @@ class Simulation:
 
     # -- checkpoint -------------------------------------------------------
     def save(self, path: str):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP M8)")
+        """Write the packed checkpoint directory at ``path`` (links, and the
+        packed stream state in stream mode), readable by the JAX package's
+        load_state too."""
+        from .utils.checkpoint import save_state
+
+        save_state(path, self.cfg, None, self.sweep_idx, self.obs_history,
+                   rng_stream=self.stream_state, us=self.us)
 
     @classmethod
-    def load(cls, path: str):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP M8)")
+    def load(cls, path: str, *, device="cuda", devices=None):
+        """Resume a checkpoint of either format, written by either package;
+        the chain continues bit for bit (a TPU ``hw`` run's links are
+        exact, and it continues on Philox)."""
+        from .utils.checkpoint import load_state
+
+        cfg, u, sweep_idx, obs_history, rng_stream = load_state(path)
+        if stream_mode_name(cfg.rng_mode) is not None and rng_stream is None:
+            raise ValueError(
+                "checkpoint has no PRNGCL stream state but the config "
+                f"runs rng_mode={cfg.rng_mode!r}; cannot resume exactly"
+            )
+        kw = dict(device=device, devices=devices, _stream_rst=rng_stream)
+        if isinstance(u, tuple):
+            sim = cls(cfg, init_us=u, **kw)
+        else:
+            sim = cls(cfg, init_u=u, **kw)
+        sim.sweep_idx = sweep_idx
+        sim.obs_history = obs_history
+        return sim

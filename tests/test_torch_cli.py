@@ -1,0 +1,86 @@
+"""The port's command line (qcdgpu_tpu_torch/cli.py) on the CPU: run with
+periodic checkpoints, resume bit for bit, info, validate's refusals, and
+the unported features refused with their ROADMAP items."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from qcdgpu_tpu_torch import cli
+from qcdgpu_tpu_torch.utils.checkpoint import load_state
+
+torch.set_num_threads(1)
+
+RUN = ["--group", "2", "--beta", "2.3", "--dims", "4,4,2,4", "--rng-mode",
+       "hw", "--start", "hot", "--seed", "3", "--reunit-every", "2",
+       "--ckpt-every", "2", "--device", "cpu"]
+
+
+def _run(tmp_path, name, *args):
+    out = str(tmp_path / name)
+    assert cli.main([*args, "--out", out]) in (None, 0)
+    return out
+
+
+def _series_and_links(out):
+    with open(os.path.join(out, "results.json")) as f:
+        rec = json.load(f)
+    _, us, sweep_idx, _, _ = load_state(os.path.join(out, "state.npz"))
+    return rec, us, sweep_idx
+
+
+def test_run_then_resume_is_one_run(tmp_path):
+    a = _run(tmp_path, "a", "run", *RUN, "--therm", "1", "--sweeps", "4")
+    rec_a, _, idx_a = _series_and_links(a)
+    assert os.path.exists(os.path.join(a, "results.txt"))
+    assert os.path.exists(os.path.join(a, "state.npz", "meta.npz"))
+    assert idx_a == 5 and len(rec_a["series"]["plq"]) == 4
+    assert rec_a["device"]["backend"] == "cpu"
+    for k in ("compile_s", "thermalize_s", "production_s",
+              "link_updates_per_s", "ms_per_sweep", "ms_per_sweep_with_meas"):
+        assert k in rec_a["timings"], k
+    b = _run(tmp_path, "b", "resume", os.path.join(a, "state.npz"),
+             "--sweeps", "4", "--device", "cpu")
+    c = _run(tmp_path, "c", "run", *RUN, "--therm", "1", "--sweeps", "8")
+    rec_b, us_b, idx_b = _series_and_links(b)
+    rec_c, us_c, idx_c = _series_and_links(c)
+    assert idx_b == idx_c == 9
+    assert rec_b["series"] == rec_c["series"]
+    for x, y in zip(us_b, us_c):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_info_prints_the_device(capsys):
+    cli.main(["info", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out)["backend"] == "cpu"
+
+
+@pytest.mark.parametrize("args,item", [
+    (["scan", "--betas", "5.6,6.0"], "M13"),
+    (["validate", "--configs", "3"], "M13"),
+    (["validate", "--configs", "6"], "M11"),
+    (["run", "--get-qtop"], "M12"),
+    (["run", "--wilson-loops", "1x1"], "M12"),
+    (["run", "--meas-dtype", "double"], "M11"),
+    (["run", "--engine", "xla"], "M11"),
+])
+def test_unported_features_name_their_item(args, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main([*args, "--dims", "4,4,2,4", "--device", "cpu", "--out",
+                  str(tmp_path)] if args[0] != "validate"
+                 else [*args, "--device", "cpu"])
+
+
+def test_validate_skips_multicard_without_cards(capsys):
+    assert cli.main(["validate", "--configs", "5", "--device", "cpu"]) == 0
+    assert "[SKIP] #5" in capsys.readouterr().out
+
+
+def test_rngtest_passes(capsys):
+    assert cli.main(["rngtest", "--n", "4096", "--generators", "xor128",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "philox (hw)" in out and "device:xor128" in out and "PASS" in out
