@@ -16,8 +16,8 @@ each timed:
   2. build      — nvcc builds csrc/*.cu into build/ (one process per
                   source, all at once); registers, stack frame and spills
                   of every kernel instantiation, threefry, Philox and
-                  stream, unsharded and on a shard (K1a, K5a, K5b:
-                  "_shard");
+                  stream, unsharded, on a shard (K1a, K5a, K5b: "_shard")
+                  and over a chain axis (K1c: "_chains");
   3. kernels    — every kernel instantiation against its plain PyTorch
                   version on the card (hot starts, seed 1): K1 threefry for
                   each kind x group x tracking, every (mu, parity), at
@@ -42,7 +42,15 @@ each timed:
                   (2,2,1,1) too, every (mu, parity) in sweep order with
                   the halo refresh between stages, streams on carried
                   words; K5a/K5b per shard at (8,8,4,4) and 32^4 on the
-                  XY, X and Y meshes;
+                  XY, X and Y meshes; every K1c instantiation (threefry
+                  and Philox) over the 8 stages of a sweep at (4,4,2,4)
+                  with 3 chains of distinct beta, and SU(3) HB, OR and
+                  tracked HB at 24^3 x 6 with the 11 chains of the scan's
+                  beta grid 5.6:6.1:11, each against its plain twin and
+                  against K1 on every chain's arrays (|d| 0, per-chain
+                  counts equal); K2c, K3c, K4c against their twins and
+                  against K2, K3, K4 per chain (bit-identical) at both
+                  shapes (24^3 x 6: SU(3));
   4. timing     — each instantiation and its plain version at 32^4, CUDA
                   events, in the order plain, kernel, kernel (K2
                   over the 8 arrays in turn, per array), beside its bound
@@ -51,7 +59,11 @@ each timed:
                   threefry's and Philox's integer operations, each
                   operation kind at its own pipe's rate;
                   K1a, K5a and K5b on one shard of 32^4 mesh (2,2,1,1),
-                  and the halo refresh of one array;
+                  and the halo refresh of one array; every K1c
+                  instantiation, K2c, K3c and K4c at 24^3 x 6 with 11
+                  chains, each beside the loop of 11 single-chain launches
+                  on the chain views that it replaces, its bound C times
+                  the single chain's;
   5. main paths — first small hot starts through the library API, CUDA
                   against the CPU path (threefry slices, and ranlux3).
                   Then Simulation(cfg) with no device argument at 32^4
@@ -82,7 +94,18 @@ each timed:
                   line on the bench's hw configuration: `cli.main(["run",
                   ..., "--ckpt-every", "5"])` and `resume`, each with
                   exact launch counts, whose series and links must equal
-                  an uninterrupted run's;
+                  an uninterrupted run's.  Then the beta scan (BASELINE
+                  config 3): BetaScan(baseline_config(3), 5.6:6.1:11),
+                  SU(3) 24^3 x 6 HB + 2 OR cold, threefry and hw,
+                  warmup(), thermalize(20), run(20, 1) with exact launch
+                  counts (24 K1c launches per sweep for the 11 chains),
+                  ms/sweep and idle share, every chain bit-identical to
+                  its own Simulation (seed + 1000 c, betas[c]; links and
+                  series), which run one after the other for the time
+                  they take; and `cli.main(["scan", ...])` 10 + 10 sweeps
+                  then `scan --resume-state` for 10, with exact launch
+                  counts, whose series and links must equal an
+                  uninterrupted scan's;
   6. physics    — through the port's validate.py (its anchors, windows and
                   chains): SU(3) 16^4 beta=6.0 heat-bath (window 0.5937 +-
                   5e-4) and the same on mesh (2,2,1,1), which must
@@ -93,8 +116,11 @@ each timed:
                   self-anchor gates, for threefry, a PRNGCL stream
                   (ranlux3; ranmar on SU(2)) and hw (Philox); SU(2) 8^4
                   beta=2.4 Metropolis with track_acceptance in the
-                  literature window; `python -m qcdgpu_tpu_torch rngtest`
-                  with the native host generators built.
+                  literature window; check_deconfinement (BASELINE config
+                  3: 24^3 x 6, beta 5.894 -+ 0.25, HB + 1 OR, 200 + 300
+                  sweeps, one two-chain BetaScan) with threefry and hw;
+                  `python -m qcdgpu_tpu_torch rngtest` with the native
+                  host generators built.
 
 Any failed check raises and the script exits non-zero.  The last three
 lines are the kernels' JSON record, the card's `nvidia-smi` name/power
@@ -136,6 +162,11 @@ FLIP_FRACTION = 1e-5  # accept flips at a rounding boundary, per link
 ROW_TOL = (5e-5, 2e-4)
 RATE_TOL = 2e-3
 THERM, RUN = 20, 20
+# the beta scan of BASELINE config 3 (K1c-K4c): its lattice and the CLI's
+# example grid 5.6:6.1:11; 3 chains of distinct beta at SMALL
+SCAN_DIMS = (24, 24, 24, 6)
+SCAN_GRID = "5.6:6.1:11"
+CHAIN_BETAS = {3: (5.5, 5.9, 6.3), 2: (2.1, 2.3, 2.5)}
 
 # One H100 SXM, NVIDIA's data sheet: HBM bandwidth and f32 rate outside the
 # tensor cores.  Integer operations run on their own pipe: 64 32-bit integer
@@ -257,9 +288,11 @@ def clone(us):
     return tuple(a.clone() for a in us)
 
 
-def event_ms(fn, reps):
-    """Mean ms per call of fn over reps calls, after one warm-up call."""
-    fn()
+def event_ms(fn, reps, warm=True):
+    """Mean ms per call of fn over reps calls, after one warm-up call
+    (none without warm: for a plain twin whose kernels are all warm)."""
+    if warm:
+        fn()
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -281,14 +314,14 @@ def kernel_label(mangled, kinds):
     their launch-counter names (kinds: the update kinds in qg::Kind
     order)."""
     shard = "_shard" if "9ShardDims" in mangled else ""
-    m = re.search(r"stage_kernelILi(\d)ELi(\d)ELb([01])ENS_"
+    m = re.search(r"stage_(chains_)?kernelILi(\d)ELi(\d)ELb([01])ENS_"
                   r"(?:8Threefry|(6Philox)|6StreamINS_(\d+)(\w+))", mangled)
     if m:
-        n, kind, track = int(m[1]), kinds[int(m[2])], m[3] == "1"
-        fam = ("_philox" if m[4] else "" if m[5] is None
-               else "_" + m[6][:int(m[5])].lower())
+        n, kind, track = int(m[2]), kinds[int(m[3])], m[4] == "1"
+        fam = ("_philox" if m[5] else "" if m[6] is None
+               else "_" + m[7][:int(m[6])].lower())
         return (f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
-                + shard)
+                + shard + ("_chains" if m[1] else ""))
     m = re.match(r"_ZN2qg(\d+)", mangled)  # qg::<length-prefixed name>
     if not m:
         return mangled
@@ -606,7 +639,10 @@ def main():
     from qcdgpu_tpu_torch.ops.cuda import reunit as creunit
     from qcdgpu_tpu_torch.ops.cuda import sharded
     from qcdgpu_tpu_torch.ops.cuda import update as cupdate
+    from qcdgpu_tpu_torch.models import BetaScan, baseline_config
+    from qcdgpu_tpu_torch.models.ensemble import betas_tensor, keys_tensor
     from qcdgpu_tpu_torch.parallel.mesh import ShardGrid
+    from qcdgpu_tpu_torch.utils.checkpoint import load_betascan
 
     dev = torch.device("cuda", 0)
     counters = (cupdate.LAUNCHES, creunit.LAUNCHES, cmeasure.LAUNCHES)
@@ -635,6 +671,18 @@ def main():
                         else f"stage_{fam}.cu",
                         "update.py:543" if fam == "philox" else
                         "update.py:602")
+    for name in cupdate.CHAIN_INSTANCES:
+        # K1c: _stage_kernel vmapped over the chains (models/ensemble.py:
+        # 125); its Philox instantiations K9's too
+        record[name] = (name, "stage_chains.cu", "update.py:543"
+                        if "_philox" in name else "update.py:460")
+    for n in GROUPS:
+        record[f"reunit_chains_su{n}"] = (f"reunit_chains_su{n}", "reunit.cu",
+                                          "reunit.py:22")
+        record[f"plane_sums_chains_su{n}"] = (f"plane_sums_chains_su{n}",
+                                              "measure.cu", "measure.py:67")
+        record[f"polyakov_sums_chains_su{n}"] = (
+            f"polyakov_sums_chains_su{n}", "measure.cu", "measure.py:155")
     for n in GROUPS:
         record[f"plane_sums_local_su{n}"] = (f"plane_sums_local_su{n}",
                                              "measure.cu", "measure.py:269")
@@ -685,6 +733,15 @@ def main():
 
     def note_err(name, err):
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+
+    last_mark = [time.perf_counter()]
+
+    def mark(label):
+        """Print the seconds since the last mark: where a phase spends its
+        time."""
+        now = time.perf_counter()
+        print(f"-- {label}: {now - last_mark[0]:.1f} s")
+        last_mark[0] = now
 
     def stream_state(gen, n, dims):
         return engine.make_stream_state0(
@@ -801,6 +858,69 @@ def main():
                     cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
 
+    scan_betas = cli._parse_betas(SCAN_GRID)
+
+    chain_hots = {}
+
+    def chain_inputs(dims, n, betas):
+        """Chain-stacked hot starts (chain c under make_base_key(11 + 1000
+        c); a copy, built once per shape) with their couplings and base
+        keys on the card."""
+        keys = [rng.make_base_key(11 + 1000 * c) for c in range(len(betas))]
+        if (dims, n, len(keys)) not in chain_hots:
+            chain_hots[(dims, n, len(keys))] = engine.packed_hot_start_chains(
+                SimConfig(group=n, dims=dims), keys, dev)
+        return (clone(chain_hots[(dims, n, len(keys))]),
+                betas_tensor(betas, dev), keys_tensor(keys, dev), keys)
+
+    def k1c_compare(n, kind, hw, dims, betas, k_trials):
+        """K1c over the 8 stages of a sweep (sweep index 3) in sweep order,
+        on C hot starts: each instantiation of (n, kind, random source) --
+        untracked and, where the kind draws, tracked -- on its own copy of
+        the inputs, K1 (tracked where the kind draws) on each chain's view
+        of another copy (with that chain's beta and rng.stage_key), the
+        plain twin on the originals, which carry on; tracking changes no
+        link, so one twin serves both instantiations.  -> {track: (max |d|
+        vs twin, max |d| vs K1, per-stage counts: kernel, twin, K1)}."""
+        us, b_t, k_t, keys = chain_inputs(dims, n, betas)
+        mode = "hw" if hw else "threefry"
+        draws = kind != "overrelax"
+        tracks = (False, True) if draws else (False,)
+
+        def zeros():
+            return torch.zeros(len(betas), dtype=torch.int64, device=dev)
+
+        out = {t: [0.0, 0.0, ([], [], [])] for t in tracks}
+        for p in (0, 1):
+            for mu in range(4):
+                sid = 4 * p + mu
+                c_p, c_1 = (zeros(), zeros()) if draws else (None, None)
+                got = {}
+                for t in tracks:
+                    got[t] = (clone(us), zeros() if t else None)
+                    cupdate.stage_update_chains(
+                        got[t][0], mu, p, b_t, k_t, 3, sid, dims, k_trials,
+                        kind=kind, count=got[t][1], rng_mode=mode)
+                u1 = clone(us)
+                for c, beta in enumerate(b_t.tolist()):
+                    key = rng.stage_key(keys[c], 3, sid) if draws else (0, 0)
+                    cupdate.stage_update(
+                        tuple(a[c] for a in u1), mu, p, beta, key, dims,
+                        k_trials, kind=kind, rng_mode=mode,
+                        count=None if c_1 is None else c_1[c:c + 1])
+                cupdate.stage_update_chains_ref(us, mu, p, b_t, k_t, 3, sid,
+                                                dims, k_trials, kind=kind,
+                                                count=c_p, rng_mode=mode)
+                for t, (uk, c_k) in got.items():
+                    o = out[t]
+                    for a, b, c in zip(uk, us, u1):
+                        o[0] = max(o[0], float((a - b).abs().max()))
+                        o[1] = max(o[1], float((a - c).abs().max()))
+                    if t:
+                        for lst, x in zip(o[2], (c_k, c_p, c_1)):
+                            lst.append(x.tolist())
+        return {t: tuple(o) for t, o in out.items()}
+
     def source_note(gen):
         return (f" ({gen}; words bit-identical)" if is_stream(gen)
                 else " (hw: Philox; bit-identical)" if gen else "")
@@ -841,6 +961,7 @@ def main():
         k1a_runs.append((i, name, gen, SHARD_MESHES[i % len(SHARD_MESHES)]))
 
     with Phase("3 kernels vs plain versions"):
+        mark("before phase 3")
         # K1 threefry at (4,4,2,4) and 32^4; K1 streams: every generator
         # at (4,4,2,4), every phase-5 run's at its shape, the four big
         # generators' SU(3) heat-bath and tracked Metropolis at 32^4
@@ -873,6 +994,7 @@ def main():
                 msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
             print(msg)
             require_stage(msg, dims, n, kind, worst, bad, links, ck, cp, gen)
+        mark("K1 threefry, streams, Philox")
         for n in GROUPS:
             for dims in (SMALL, ODD_T2, BIG):
                 u_ = hot(dims, n)
@@ -903,6 +1025,7 @@ def main():
                 print(msg)
                 require(k2 < REUNIT_TOL and d3 < PLANE_TOL and d4 < POLY_TOL,
                         msg)
+        mark("K2-K4")
         # K1a: every instantiation on the shards of SHARD_SMALL on MESH
         # (partly filled blocks), again at the shape, mesh and generator of
         # its own phase-5 run (the overrelaxation ones: of the runs whose
@@ -931,6 +1054,7 @@ def main():
                 msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
             print(msg)
             require_stage(msg, dims, n, kind, worst, bad, links, ck, cp, gen)
+        mark("K1a")
         # K5a / K5b per shard, on the XY, X and Y meshes
         for n in GROUPS:
             for dims, mesh in itertools.product(
@@ -955,6 +1079,80 @@ def main():
                        f"|d sum|/(N spatial vol) {d5b:.3e} (< {POLY_TOL})")
                 print(msg)
                 require(d5a < PLANE_TOL and d5b < POLY_TOL, msg)
+        mark("K5a, K5b")
+        # K1c: every instantiation at SMALL and at STREAM_SMALL_RUN (the
+        # shape of its own phase-5 scan) with 3 chains of distinct beta;
+        # SU(3) HB (threefry and Philox, untracked and tracked) and OR at
+        # SCAN_DIMS on the scan's 11 chains, heat-bath with the scan's K
+        cases = [(n, kind, hw, dims, CHAIN_BETAS[n])
+                 for dims in (SMALL, STREAM_SMALL_RUN) for n in GROUPS
+                 for kind in cupdate.KINDS for hw in (False, True)
+                 if not (hw and kind == "overrelax")]
+        cases += [(3, kind, hw, SCAN_DIMS, scan_betas)
+                  for kind, hw in (("heatbath", False), ("heatbath", True),
+                                   ("overrelax", False))]
+        for n, kind, hw, dims, betas in cases:
+            t0 = time.perf_counter()
+            # one KP trial below SCAN_DIMS, so that exhaustions occur
+            k_trials = 1 if (kind == "heatbath" and dims != SCAN_DIMS) else 4
+            res = k1c_compare(n, kind, hw, dims, betas, k_trials)
+            secs = time.perf_counter() - t0
+            for track, (d_twin, d_k1, (ck, cp, c1)) in res.items():
+                name = cupdate.instance_name(kind, n, track, philox=hw and
+                                             kind != "overrelax", chains=True)
+                note_err(name, d_twin)
+                msg = (f"K1c {name} {dims} x {len(betas)} chains: max |d| "
+                       f"{d_twin:.3e} vs plain twin, {d_k1:.3e} vs K1 per "
+                       f"chain")
+                if track:
+                    msg += (f"; per-chain counts kernel {ck[-1]} twin "
+                            f"{cp[-1]} K1 {c1[-1]} (last stage, K={k_trials}"
+                            f", {sum(map(sum, ck))} in the sweep)")
+                print(msg + f" ({secs:.1f} s with its pair)")
+                require(d_twin == 0.0 and d_k1 == 0.0 and ck == cp == c1, msg)
+        mark("K1c")
+        # K2c, K3c, K4c against their twins and against K2, K3, K4 on every
+        # chain's arrays (bit-identical), at the shapes K1c is held at
+        for n, dims, betas in [(n, dims, CHAIN_BETAS[n])
+                               for dims in (SMALL, STREAM_SMALL_RUN)
+                               for n in GROUPS] + [(3, SCAN_DIMS, scan_betas)]:
+            us, _, _, _ = chain_inputs(dims, n, betas)
+            nc = len(betas)
+            noise = np.random.default_rng(2)
+            k2_twin = k2_single = 0.0
+            for a in us:
+                drift = a + torch.from_numpy(
+                    noise.standard_normal(a.shape).astype(np.float32)
+                ).to(dev) * 1e-3
+                got = creunit.reunitarize_chains(drift.clone(), dims)
+                ref = creunit.reunitarize_chains_ref(drift.clone(), dims)
+                one = drift.clone()
+                for c in range(nc):
+                    creunit.reunitarize_dir(one[c], dims)
+                k2_twin = max(k2_twin, float((got - ref).abs().max()))
+                k2_single = max(k2_single, float((got - one).abs().max()))
+            p3, p4 = (cmeasure.plane_sums_chains(us, dims),
+                      cmeasure.polyakov_sums_chains(us, dims))
+            r3, r4 = (cmeasure.plane_sums_chains_ref(us, dims),
+                      cmeasure.polyakov_sums_chains_ref(us, dims))
+            views = [tuple(a[c] for a in us) for c in range(nc)]
+            s3 = torch.stack([cmeasure.plane_sums(v, dims) for v in views])
+            s4 = torch.stack([cmeasure.polyakov_sums(v, dims) for v in views])
+            d3 = float((p3 - r3).abs().max()) / (n * np.prod(dims))
+            d4 = float((p4 - r4).abs().max()) / (n * np.prod(dims[:3]))
+            same = torch.equal(p3, s3) and torch.equal(p4, s4)
+            note_err(f"reunit_chains_su{n}", k2_twin)
+            note_err(f"plane_sums_chains_su{n}", d3)
+            note_err(f"polyakov_sums_chains_su{n}", d4)
+            msg = (f"SU({n}) {dims} x {nc} chains: K2c max |d| {k2_twin:.3e} "
+                   f"vs twin (< {REUNIT_TOL}), {k2_single:.3e} vs K2 per "
+                   f"chain; K3c |d sum|/(N vol) {d3:.3e} (< {PLANE_TOL}), "
+                   f"K4c {d4:.3e} (< {POLY_TOL}) vs twins; K3c, K4c "
+                   f"bit-identical to K3, K4 per chain: {same}")
+            print(msg)
+            require(k2_twin < REUNIT_TOL and k2_single == 0.0
+                    and d3 < PLANE_TOL and d4 < POLY_TOL and same, msg)
+        mark("K2c-K4c")
 
     def time_pairs(pairs, dims, shard=None):
         """Time each (plain, kernel) pair: plain, kernel, kernel (the plain
@@ -976,7 +1174,7 @@ def main():
                   f"{p1:.4f} ms, bound {rec['bound_ms']:.4f} "
                   f"ms ({rec['bound_by']})  [{smi}]")
 
-    with Phase("4 kernel timing at 32^4"):
+    with Phase("4 kernel timing at 32^4 and 24^3 x 6"):
         key = rng.stage_key(rng.make_base_key(1), 0, 0)
         v2 = int(np.prod(BIG)) // 2
         for n in GROUPS:
@@ -1106,7 +1304,86 @@ def main():
             del w, pairs, spairs, shards, s0, plan
         hots.clear()
 
+        # K1c-K4c at SCAN_DIMS on the scan's 11 chains (K1c: stage (mu=1,
+        # parity 0) of sweep 0), each beside the loop of single-chain
+        # launches on the chain views that it replaces, in the order plain,
+        # kernel, loop, kernel, loop; bound = C x the single chain's work
+        # (K1c also derives each drawing stage's key: one threefry call per
+        # chain)
+        nc = len(scan_betas)
+        for n in GROUPS:
+            us, b_t, k_t, keys = chain_inputs(SCAN_DIMS, n, scan_betas)
+            views = [tuple(a[c] for a in us) for c in range(nc)]
+            betas = b_t.tolist()
+            cnt_c = torch.zeros(nc, dtype=torch.int64, device=dev)
+            cnt_1 = torch.zeros(1, dtype=torch.int64, device=dev)
+            keys1 = [rng.stage_key(k, 0, 1) for k in keys]
+            # name -> (plain, kernel, loop, plain reps, reps, calls, the
+            # single-chain name whose work C times is the bound, extra
+            # integer operations)
+            cpairs = {}
+            for n_, kind, track in k1_cases:
+                for hw in (False, True):
+                    if n_ != n or (hw and kind == "overrelax"):
+                        continue
+                    ph = hw and kind != "overrelax"
+                    kw = dict(kind=kind, count=cnt_c if track else None,
+                              rng_mode="hw" if hw else "threefry")
+                    kw1 = dict(kw, count=cnt_1 if track else None)
+                    cpairs[cupdate.instance_name(
+                        kind, n, track, philox=ph, chains=True)] = (
+                        lambda kw=kw: cupdate.stage_update_chains_ref(
+                            us, 1, 0, b_t, k_t, 0, 1, SCAN_DIMS, **kw),
+                        lambda kw=kw: cupdate.stage_update_chains(
+                            us, 1, 0, b_t, k_t, 0, 1, SCAN_DIMS, **kw),
+                        lambda kw1=kw1, kind=kind: [
+                            cupdate.stage_update(
+                                v, 1, 0, betas[c], keys1[c]
+                                if kind != "overrelax" else (0, 0),
+                                SCAN_DIMS, **kw1)
+                            for c, v in enumerate(views)],
+                        1, 40, 1,
+                        cupdate.instance_name(kind, n, track, philox=ph),
+                        0 if kind == "overrelax"
+                        else nc * THREEFRY_CALL_OPS)
+            cpairs[f"reunit_chains_su{n}"] = (
+                lambda: [creunit.reunitarize_chains_ref(a, SCAN_DIMS)
+                         for a in us],
+                lambda: [creunit.reunitarize_chains(a, SCAN_DIMS)
+                         for a in us],
+                lambda: [creunit.reunitarize_dir(a[c], SCAN_DIMS)
+                         for a in us for c in range(nc)],
+                1, 20, len(us), f"reunit_su{n}", 0)
+            for k in ("plane_sums", "polyakov_sums"):
+                kern, ref, one = (getattr(cmeasure, f"{k}_chains"),
+                                  getattr(cmeasure, f"{k}_chains_ref"),
+                                  getattr(cmeasure, k))
+                cpairs[f"{k}_chains_su{n}"] = (
+                    lambda ref=ref: ref(us, SCAN_DIMS),
+                    lambda kern=kern: kern(us, SCAN_DIMS),
+                    lambda one=one: [one(v, SCAN_DIMS) for v in views],
+                    1, 40, 1, f"{k}_su{n}", 0)
+            for name, (plain, kern, loop, r_plain, reps, calls, single,
+                       extra) in cpairs.items():
+                p1 = event_ms(plain, r_plain, warm=False) / calls
+                k1 = event_ms(kern, reps) / calls
+                l1 = event_ms(loop, reps) / calls
+                k2_ = event_ms(kern, reps) / calls
+                l2 = event_ms(loop, reps) / calls
+                rec = record[name]
+                rec["ms"], rec["plain_ms"] = (k1 + k2_) / 2, p1
+                nbytes, f32_ops, int_ops = work(single, SCAN_DIMS)
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    nc * nbytes, nc * f32_ops, nc * int_ops + extra)
+                print(f"{name} {SCAN_DIMS} x {nc} chains: kernel {k1:.4f} / "
+                      f"{k2_:.4f} ms, the loop of {nc} single-chain launches "
+                      f"it replaces {l1:.4f} / {l2:.4f} ms, plain {p1:.4f} "
+                      f"ms, bound {rec['bound_ms']:.4f} ms "
+                      f"({rec['bound_by']})  [{smi}]")
+            del us, views, cpairs
+
     with Phase("5 main paths"):
+        mark("before phase 5")
         # the library API on small hot starts: CUDA kernels vs CPU plain
         for label, _, kw in MAIN_PATHS[:4] + (
                 ("streams: SU(3) heat-bath, prngcl:ranlux3", True,
@@ -1255,6 +1532,7 @@ def main():
         hw_us = drive("bench hw: SU(3) heat-bath, rng_mode='hw' (Philox)",
                       bench.replace(rng_mode="hw"), True, keep=True)
 
+        mark("32^4 main paths")
         # every stream and Philox instantiation on a path of its own at 8^4:
         # warmup(), thermalize(2), run(2, 1), reunit_every=2, alternating
         # cold and hot starts (the stream hot start, or threefry's for hw;
@@ -1280,6 +1558,7 @@ def main():
             print(label)
             check_run(label, sim, obs, launches, expected(cfg, 6, 2, 3))
 
+        mark("8^4 stream and Philox runs")
         # every K1a instantiation on a path of its own at 8^4, as the
         # stream instantiations above, over the X, Y and XY meshes in turn;
         # the untracked threefry heat-bath runs add 1 OR pass (the
@@ -1307,6 +1586,7 @@ def main():
             print(label)
             check_run(label, sim, obs, launches, expected(cfg, 6, 2, 3))
 
+        mark("8^4 K1a runs")
         # the sharded path: the bench configuration (threefry and hw) on
         # MESH through the library, then links bit-identical to the
         # unsharded chain
@@ -1322,6 +1602,7 @@ def main():
                     "unsharded chain")
         del us, bench_us, hw_us, ref_us
 
+        mark("sharded bench")
         # the command line on the bench's hw configuration: run with
         # periodic checkpoints, then resume, each with its launches counted;
         # the resumed chain (series and links) equals an uninterrupted one
@@ -1375,6 +1656,8 @@ def main():
                 "CLI run + resume differs from the uninterrupted chain")
         del sim, links_b
 
+        mark("CLI run + resume")
+
         def same_chain(label, cfg, mesh, n_sweeps):
             """Simulation(cfg) unsharded and on mesh, thermalize(n_sweeps)
             each from the same start: links (and stream state) must be
@@ -1403,6 +1686,190 @@ def main():
         # K1b's check: SU(3) 64^4, which the TPU runs Y-tiled, on 8 Y shards
         same_chain("SU(3) heat-bath 64^4", bench.replace(dims=(64,) * 4),
                    (1, 8, 1, 1), 2)
+
+        mark("sharded vs unsharded chains")
+
+        # the beta scan, BASELINE config 3: SU(3) 24^3 x 6 HB + 2 OR, cold,
+        # reunit_every=10, the grid 5.6:6.1:11, through BetaScan on the card
+        def expected_chains(cfg, n_sweeps, n_reunit, n_meas):
+            """Launches per counter of a scan: one K1c launch per stage and
+            one K2c launch per array, K3c + K4c per measurement, for all
+            chains at once."""
+            n = cfg.group
+            tracked = cfg.track_acceptance or cfg.track_kp_exhaust
+            expect = {
+                cupdate.instance_name(cfg.algorithm, n, tracked,
+                                      philox=cfg.rng_mode == "hw",
+                                      chains=True): 8 * n_sweeps,
+                f"plane_sums_chains_su{n}": n_meas,
+                f"polyakov_sums_chains_su{n}": n_meas,
+            }
+            if n_reunit:
+                expect[f"reunit_chains_su{n}"] = 8 * n_reunit
+            if cfg.n_or:
+                expect[cupdate.instance_name("overrelax", n, chains=True)] = (
+                    8 * cfg.n_or * n_sweeps)
+            return expect
+
+        def drive_scan(label, cfg):
+            """BetaScan(cfg, the scan grid) on the card by default:
+            warmup(), thermalize(THERM), run(RUN, 1), counters zeroed
+            before and read after; then the idle share; then each chain
+            against its own Simulation, run one after the other (links and
+            series bit-identical)."""
+            n_sweeps = 2 + THERM + RUN
+            n_reunit = sum(1 for i in range(THERM + RUN) if i % 10 == 9)
+            expect = expected_chains(cfg, n_sweeps, n_reunit, 1 + RUN)
+            zero_counters()
+            t0 = time.perf_counter()
+            scan = BetaScan(cfg, scan_betas)
+            scan.sync()
+            t_init = time.perf_counter()
+            scan.warmup()
+            t1 = time.perf_counter()
+            scan.thermalize(THERM).sync()
+            t2 = time.perf_counter()
+            obs = scan.run(RUN, 1)
+            t3 = time.perf_counter()
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            nc = len(scan_betas)
+            therm_ms = (t2 - t1) / THERM * 1e3
+            run_ms = (t3 - t2) / RUN * 1e3
+            n_links = 4 * int(np.prod(cfg.dims)) * nc
+            print(f"{label}: start state built in {t_init - t0:.3f} s; "
+                  f"warmup {t1 - t_init:.2f} s; thermalize {therm_ms:.3f} "
+                  f"ms/sweep for {nc} chains ({therm_ms / nc:.4f} per "
+                  f"chain; {n_links / therm_ms * 1e3:.4e} link-updates/s); "
+                  f"run with measurement {run_ms:.3f} ms/sweep "
+                  f"({run_ms / nc:.4f} per chain)  [{smi}]")
+            plq = obs[:, -1, 0]
+            print(f"  plaquette by beta {[round(float(x), 5) for x in plq]}; "
+                  f"launches {launches}")
+            require(obs.shape == (nc, RUN, len(scan.obs_names))
+                    and np.isfinite(obs).all(), f"{label}: bad series")
+            require(((0.3 < plq) & (plq < 1.0)).all() and plq[-1] > plq[0],
+                    f"{label}: plaquette {plq}")
+            require(launches == expect,
+                    f"{label}: launches {launches}, expected {expect}")
+            for k, v in launches.items():
+                record[k]["launches"] += v
+            scan_us = tuple(a.clone() for a in scan.us)
+            idle_share(scan)
+            del scan
+            t0 = time.perf_counter()
+            same, seq_therm, seq_run = [], 0.0, 0.0
+            for c, beta in enumerate(np.asarray(scan_betas, np.float32)):
+                sim = Simulation(cfg.replace(seed=cfg.seed + 1000 * c,
+                                             beta=float(beta)))
+                sim.warmup()
+                t1 = time.perf_counter()
+                sim.thermalize(THERM).sync()
+                t2 = time.perf_counter()
+                o = sim.run(RUN, 1)
+                seq_therm += t2 - t1
+                seq_run += time.perf_counter() - t2
+                same.append(bool(np.array_equal(o, obs[c]) and all(
+                    torch.equal(a[c], b) for a, b in zip(scan_us, sim.us))))
+                del sim
+            seq_ms = (time.perf_counter() - t0) / n_sweeps * 1e3
+            print(f"  {nc} Simulations one after the other (seed + 1000 c, "
+                  f"betas[c]; warmup, thermalize({THERM}), run({RUN}, 1)): "
+                  f"thermalize {seq_therm / THERM * 1e3:.3f} ms/sweep of all "
+                  f"chains (the scan: {therm_ms:.3f}), run with measurement "
+                  f"{seq_run / RUN * 1e3:.3f} (the scan: {run_ms:.3f}); "
+                  f"{seq_ms:.3f} ms per sweep with build and warmup; each "
+                  f"bit-identical to its scan chain (links, series): "
+                  f"{same}  [{smi}]")
+            require(all(same), f"{label}: chains differ from Simulations")
+
+        scan3 = baseline_config(3)
+        for mode in ("threefry", "hw"):
+            drive_scan(f"scan: BASELINE config 3, SU(3) {SCAN_DIMS} HB + 2 "
+                       f"OR, {SCAN_GRID}, {mode}",
+                       scan3.replace(rng_mode=mode))
+
+        mark("config-3 scans")
+
+        # every K1c instantiation through a scan of its own at 8^4, 3
+        # chains of distinct beta: warmup(), thermalize(2), run(2, 1),
+        # reunit_every=2, alternating cold and hot starts, one in three
+        # with 1 OR pass (the overrelaxation instantiations)
+        for i, (n, kind, track, hw) in enumerate(itertools.product(
+                GROUPS, DRAWING, (False, True), (False, True))):
+            kw = dict(group=n, algorithm=kind, dims=STREAM_SMALL_RUN,
+                      reunit_every=2, start=("cold", "hot")[i % 2], seed=i,
+                      n_or=int(i % 3 == 0),
+                      rng_mode="hw" if hw else "threefry")
+            if track:
+                kw["track_kp_exhaust" if kind == "heatbath"
+                   else "track_acceptance"] = True
+            cfg = SimConfig(**kw)
+            zero_counters()
+            scan = BetaScan(cfg, CHAIN_BETAS[n])
+            scan.warmup().thermalize(2)
+            obs = scan.run(2, 1)
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            expect = expected_chains(cfg, 6, 2, 3)
+            label = (f"scan {cfg.rng_mode} SU({n}) {kind} track={track} "
+                     f"n_or={cfg.n_or} {cfg.start} {STREAM_SMALL_RUN} x "
+                     f"{len(CHAIN_BETAS[n])} chains")
+            plq = [round(float(x), 5) for x in obs[:, -1, 0]]
+            print(f"{label}: plaquette {plq}"
+                  + (f", {scan.obs_names[-1]} {obs[:, :, -1].tolist()}"
+                     if track else ""))
+            require(obs.shape == (3, 2, len(scan.obs_names))
+                    and np.isfinite(obs).all(), f"{label}: bad series")
+            if track:
+                require(((obs[:, :, -1] >= 0) & (obs[:, :, -1] <= 1)).all(),
+                        f"{label}: tracked column")
+            require(launches == expect,
+                    f"{label}: launches {launches}, expected {expect}")
+            for k, v in launches.items():
+                record[k]["launches"] += v
+            del scan
+
+        mark("8^4 scans")
+
+        # the scan from the command line, then resumed; the resumed scan's
+        # series (scan.json) and links (scan_state.npz) equal an
+        # uninterrupted scan's
+        scan_cli = SimConfig(dims=SCAN_DIMS, n_or=2, sweeps_therm=10,
+                             sweeps=10)
+        with tempfile.TemporaryDirectory() as tmp:
+            a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+            # warmup 1 + 1 sweeps, thermalize 10 and run 10 sweeps 0-19
+            # (reunitarized after 9 and 19); resume's warmup and run 10
+            # sweeps 20-29 (after 29)
+            cli_launches("scan", ["scan", "--dims", "24,24,24,6", "--n-or",
+                                  "2", "--betas", SCAN_GRID, "--therm", "10",
+                                  "--sweeps", "10", "--out", a],
+                         expected_chains(scan_cli, 22, 2, 11))
+            cli_launches("scan --resume-state",
+                         ["scan", "--resume-state",
+                          os.path.join(a, "scan_state.npz"), "--sweeps",
+                          "10", "--out", b],
+                         expected_chains(scan_cli, 12, 1, 11))
+            with open(os.path.join(b, "scan.json")) as f:
+                rec_b = json.load(f)
+            _, _, _, u_b, idx_b = load_betascan(
+                os.path.join(b, "scan_state.npz"))
+        print(f"CLI scan timings {rec_b['timings']}; plq by beta "
+              f"{[round(r['plq'], 5) for r in rec_b['scan']]}  [{smi}]")
+        whole = BetaScan(scan_cli.replace(sweeps=20), scan_betas)
+        whole.warmup().thermalize()
+        obs = whole.run()
+        same_series = all(
+            np.array_equal(np.asarray(rec_b["series"][name], np.float32),
+                           obs[:, 10:, k])
+            for k, name in enumerate(whole.obs_names))
+        same_links = np.array_equal(u_b, whole.u.cpu().numpy())
+        print(f"CLI scan 10 + 10 sweeps, then --resume-state 10: series and "
+              f"links bit-identical to an uninterrupted scan: "
+              f"{same_series and same_links}")
+        require(same_series and same_links and idx_b == 30,
+                "CLI scan + resume differs from the uninterrupted scan")
+        del whole
+        mark("CLI scan + resume")
 
     def gate(r):
         """Print a validate.py check's result and require it to pass."""
@@ -1458,6 +1925,16 @@ def main():
                 f"SU(2) Metropolis <plq> {st.mean}")
         require(0.0 < acc < 1.0, f"acc_rate {acc}")
         del sim
+
+        # BASELINE config 3: deconfinement across beta_c(N_t = 6) on 24^3 x
+        # 6, one two-chain BetaScan, threefry and hw
+        for mode in ("threefry", "hw"):
+            r = validate.check_deconfinement(rng_mode=mode)
+            msg = (f"{r['name']}: <|P|> below {r['measured']['below']:.6f}, "
+                   f"above {r['measured']['above']:.6f} ({r['expected']}); "
+                   f"pass {r['pass']}")
+            print(msg)
+            require(r["pass"], msg)
 
         # the PRNG self-test from the command line; the native host
         # generators must build here

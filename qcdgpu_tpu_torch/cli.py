@@ -10,9 +10,10 @@ too).  Subcommands:
   resume    continue a chain bit-exactly from a checkpoint (also one
             written by the JAX package)
   info      device report
-  validate  physics acceptance suite (BASELINE configs 1, 2, 4, 5)
+  validate  physics acceptance suite (BASELINE configs 1-5)
   rngtest   PRNG self-test (threefry, Philox, native and device streams)
-  scan      beta scan: not ported yet (ROADMAP M13)
+  scan      beta scan: one chain per beta in one batched run (BetaScan),
+            scan.json, scan_state.npz; --resume-state continues it
 
 --device (default cuda) picks the card, or the CPU, where the kernels'
 plain PyTorch versions run; without a card the default raises.
@@ -20,9 +21,11 @@ rng_mode "hw" is the TPU's hardware PRNG in the JAX package and Philox
 here.  Features not ported yet parse as in the reference and are refused
 with the ROADMAP item that brings them.
 
-Example:
+Examples:
   python -m qcdgpu_tpu_torch run --group 3 --dims 8,8,8,8 --beta 6.0 \
       --algorithm heatbath --n-or 1 --therm 300 --sweeps 500 --out out/
+  python -m qcdgpu_tpu_torch scan --dims 24,24,24,6 --n-or 2 \
+      --betas 5.6:6.1:11 --therm 200 --sweeps 400 --out scan/
 """
 
 from __future__ import annotations
@@ -41,6 +44,15 @@ def _parse_dims(s: str):
     if len(parts) != 4:
         raise argparse.ArgumentTypeError("dims must be L or X,Y,Z,T")
     return tuple(parts)
+
+
+def _parse_betas(s: str):
+    """'5.6:6.0:9' -> 9 evenly spaced; or comma list '5.6,5.8,6.0'."""
+    if ":" in s:
+        lo, hi, n = s.split(":")
+        lo, hi, n = float(lo), float(hi), int(n)
+        return [lo + (hi - lo) * i / max(n - 1, 1) for i in range(n)]
+    return [float(x) for x in s.split(",")]
 
 
 def _parse_mesh(s: str):
@@ -287,9 +299,75 @@ def cmd_resume(args):
 
 
 def cmd_scan(args):
-    raise NotImplementedError(
-        "scan (BetaScan, the beta-scan ensemble) is not ported yet "
-        "(ROADMAP M13)")
+    import numpy as np
+
+    from .models.ensemble import BetaScan
+    from .ops.measure import obs_names
+    from .utils import report
+    from .utils.stats import analyze_series, susceptibility
+
+    if args.resume_state:
+        scan = BetaScan.load(args.resume_state, chain_mesh=args.chain_mesh,
+                             device=args.device)
+        cfg = scan.cfg
+        betas = [float(b) for b in scan.betas]
+    else:
+        cfg = _build_config(args)
+        if not args.betas:
+            raise SystemExit("scan requires --betas (or --resume-state)")
+        betas = _parse_betas(args.betas)
+        scan = BetaScan(cfg, betas, chain_mesh=args.chain_mesh,
+                        device=args.device)
+    t0 = time.time()
+    scan.warmup()
+    timings = {"compile_s": round(time.time() - t0, 3)}
+    t0 = time.time()
+    if args.resume_state:
+        obs = scan.run(args.sweeps)
+    else:
+        scan.thermalize()
+        obs = scan.run()  # [C, n_meas, n_obs]
+    scan.sync()
+    timings["total_s"] = round(time.time() - t0, 3)
+    os.makedirs(args.out, exist_ok=True)
+    scan.save(os.path.join(args.out, "scan_state.npz"))
+    # one row per beta: mean and binned error of every series column (the
+    # tracked rate included), and the deconfinement observables on the
+    # Polyakov modulus: <|P|> (not |<P>|, which the Z_N phase flips average
+    # away) and chi = V (<|P|^2> - <|P|>^2), whose peak locates beta_c
+    names = list(obs_names(cfg))
+    rows = []
+    for c, b in enumerate(betas):
+        row = {"beta": b}
+        for k, name in enumerate(names):
+            st = analyze_series(obs[c, :, k])
+            row[name] = st.mean
+            row[name + "_err"] = st.err
+        pabs = np.hypot(obs[c, :, names.index("poly_re")],
+                        obs[c, :, names.index("poly_im")])
+        st = analyze_series(pabs)
+        row["poly_abs"], row["poly_abs_err"] = st.mean, st.err
+        row["poly_sus"], row["poly_sus_err"] = susceptibility(
+            pabs, float(cfg.volume))
+        rows.append(row)
+    rec = {
+        "config": cfg.to_dict(),
+        "device": report.device_info(args.device),
+        "timings": timings,
+        "scan": rows,
+        # each observable's series per chain, [C][n_meas], as `run` keeps
+        # its own
+        "series": {name: obs[:, :, k].tolist()
+                   for k, name in enumerate(names)},
+    }
+    path = os.path.join(args.out, "scan.json")
+    report.write_json(path, rec)
+    print(f"{'beta':>8} {'plq':>10} {'<|poly|>':>10} {'poly_re':>10} "
+          f"{'chi_P':>10}")
+    for r in rows:
+        print(f"{r['beta']:8.4f} {r['plq']:10.6f} {r['poly_abs']:10.6f} "
+              f"{r['poly_re']:10.6f} {r['poly_sus']:10.4f}")
+    print(f"wrote {path}")
 
 
 def cmd_info(args):
@@ -365,16 +443,16 @@ def main(argv=None):
     _add_device_arg(p)
     p.set_defaults(fn=cmd_resume)
 
-    p = sub.add_parser("scan", help="beta scan (not ported yet, M13)")
+    p = sub.add_parser("scan", help="beta scan (chain-batched ensemble)")
     _add_run_args(p)
     p.add_argument("--betas", default=None,
                    help="lo:hi:n or comma list, e.g. 5.6:6.1:11")
     p.add_argument("--resume-state", dest="resume_state", default=None,
                    help="continue a scan from its scan_state.npz")
     p.add_argument("--chain-mesh", dest="chain_mesh", type=int, default=0,
-                   help="shard the chain axis over this many devices "
-                        "(replica parallelism; 0 = auto: all devices when "
-                        "the beta grid divides evenly, 1 = off)")
+                   help="devices the chains spread over: 0 (auto) and 1 "
+                        "run every chain on --device (more is not ported "
+                        "yet, M15)")
     p.set_defaults(fn=cmd_scan)
 
     p = sub.add_parser("info", help="device info")
@@ -383,9 +461,9 @@ def main(argv=None):
 
     p = sub.add_parser("validate", help="physics acceptance suite "
                        "(BASELINE configs vs literature)")
-    p.add_argument("--configs", default="1,2,4,5",
-                   help="comma list of BASELINE config numbers (3 and 6 "
-                        "are not ported yet)")
+    p.add_argument("--configs", default="1,2,3,4,5",
+                   help="comma list of BASELINE config numbers (6 is not "
+                        "ported yet)")
     p.add_argument("--quick", action="store_true",
                    help="reduced lattices/sweeps (minutes instead of hours)")
     p.add_argument("--out", default=None, help="JSON report path")

@@ -31,6 +31,13 @@
 // (1/4 of the state) with one thread per column, so it is bound by
 // bandwidth and by its small thread count (X*Y*Z).
 //
+// K3c / K4c (qg_plane_sums_chains, qg_polyakov_sums_chains) are K3 / K4 on
+// the chain-stacked arrays [C, 2, N, 2, X, Y, Z*T/2] of a beta scan, chain
+// on blockIdx.y (the reference vmaps measure_all_split over the chains,
+// models/ensemble.py:129-131): partials [C, n_blocks, k], and the finish
+// kernel one block per chain.  Each chain's blocks and finish run in K3 /
+// K4's order, so its sums are K3 / K4's on that chain's arrays, bit for bit.
+//
 // Reduction: the TPU kernels carry f32 Kahan sums across a sequential grid;
 // blocks here run in no order, so each block tree-reduces its threads' f64
 // values in shared memory into a [n_blocks, n_out] scratch, and a second
@@ -40,10 +47,25 @@
 
 namespace qg {
 
+// Only the unsharded geometry has a chain axis (K3c/K4c): the shard forms
+// (K5a/K5b) compile without its offsets and keep their registers (K5a
+// SU(3) sits at 128, the most that lets two 256-thread blocks share an
+// SM).
+template <class D> constexpr bool kChains = false;
+template <> constexpr bool kChains<Dims> = true;
+
+// chain_stride: floats from one chain's array to the next (0, one chain);
+// chain blockIdx.y writes partials row block blockIdx.y * gridDim.x
 template <int N, class D>
-__global__ void plane_sums_kernel(Links L, D d,
+__global__ void plane_sums_kernel(Links L, D d, long long chain_stride,
                                   double* __restrict__ partials) {
   extern __shared__ double sh[];
+  if constexpr (kChains<D>) {
+    const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) L.p[k] += off;
+    partials += (size_t)blockIdx.y * gridDim.x * 6;
+  }
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   const int nv = n_sites(d);
   const bool active = g < 2 * nv;
@@ -97,8 +119,15 @@ __device__ __forceinline__ void poly_column(int col, const ShardDims& d,
 template <int N, class D>
 __global__ void polyakov_sums_kernel(const float* __restrict__ u6,
                                      const float* __restrict__ u7, D d,
+                                     long long chain_stride,
                                      double* __restrict__ partials) {
   extern __shared__ double sh[];
+  if constexpr (kChains<D>) {
+    const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
+    u6 += off;
+    u7 += off;
+    partials += (size_t)blockIdx.y * gridDim.x * 2;
+  }
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int n_col = d.x * d.y * d.z;
   float tr_re = 0.f, tr_im = 0.f;
@@ -126,11 +155,14 @@ __global__ void polyakov_sums_kernel(const float* __restrict__ u6,
   if (threadIdx.x == 0) partials[blockIdx.x * 2 + 1] = sh[0];
 }
 
-// out[o] = sum_b partials[b * n_out + o], in a fixed order (one block)
+// out[o] = sum_b partials[b * n_out + o], in a fixed order (one block per
+// chain: chain blockIdx.x reads its partials and writes its n_out sums)
 __global__ void finish_sums_kernel(const double* __restrict__ partials,
                                    int n_blocks, int n_out,
                                    double* __restrict__ out) {
   extern __shared__ double sh[];
+  partials += (size_t)blockIdx.x * n_blocks * n_out;
+  out += (size_t)blockIdx.x * n_out;
   for (int o = 0; o < n_out; ++o) {
     double s = 0.0;
     for (int b = threadIdx.x; b < n_blocks; b += blockDim.x)
@@ -145,37 +177,54 @@ inline bool pow2_block(int block) {
   return block >= 32 && block <= 1024 && (block & (block - 1)) == 0;
 }
 
+inline bool chain_count_ok(int n_chains) {
+  return n_chains >= 1 && n_chains <= 65535;
+}
+
+// n_chains chains, each array's chains chain_stride floats apart (one
+// chain: 1, 0); partials [n_chains, n_blocks, 6], out [n_chains, 6]
 template <class D>
 int plane_sums(const Links& L, int n, const D& d, int block, double* partials,
-               double* out, cudaStream_t s) {
-  if (!pow2_block(block) || (n != 2 && n != 3))
+               double* out, cudaStream_t s, int n_chains = 1,
+               long long chain_stride = 0) {
+  if (!pow2_block(block) || (n != 2 && n != 3) || !chain_count_ok(n_chains))
     return (int)cudaErrorInvalidValue;
   const int n_blocks = (2 * n_sites(d) + block - 1) / block;
   const size_t smem = block * sizeof(double);
+  const dim3 grid(n_blocks, n_chains);
   if (n == 3)
-    plane_sums_kernel<3><<<n_blocks, block, smem, s>>>(L, d, partials);
+    plane_sums_kernel<3><<<grid, block, smem, s>>>(L, d, chain_stride,
+                                                   partials);
   else
-    plane_sums_kernel<2><<<n_blocks, block, smem, s>>>(L, d, partials);
+    plane_sums_kernel<2><<<grid, block, smem, s>>>(L, d, chain_stride,
+                                                   partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  finish_sums_kernel<<<1, block, smem, s>>>(partials, n_blocks, 6, out);
+  finish_sums_kernel<<<n_chains, block, smem, s>>>(partials, n_blocks, 6,
+                                                   out);
   return (int)cudaGetLastError();
 }
 
+// partials [n_chains, n_blocks, 2], out [n_chains, 2]
 template <class D>
 int polyakov_sums(const float* u6, const float* u7, int n, const D& d,
-                  int block, double* partials, double* out, cudaStream_t s) {
-  if (!pow2_block(block) || (n != 2 && n != 3))
+                  int block, double* partials, double* out, cudaStream_t s,
+                  int n_chains = 1, long long chain_stride = 0) {
+  if (!pow2_block(block) || (n != 2 && n != 3) || !chain_count_ok(n_chains))
     return (int)cudaErrorInvalidValue;
   const int n_blocks = (d.x * d.y * d.z + block - 1) / block;
   const size_t smem = block * sizeof(double);
+  const dim3 grid(n_blocks, n_chains);
   if (n == 3)
-    polyakov_sums_kernel<3><<<n_blocks, block, smem, s>>>(u6, u7, d, partials);
+    polyakov_sums_kernel<3><<<grid, block, smem, s>>>(u6, u7, d, chain_stride,
+                                                      partials);
   else
-    polyakov_sums_kernel<2><<<n_blocks, block, smem, s>>>(u6, u7, d, partials);
+    polyakov_sums_kernel<2><<<grid, block, smem, s>>>(u6, u7, d, chain_stride,
+                                                      partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  finish_sums_kernel<<<1, block, smem, s>>>(partials, n_blocks, 2, out);
+  finish_sums_kernel<<<n_chains, block, smem, s>>>(partials, n_blocks, 2,
+                                                   out);
   return (int)cudaGetLastError();
 }
 
@@ -231,4 +280,33 @@ extern "C" int qg_polyakov_sums_local(void* u6, void* u7, int n, int lx,
       (const float*)u6, (const float*)u7, n,
       qg::make_shard_dims(lx, ly, Z, T, hx, hy, x0, y0, gy), block,
       (double*)partials, (double*)out, (cudaStream_t)stream);
+}
+
+// K3c: qg_plane_sums over n_chains chain-stacked arrays (u0..u7 [C, 2, n,
+// 2, X, Y, Z*T/2]; chain_stride = 4 n X Y Z T / 2 floats); partials f64
+// [n_chains * n_blocks * 6], out f64 [n_chains, 6]
+extern "C" int qg_plane_sums_chains(void* u0, void* u1, void* u2, void* u3,
+                                    void* u4, void* u5, void* u6, void* u7,
+                                    long long chain_stride, int n_chains,
+                                    int n, int X, int Y, int Z, int T,
+                                    int block, void* partials, void* out,
+                                    void* stream) {
+  const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
+                        (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
+  return qg::plane_sums(L, n, qg::make_dims(X, Y, Z, T), block,
+                        (double*)partials, (double*)out, (cudaStream_t)stream,
+                        n_chains, chain_stride);
+}
+
+// K4c: qg_polyakov_sums over n_chains chain-stacked temporal arrays;
+// partials f64 [n_chains * n_blocks * 2], out f64 [n_chains, 2]
+extern "C" int qg_polyakov_sums_chains(void* u6, void* u7,
+                                       long long chain_stride, int n_chains,
+                                       int n, int X, int Y, int Z, int T,
+                                       int block, void* partials, void* out,
+                                       void* stream) {
+  return qg::polyakov_sums((const float*)u6, (const float*)u7, n,
+                           qg::make_dims(X, Y, Z, T), block, (double*)partials,
+                           (double*)out, (cudaStream_t)stream, n_chains,
+                           chain_stride);
 }

@@ -16,6 +16,11 @@
 // The design is therefore the plainest one: one thread per slot, component
 // planes read and written coalesced, in place, nothing staged in shared
 // memory.
+//
+// K2c (qg_reunit_chains) is the same kernel over one chain-stacked array
+// [C, 2, N, 2, X, Y, Z*T/2] of a beta scan, chain on blockIdx.y (the
+// reference vmaps _reunit_kernel through make_pallas_sweep,
+// models/ensemble.py:125): 8 launches per reunitarization for any C.
 #include "common.cuh"
 
 namespace qg {
@@ -29,7 +34,10 @@ __device__ __forceinline__ void norm_row(C r[3]) {
   for (int j = 0; j < 3; ++j) r[j] = {r[j].re * inv, r[j].im * inv};
 }
 
-__global__ void reunit_su3_kernel(float* __restrict__ arr, int v2) {
+// chain_stride: floats from one chain's array to the next (0, one chain)
+__global__ void reunit_su3_kernel(float* __restrict__ arr, int v2,
+                                  long long chain_stride) {
+  arr += (size_t)blockIdx.y * (size_t)chain_stride;
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   if (slot >= v2) return;
   C r0[3], m1[3];
@@ -60,7 +68,9 @@ __global__ void reunit_su3_kernel(float* __restrict__ arr, int v2) {
 
 // quaternion projection + renormalisation, in the order of reference
 // ops/pallas/reunit.py; stored layout [r][j][re/im]
-__global__ void reunit_su2_kernel(float* __restrict__ arr, int v2) {
+__global__ void reunit_su2_kernel(float* __restrict__ arr, int v2,
+                                  long long chain_stride) {
+  arr += (size_t)blockIdx.y * (size_t)chain_stride;
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   if (slot >= v2) return;
   float m[8];
@@ -78,18 +88,29 @@ __global__ void reunit_su2_kernel(float* __restrict__ arr, int v2) {
   for (int c = 0; c < 8; ++c) arr[c * v2 + slot] = out[c];
 }
 
+int reunit(float* arr, int n, int v2, int n_chains, cudaStream_t s) {
+  if (n_chains < 1 || n_chains > 65535) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const dim3 grid((v2 + threads - 1) / threads, n_chains);
+  const long long stride = 4LL * n * v2;
+  if (n == 3)
+    reunit_su3_kernel<<<grid, threads, 0, s>>>(arr, v2, stride);
+  else if (n == 2)
+    reunit_su2_kernel<<<grid, threads, 0, s>>>(arr, v2, stride);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace qg
 
 // n: 2 or 3; v2: slots of the array
 extern "C" int qg_reunit(void* arr, int n, int v2, void* stream) {
-  const int threads = 256;
-  const int blocks = (v2 + threads - 1) / threads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n == 3)
-    qg::reunit_su3_kernel<<<blocks, threads, 0, s>>>((float*)arr, v2);
-  else if (n == 2)
-    qg::reunit_su2_kernel<<<blocks, threads, 0, s>>>((float*)arr, v2);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return qg::reunit((float*)arr, n, v2, 1, (cudaStream_t)stream);
+}
+
+// K2c: n_chains chains' arrays, each 4 n v2 floats, one after the other
+extern "C" int qg_reunit_chains(void* arr, int n, int v2, int n_chains,
+                                void* stream) {
+  return qg::reunit((float*)arr, n, v2, n_chains, (cudaStream_t)stream);
 }

@@ -18,6 +18,10 @@
 // counter from global coordinates.  Every unsharded instantiation has a
 // sharded twin; with D = Dims the code is the unsharded kernel's.
 //
+// K1c, the same stage over the C chains of a beta scan in one launch
+// (stage_chains_kernel below, built from stage_chains.cu): each chain runs
+// stage_site on its own arrays with its own coupling and key.
+//
 // What it computes, for every site x of parity p (one thread each):
 //   A = sum_{nu != mu} [ U_nu(x+mu) (U_nu(x) U_mu(x+nu))^+
 //                        + (U_mu(x-nu) U_nu(x+mu-nu))^+ U_nu(x-nu) ],
@@ -350,6 +354,73 @@ int launch_stage(const Links& L, int mu, int parity, const D& d,
   const int blocks = (n_sites(d) + threads - 1) / threads;
   stage_kernel<N, KIND, TRACK, R, D><<<blocks, threads, 0, s>>>(
       L, mu, parity, d, rng, tbn, k_trials, n_hit, delta, count);
+  return (int)cudaGetLastError();
+}
+
+// K1c: K1 batched over C independent chains (a beta scan), the chain on
+// blockIdx.y.  Replaces the TPU kernel vmapped over the chain axis
+// (qcdgpu_tpu/models/ensemble.py:120-131 vmaps make_pallas_sweep: the
+// batch axis becomes a grid dimension, beta rides the scalar channel).
+// Chain c's arrays start chain_stride floats after chain c-1's (each
+// us[2*mu + p] is [C, 2, N, 2, X, Y, Z*T/2]); the offset is 64-bit, since
+// C arrays may pass 2^31 floats together.  Its coupling and key live on
+// the device for the whole run: tbn = betas[c] * two_over_n (the f32
+// product update.two_beta_over_n forms), and the stage key is derived
+// here, threefry2x32(base_keys[c], (sweep_idx, stage_id)) = rng.stage_key,
+// so a stage costs one launch and no host key for any C.  Each site runs
+// the single-chain stage_site, so chain c computes exactly what K1 does on
+// its own arrays; the tracked count goes to count[c].
+template <int N, int KIND, bool TRACK, class R>
+__global__ void __launch_bounds__(128)
+stage_chains_kernel(Links L, long long chain_stride, int mu, int parity,
+                    Dims d, const float* __restrict__ betas,
+                    float two_over_n, const uint32_t* __restrict__ base_keys,
+                    uint32_t sweep_idx, uint32_t stage_id, int k_trials,
+                    int n_hit, float delta, unsigned long long* count) {
+  const int c = blockIdx.y;
+  const size_t off = (size_t)c * (size_t)chain_stride;
+  Links Lc;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) Lc.p[k] = L.p[k] + off;
+  const float tbn = betas[c] * two_over_n;
+  uint32_t k0 = 0u, k1 = 0u;  // overrelaxation draws nothing
+  if constexpr (KIND != OVERRELAX)
+    threefry2x32(base_keys[2 * c], base_keys[2 * c + 1], sweep_idx, stage_id,
+                 k0, k1);
+  const R rng = {k0, k1};
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (TRACK) {
+    const unsigned n_ = slot < n_sites(d)
+        ? stage_site<N, KIND, TRACK>(Lc, slot, mu, parity, d, rng, tbn,
+                                     k_trials, n_hit, delta)
+        : 0u;
+    block_count_add(n_, count + c);
+  } else {
+    if (slot >= n_sites(d)) return;
+    stage_site<N, KIND, TRACK>(Lc, slot, mu, parity, d, rng, tbn, k_trials,
+                               n_hit, delta);
+  }
+}
+
+// The per-chain arguments of K1c.
+struct Chains {
+  long long stride;        // floats from one chain's array to the next
+  int n;                   // C, gridDim.y
+  const float* betas;      // f32 [C]
+  float two_over_n;        // f32(2 / N)
+  const uint32_t* keys;    // base keys [C, 2]
+  uint32_t sweep_idx, stage_id;
+};
+
+template <int N, int KIND, bool TRACK, class R>
+int launch_stage_chains(const Links& L, const Chains& ch, int mu, int parity,
+                        const Dims& d, int k_trials, int n_hit, float delta,
+                        unsigned long long* count, cudaStream_t s) {
+  const int threads = 128;
+  const dim3 grid((n_sites(d) + threads - 1) / threads, ch.n);
+  stage_chains_kernel<N, KIND, TRACK, R><<<grid, threads, 0, s>>>(
+      L, ch.stride, mu, parity, d, ch.betas, ch.two_over_n, ch.keys,
+      ch.sweep_idx, ch.stage_id, k_trials, n_hit, delta, count);
   return (int)cudaGetLastError();
 }
 

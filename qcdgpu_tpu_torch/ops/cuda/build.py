@@ -31,9 +31,11 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-# K1's Philox build and its stream families get a source each, so that
-# their instantiations compile in parallel with the rest
-SOURCES = ("stage.cu", "stage_philox.cu", "reunit.cu", "measure.cu") + tuple(
+# K1's Philox build, its stream families and the chain-batched K1c get a
+# source each, so that their instantiations compile in parallel with the
+# rest
+SOURCES = ("stage.cu", "stage_philox.cu", "stage_chains.cu", "reunit.cu",
+           "measure.cu") + tuple(
     f"stage_{fam}.cu" for fam in ("xor128", "xor7", "mrg32k3a", "parkmiller",
                                   "constant", "ranlux", "ranmar"))
 HEADERS = ("common.cuh", "stage.cuh", "streams.cuh")
@@ -45,6 +47,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point -> argtypes; every entry point returns a cudaError_t as int
 SIGNATURES = {
     "qg_stage": [_P] * 8 + [_I] * 9 + [
@@ -71,6 +74,13 @@ SIGNATURES = {
         ctypes.c_float, _P, _P],
     "qg_plane_sums_local": [_P] * 8 + [_I] * 11 + [_P, _P, _P],
     "qg_polyakov_sums_local": [_P, _P] + [_I] * 11 + [_P, _P, _P],
+    # the chain-batched forms: chain stride (floats) and chain count first
+    "qg_stage_chains": [_P] * 8 + [_L] + [_I] * 11 + [
+        _P, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint, _I, _I,
+        ctypes.c_float, _P, _P],
+    "qg_reunit_chains": [_P, _I, _I, _I, _P],
+    "qg_plane_sums_chains": [_P] * 8 + [_L] + [_I] * 7 + [_P, _P, _P],
+    "qg_polyakov_sums_chains": [_P, _P, _L] + [_I] * 7 + [_P, _P, _P],
 }
 
 

@@ -319,6 +319,30 @@ def check_packed(arr, n, dims, name="links"):
                          "int32 addressing")
 
 
+def check_chains(arrays, dims, n_arrays=8):
+    """(C, N, device type) of n_arrays chain-stacked packed arrays ``[C, 2,
+    N, 2, X, Y, Z*T/2]`` (a beta scan's, K1c-K4c): one chain count, 1 <= C
+    <= 65535 (the kernels' grid Y extent), each chain's array ``a[c]`` a
+    packed array of dims, all contiguous on one device."""
+    if len(arrays) != n_arrays:
+        raise ValueError(f"expected {n_arrays} chain-stacked arrays, got "
+                         f"{len(arrays)}")
+    c = arrays[0].shape[0] if arrays[0].dim() == 7 else 0
+    if not 1 <= c <= 65535:
+        raise ValueError("chain-stacked arrays are [C, 2, N, 2, X, Y, "
+                         f"Z*T/2] with 1 <= C <= 65535, got "
+                         f"{tuple(arrays[0].shape)}")
+    n = arrays[0].shape[2]
+    if n not in (2, 3):
+        raise ValueError(f"packed links are SU(2) or SU(3), got N={n}")
+    for i, a in enumerate(arrays):
+        if a.dim() != 7 or a.shape[0] != c or not a.is_contiguous():
+            raise ValueError(f"array {i}: {tuple(a.shape)}, expected "
+                             f"{c} contiguous chains")
+        check_packed(a[0], n, dims, f"array {i}, chain 0")
+    return c, n, check_device(*arrays)
+
+
 def check_device(*tensors):
     """'cpu' or 'cuda' for tensors that all lie on one such device."""
     dev = tensors[0].device

@@ -29,6 +29,15 @@ provenance: a drawing stage advances only its active parity's streams, and
 overrelaxation draws nothing; the dense XLA provenance, which draws for
 every site, is a different chain (M11).
 
+The chain axis of a beta scan (models/ensemble.py; the reference's
+Pallas chain tier, qcdgpu_tpu/models/ensemble.py:120-131): each of the 8
+arrays is chain-stacked, ``[C, 2, N, 2, X, Y, Z*T/2]`` (the reference's
+``vmap(split_links)`` layout, so ``us[k][c]`` is chain c's array), and
+``make_chain_sweep`` runs every stage as one K1c launch over all chains,
+each chain with its own coupling and key; K2c reunitarizes and K3c/K4c
+measure all chains at once.  Chain c computes what the single-chain sweep
+computes on its own arrays, bit for bit.
+
 Every kernel wrapper dispatches on the tensors' device (CPU: plain PyTorch
 version; CUDA: the hand-written kernel), so the same sweep serves both.
 Entry points run on the card unless the caller passes device="cpu".
@@ -47,7 +56,7 @@ from . import core
 from . import measure as cmeasure
 from . import sharded
 from . import update as cupdate
-from .reunit import reunitarize_dir
+from .reunit import reunitarize_chains, reunitarize_dir
 
 NDIM = 4
 # stage-id namespace of the hot start (the reference's sim._STAGE_INIT)
@@ -428,16 +437,18 @@ def make_sweep(cfg: SimConfig, grid):
 
 def obs_base_from_sums(sums, poly, n, dims):
     """The standard 6-observable vector (f32) from the global f64 plane sums
-    [6] and Polyakov sums [2]; normalised in f64."""
+    [..., 6] and Polyakov sums [..., 2]; normalised in f64."""
     vol = dims[0] * dims[1] * dims[2] * dims[3]
     s = sums / (n * vol)
-    # PLANES order: (0,1),(0,2),(0,3),(1,2),(1,3),(2,3); temporal = nu == 3
-    plq_s = (s[0] + s[1] + s[3]) / 3.0
-    plq_t = (s[2] + s[4] + s[5]) / 3.0
+    # PLANES order: (0,1),(0,2),(0,3),(1,2),(1,3),(2,3); temporal = nu == 3.
+    # Elementwise only over leading (chain) axes: a chain's row rounds as
+    # the single chain's does.
+    plq_s = (s[..., 0] + s[..., 1] + s[..., 3]) / 3.0
+    plq_t = (s[..., 2] + s[..., 4] + s[..., 5]) / 3.0
     plq = 0.5 * (plq_s + plq_t)
     pl = poly / (n * (vol // dims[3]))
-    return torch.stack([plq, plq_s, plq_t, 1.0 - plq, pl[0], pl[1]]
-                       ).to(torch.float32)
+    return torch.stack([plq, plq_s, plq_t, 1.0 - plq, pl[..., 0],
+                        pl[..., 1]], dim=-1).to(torch.float32)
 
 
 def measure_shards(shards, geoms):
@@ -517,3 +528,98 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
         run.packed_stream_hot_start = lambda: sharded.shard_state(
             packed_stream_hot_start(cfg, dev), grid)
     return run
+
+
+# ---------------------------------------------------------------------------
+# the chain axis of a beta scan
+# ---------------------------------------------------------------------------
+
+
+def check_supported_chains(cfg: SimConfig, chain_mesh=1) -> None:
+    """check_supported, and the scan forms the port does not run yet, each
+    refused with NotImplementedError naming its ROADMAP item."""
+    todo = []
+    if streams.stream_mode_name(cfg.rng_mode):
+        # the reference scans streams on its dense XLA engine
+        # (qcdgpu_tpu/models/ensemble.py:132-144), another provenance
+        todo.append(f"rng_mode={cfg.rng_mode!r} in a scan (M11, dense "
+                    "engine)")
+    if int(np.prod(cfg.mesh)) != 1:
+        todo.append(f"mesh={tuple(cfg.mesh)} in a scan: the chain x "
+                    "lattice tier (M15)")
+    if int(chain_mesh) > 1:
+        todo.append(f"chain_mesh={chain_mesh}: chains over several cards "
+                    "(M15)")
+    if todo:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP.md): " + "; ".join(todo))
+    check_supported(cfg)
+
+
+def split_links_chains(u):
+    """Complex [C, 4, N, N, X, Y, Z, T] -> the chain-stacked 8-tuple of
+    [C, 2, N, 2, X, Y, Z*T/2] f32 (split_links of each chain)."""
+    return tuple(torch.stack(arrs)
+                 for arrs in zip(*(split_links(uc) for uc in u)))
+
+
+def join_links_chains(us, dims):
+    """The chain-stacked 8-tuple -> complex64 [C, 4, N, N, X, Y, Z, T]."""
+    return torch.stack([join_links(tuple(a[c] for a in us), dims)
+                        for c in range(us[0].shape[0])])
+
+
+def packed_cold_start_chains(cfg: SimConfig, n_chains, device="cuda"):
+    """Unit links on every chain, chain-stacked (8 separate tensors)."""
+    return tuple(a.expand((n_chains,) + tuple(a.shape)).contiguous()
+                 for a in packed_cold_start(cfg, device))
+
+
+def packed_hot_start_chains(cfg: SimConfig, base_keys, device="cuda"):
+    """Chain c's hot start is packed_hot_start under its base key
+    base_keys[c] (the reference's vmap(hot_start)(keys),
+    qcdgpu_tpu/models/ensemble.py:380-383), chain-stacked."""
+    per = [packed_hot_start(cfg, tuple(int(k) for k in key), device)
+           for key in base_keys]
+    return tuple(torch.stack(arrs) for arrs in zip(*per))
+
+
+def make_chain_sweep(cfg: SimConfig):
+    """sweep(us, betas, base_keys, sweep_idx) -> us (in place), or with
+    tracking (us, rate), rate f32 [C]: each chain's tracked count over
+    ``tracked_stat_denom``, as the single chain forms it.  us: the
+    chain-stacked 8-tuple; betas f32 [C], base_keys int32 [C, 2] (u32
+    bits), both on the links' device, where they stay.  Every stage of
+    ``stage_schedule`` is one K1c launch over all chains (8 (1 + n_or)
+    per sweep, whatever C is), each reunitarization 8 K2c launches."""
+    dims = tuple(cfg.dims)
+    tracking = tracks(cfg)
+    denom = tracked_stat_denom(cfg, dims)
+    schedule = stage_schedule(cfg)
+
+    def sweep(us, betas, base_keys, sweep_idx):
+        count = (torch.zeros(us[0].shape[0], dtype=torch.int64,
+                             device=us[0].device) if tracking else None)
+        for kind, parity, mu, stage_id, counted in schedule:
+            cupdate.stage_update_chains(
+                us, mu, parity, betas, base_keys, sweep_idx, stage_id, dims,
+                cfg.kp_trials, kind=kind, n_hit=cfg.n_hit,
+                metro_delta=cfg.metro_delta,
+                count=count if counted else None, rng_mode=cfg.rng_mode)
+        if reunit_due(cfg, sweep_idx):
+            for a in us:
+                reunitarize_chains(a, dims)
+        if tracking:
+            return us, count.to(torch.float32) / denom
+        return us
+
+    return sweep
+
+
+def measure_chains(us, dims):
+    """Observable vectors [C, 6] (ops.measure.OBS_NAMES) of every chain:
+    K3c and K4c, then obs_base_from_sums elementwise over the chains; row c
+    is measure_all_split of chain c, bit for bit."""
+    return obs_base_from_sums(cmeasure.plane_sums_chains(us, dims),
+                              cmeasure.polyakov_sums_chains(us, dims),
+                              us[0].shape[2], tuple(dims))

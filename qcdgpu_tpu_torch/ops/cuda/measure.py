@@ -12,6 +12,12 @@ measure.py ``plane_sums_local`` / ``polyakov_sums_local``, the reference's
 ``_plq_sharded_kernel`` / ``_poly_sharded_kernel``): the sums over the
 shard's interior sites, which the caller adds over the shards.
 
+K3c ``plane_sums_chains`` and K4c ``polyakov_sums_chains`` are K3 and K4
+over the C chains of a beta scan (chain-stacked arrays ``[C, 2, N, 2, X,
+Y, Z*T/2]``; the reference vmaps ``measure_all_split``,
+models/ensemble.py:129-131): f64 [C, 6] and [C, 2], one launch pair for
+all chains, each chain's row bit-identical to K3 / K4 on its own arrays.
+
 Plane order: (0,1), (0,2), (0,3), (1,2), (1,3), (2,3).
 """
 
@@ -29,7 +35,8 @@ REDUCE_BLOCK = 256
 
 LAUNCHES = {f"{k}_su{n}": 0
             for k in ("plane_sums", "polyakov_sums", "plane_sums_local",
-                      "polyakov_sums_local")
+                      "polyakov_sums_local", "plane_sums_chains",
+                      "polyakov_sums_chains")
             for n in (3, 2)}
 
 
@@ -103,10 +110,14 @@ def polyakov_sums_ref(us, dims, shard=None):
                         tr_im.to(torch.float64).sum()])
 
 
-def _scratch(n_threads, n_out, device):
+def _scratch(n_threads, n_out, device, n_chains=None):
+    """(partials, out): one partials row per block (per chain), and the
+    sums, [n_out] (or [n_chains, n_out])."""
     n_blocks = -(-n_threads // REDUCE_BLOCK)
-    return (torch.empty(n_blocks * n_out, dtype=torch.float64, device=device),
-            torch.empty(n_out, dtype=torch.float64, device=device))
+    lead = () if n_chains is None else (n_chains,)
+    return (torch.empty((n_chains or 1) * n_blocks * n_out,
+                        dtype=torch.float64, device=device),
+            torch.empty(lead + (n_out,), dtype=torch.float64, device=device))
 
 
 def plane_sums(us, dims):
@@ -202,6 +213,64 @@ def polyakov_sums_local(us, shard):
         err = lib.qg_polyakov_sums_local(
             us[6].data_ptr(), us[7].data_ptr(), n, *shard.kernel_args(),
             REDUCE_BLOCK, partials.data_ptr(), out.data_ptr(),
+            build.stream_handle(dev))
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def plane_sums_chains_ref(us, dims):
+    """Plain twin of K3c: plane_sums_ref of each chain, f64 [C, 6]."""
+    c, _, _ = core.check_chains(us, dims)
+    return torch.stack([plane_sums_ref(tuple(a[i] for a in us), dims)
+                        for i in range(c)])
+
+
+def polyakov_sums_chains_ref(us, dims):
+    """Plain twin of K4c: polyakov_sums_ref of each chain, f64 [C, 2]."""
+    c, _, _ = core.check_chains(us, dims)
+    return torch.stack([polyakov_sums_ref(tuple(a[i] for a in us), dims)
+                        for i in range(c)])
+
+
+def plane_sums_chains(us, dims):
+    """K3c: f64 [C, 6] plane sums of every chain of the chain-stacked
+    8-tuple.  CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    c, n, dev_type = core.check_chains(us, dims)
+    if dev_type == "cpu":
+        return plane_sums_chains_ref(us, dims)
+    name = f"plane_sums_chains_su{n}"
+    lib = build.library()
+    x, y, z, t = (int(d) for d in dims)
+    dev = us[0].device
+    partials, out = _scratch(x * y * z * t, 6, dev, c)
+    with torch.cuda.device(dev):
+        err = lib.qg_plane_sums_chains(
+            *[a.data_ptr() for a in us], us[0][0].numel(), c, n, x, y, z, t,
+            REDUCE_BLOCK, partials.data_ptr(), out.data_ptr(),
+            build.stream_handle(dev))
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def polyakov_sums_chains(us, dims):
+    """K4c: f64 [C, 2] (sum re, sum im) of tr prod_t U_t over spatial sites,
+    for every chain.  CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    c, n, dev_type = core.check_chains(us, dims)
+    if dev_type == "cpu":
+        return polyakov_sums_chains_ref(us, dims)
+    name = f"polyakov_sums_chains_su{n}"
+    lib = build.library()
+    x, y, z, t = (int(d) for d in dims)
+    dev = us[0].device
+    partials, out = _scratch(x * y * z, 2, dev, c)
+    with torch.cuda.device(dev):
+        err = lib.qg_polyakov_sums_chains(
+            us[6].data_ptr(), us[7].data_ptr(), us[0][0].numel(), c, n, x, y,
+            z, t, REDUCE_BLOCK, partials.data_ptr(), out.data_ptr(),
             build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1

@@ -4,6 +4,10 @@ and their plain PyTorch version.
 Port of qcdgpu_tpu/ops/pallas/reunit.py.  SU(3): Gram–Schmidt on the two
 stored rows (row 2 is implicit in the codec).  SU(2): the quaternion of
 the stored matrix, renormalised.  Site-local, in place.
+
+K2c ``reunitarize_chains``: the same kernel over one chain-stacked array
+``[C, 2, N, 2, X, Y, Z*T/2]`` of a beta scan, chain on the grid's second
+axis (the reference vmaps ``_reunit_kernel``, models/ensemble.py:125).
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import torch
 
 from . import build, core
 
-LAUNCHES = {"reunit_su3": 0, "reunit_su2": 0}
+LAUNCHES = {f"reunit{c}_su{n}": 0 for c in ("", "_chains") for n in (3, 2)}
 
 
 def _check(s, dims):
@@ -78,6 +82,31 @@ def reunitarize_dir(s, dims):
     with torch.cuda.device(s.device):
         err = lib.qg_reunit(s.data_ptr(), n, s.numel() // (4 * n),
                             build.stream_handle(s.device))
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return s
+
+
+def reunitarize_chains_ref(s, dims):
+    """Plain twin of K2c: reunitarize_dir_ref on each chain's view."""
+    core.check_chains((s,), dims, 1)
+    for c in range(s.shape[0]):
+        reunitarize_dir_ref(s[c], dims)
+    return s
+
+
+def reunitarize_chains(s, dims):
+    """K2c: project every chain of one chain-stacked (direction, parity)
+    array back onto SU(N), in place, in one launch.  CPU tensors take the
+    plain version, CUDA tensors the kernel."""
+    _, n, dev = core.check_chains((s,), dims, 1)
+    if dev == "cpu":
+        return reunitarize_chains_ref(s, dims)
+    name = f"reunit_chains_su{n}"
+    lib = build.library()
+    with torch.cuda.device(s.device):
+        err = lib.qg_reunit_chains(s.data_ptr(), n, s[0].numel() // (4 * n),
+                                   s.shape[0], build.stream_handle(s.device))
     build.check(err, name)
     LAUNCHES[name] += 1
     return s

@@ -58,6 +58,17 @@ sharded chain is the unsharded one; stream words are the shard's unpadded
 ``[W, lx, ly, Z*T/2]``.  Every instantiation has such a sharded twin
 (``instance_name(..., shard=True)``).
 
+K1c, the stage batched over the C chains of a beta scan (the reference
+vmaps ``_stage_kernel`` over the chain axis, models/ensemble.py:120-131):
+``stage_update_chains`` on chain-stacked arrays ``[C, 2, N, 2, X, Y,
+Z*T/2]``, each chain with its own coupling ``betas[c]`` and base key
+``base_keys[c]``, whose stage key the kernel derives on the device
+(``chain_stage_keys``).  Chain c's result is K1's on ``us[k][c]`` with
+that chain's beta and ``rng.stage_key(base_keys[c], sweep_idx,
+stage_id)``, bit for bit: one kernel body serves both.  Threefry and
+Philox (rng_mode "hw"), unsharded; instantiations ``instance_name(...,
+chains=True)``.
+
 ``stage_update`` dispatches on the tensors' device: CPU tensors go to
 the plain version, CUDA tensors to the kernel, anything else raises.
 There is no fallback from a failed build or launch.
@@ -79,15 +90,15 @@ SUBGROUPS = {2: ((0, 1),), 3: ((0, 1), (0, 2), (1, 2))}
 
 
 def instance_name(kind, n, track=False, gen=None, shard=False,
-                  philox=False):
+                  philox=False, chains=False):
     """Name of the kernel instantiation (and its launch counter); ``gen``
     names a PRNGCL generator (its family's instantiation), ``philox`` the
     Philox instantiation of rng_mode "hw", ``shard`` the K1a twin on a
-    halo-padded shard."""
+    halo-padded shard, ``chains`` the K1c twin over a chain axis."""
     fam = ("_philox" if philox else "" if gen is None
            else "_" + streams.family(gen))
     return (f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
-            + ("_shard" if shard else ""))
+            + ("_shard" if shard else "") + ("_chains" if chains else ""))
 
 
 # the kernel instantiations: every kind and group, tracked where the kind
@@ -109,9 +120,13 @@ SHARD_INSTANCES = tuple(
     name + "_shard" for name in INSTANCES + STREAM_INSTANCES
     + PHILOX_INSTANCES)
 
+# K1c: the chain-batched twin of every threefry and Philox instantiation
+CHAIN_INSTANCES = tuple(name + "_chains"
+                        for name in INSTANCES + PHILOX_INSTANCES)
+
 # kernel launches, counted where the kernel is launched (never on the CPU)
 LAUNCHES = {name: 0 for name in INSTANCES + STREAM_INSTANCES
-            + PHILOX_INSTANCES + SHARD_INSTANCES}
+            + PHILOX_INSTANCES + SHARD_INSTANCES + CHAIN_INSTANCES}
 RNG_MODES = ("threefry", "hw")
 
 
@@ -287,6 +302,13 @@ def _check(us, mu, parity, dims, kind, k_trials, n_hit, count, shard):
     ext = dims if shard is None else shard.padded
     for i, a in enumerate(us):
         core.check_packed(a, n, ext, f"us[{i}]")
+    _check_stage(mu, parity, kind, k_trials, n_hit)
+    dev = core.check_device(*us)
+    _check_count(count, kind, 1, us[0].device)
+    return n, dev
+
+
+def _check_stage(mu, parity, kind, k_trials, n_hit):
     if mu not in range(NDIM) or parity not in (0, 1):
         raise ValueError(f"bad stage (mu={mu}, parity={parity})")
     if kind not in KINDS:
@@ -295,15 +317,18 @@ def _check(us, mu, parity, dims, kind, k_trials, n_hit, count, shard):
         raise ValueError("k_trials must be >= 1")
     if kind == "metropolis" and int(n_hit) < 1:
         raise ValueError("n_hit must be >= 1")
-    dev = core.check_device(*us)
-    if count is not None:
-        if kind == "overrelax":
-            raise ValueError("an overrelaxation stage has nothing to count")
-        if (count.dtype != torch.int64 or tuple(count.shape) != (1,)
-                or count.device != us[0].device):
-            raise ValueError("count must be an int64 tensor [1] on the "
-                             "state's device")
-    return n, dev
+
+
+def _check_count(count, kind, c, device):
+    """count: None, or int64 [c] (one per chain) on device."""
+    if count is None:
+        return
+    if kind == "overrelax":
+        raise ValueError("an overrelaxation stage has nothing to count")
+    if (count.dtype != torch.int64 or tuple(count.shape) != (c,)
+            or count.device != device):
+        raise ValueError(f"count must be an int64 tensor [{c}] on the "
+                         "state's device")
 
 
 def _check_stream(us, dims, kind, gen, words, scalars, rng_mode):
@@ -467,4 +492,96 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
     if fam is not None:
         scalars.update(streams.advance_kernel_scalars(
             gen, scalars, stream_draw_count(kind, k_trials, n_hit, n)))
+    return us[2 * mu + parity]
+
+
+# ---------------------------------------------------------------------------
+# K1c: the stage over the chains of a beta scan
+# ---------------------------------------------------------------------------
+
+
+def chain_stage_keys(base_keys, sweep_idx, stage_id):
+    """The plain form of K1c's on-device key derivation: int64 [C, 2],
+    row c = threefry2x32(base_keys[c], (sweep_idx, stage_id)), which is
+    rng.stage_key of chain c's base key.  base_keys: int32 [C, 2] holding
+    the u32 bits."""
+    k = base_keys.to(torch.int64) & 0xFFFFFFFF
+    k0, k1 = rng.threefry2x32(k[:, 0], k[:, 1], int(sweep_idx) & 0xFFFFFFFF,
+                              int(stage_id) & 0xFFFFFFFF)
+    return torch.stack([k0, k1], dim=1)
+
+
+def _check_chains(us, mu, parity, betas, base_keys, dims, kind, k_trials,
+                  n_hit, count, rng_mode):
+    """Validate K1c's arguments; returns (C, N, device type)."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"rng_mode {rng_mode!r}: the chain stage draws "
+                         f"{RNG_MODES}, not a PRNGCL stream")
+    c, n, dev = core.check_chains(us, dims)
+    _check_stage(mu, parity, kind, k_trials, n_hit)
+    if (betas.dtype != torch.float32 or tuple(betas.shape) != (c,)
+            or betas.device != us[0].device):
+        raise ValueError(f"betas must be float32 [{c}] on the links' device")
+    if (base_keys.dtype != torch.int32 or tuple(base_keys.shape) != (c, 2)
+            or base_keys.device != us[0].device
+            or not base_keys.is_contiguous()):
+        raise ValueError(f"base_keys must be contiguous int32 [{c}, 2] on "
+                         "the links' device")
+    _check_count(count, kind, c, us[0].device)
+    return c, n, dev
+
+
+def stage_update_chains_ref(us, mu, parity, betas, base_keys, sweep_idx,
+                            stage_id, dims, k_trials=4, kind="heatbath",
+                            n_hit=3, metro_delta=0.35, count=None, *,
+                            rng_mode="threefry"):
+    """Plain twin of K1c: stage_update_ref on each chain's view with that
+    chain's beta and stage key (chain_stage_keys), in place; adds chain
+    c's tracked count to count[c].  Any device."""
+    c, _, _ = _check_chains(us, mu, parity, betas, base_keys, dims, kind,
+                            k_trials, n_hit, count, rng_mode)
+    keys = chain_stage_keys(base_keys.cpu(), sweep_idx, stage_id).tolist()
+    for i, (beta, key2) in enumerate(zip(betas.cpu().tolist(), keys)):
+        stage_update_ref(tuple(a[i] for a in us), mu, parity, beta,
+                         key2 if kind != "overrelax" else (0, 0), dims,
+                         k_trials, kind, n_hit, metro_delta,
+                         None if count is None else count[i:i + 1],
+                         rng_mode=rng_mode)
+    return us[2 * mu + parity]
+
+
+def stage_update_chains(us, mu, parity, betas, base_keys, sweep_idx,
+                        stage_id, dims, k_trials=4, kind="heatbath", n_hit=3,
+                        metro_delta=0.35, count=None, *, rng_mode="threefry"):
+    """K1c: one stage of ``kind`` on every chain of the chain-stacked
+    8-tuple (each array [C, 2, N, 2, X, Y, Z*T/2]), in place on
+    us[2*mu + parity] (returned).  betas: float32 [C]; base_keys: int32
+    [C, 2], each chain's base key (rng.make_base_key); the stage key of
+    chain c is rng.stage_key(base_keys[c], sweep_idx, stage_id), derived on
+    the device.  count: optional int64 [C] tensor the stage adds each
+    chain's tracked count to.  rng_mode "hw" draws Philox.  CPU tensors
+    take the plain version, CUDA tensors the kernel: one launch for all
+    chains."""
+    c, n, dev = _check_chains(us, mu, parity, betas, base_keys, dims, kind,
+                              k_trials, n_hit, count, rng_mode)
+    if dev == "cpu":
+        return stage_update_chains_ref(
+            us, mu, parity, betas, base_keys, sweep_idx, stage_id, dims,
+            k_trials, kind, n_hit, metro_delta, count, rng_mode=rng_mode)
+    track = count is not None
+    philox = rng_mode == "hw" and kind != "overrelax"
+    name = instance_name(kind, n, track, philox=philox, chains=True)
+    lib = build.library()
+    with torch.cuda.device(us[0].device):
+        err = lib.qg_stage_chains(
+            *[a.data_ptr() for a in us], us[0][0].numel(), c, n,
+            KINDS.index(kind), int(track), int(philox), int(mu), int(parity),
+            *(int(d) for d in dims), betas.data_ptr(),
+            fm.f32(2.0 / n), base_keys.data_ptr(),
+            int(sweep_idx) & 0xFFFFFFFF, int(stage_id) & 0xFFFFFFFF,
+            int(k_trials), int(n_hit), fm.f32(metro_delta),
+            None if count is None else count.data_ptr(),
+            build.stream_handle(us[0].device))
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return us[2 * mu + parity]

@@ -9,7 +9,7 @@ one CUDA device (or the CPU), and its neighbours along X and Y are found by
 index arithmetic on the grid.  By default every shard sits on the
 Simulation's device, so a mesh runs on one card; ``devices=[...]`` spreads
 them, shard k on ``devices[k % len(devices)]``.  Z/T meshes and the chain
-(replica) meshes are not ported (M11, M13).
+(replica) meshes are not ported (M11, M15).
 """
 
 from __future__ import annotations

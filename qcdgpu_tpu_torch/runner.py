@@ -23,16 +23,25 @@ from .ops.measure import obs_names
 
 
 def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
-                       with_acc=False, *, device):
+                       with_acc=False, *, device, n_obs=None):
     """sweep(state, key, sweep_idx) -> state (may update in place), or
-    (state, rate) with with_acc, rate an f32 0-d tensor on ``device``;
-    state is (links, stream state) — the link 8-tuple, or one per shard;
-    measure_state(state) -> f32 row [n_obs] (without the tracked column)
-    on ``device``;
-    pack / unpack: canonical complex link field <-> engine state."""
-    n_obs = len(obs_names(cfg))
+    (state, rate) with with_acc, rate an f32 tensor on ``device`` (0-d,
+    or one per chain in the ensemble); state is (links, stream state) —
+    the link 8-tuple, or one per shard — or the ensemble's;
+    measure_state(state) -> f32 row (without the tracked column) on
+    ``device``;
+    pack / unpack: canonical complex link field <-> engine state.
+    n_obs: the row width (default obs_names(cfg)).  With C rates the row
+    is C rows of equal width, chain-major, and each gets its chain's mean
+    rate appended (the reference's append_acc, qcdgpu_tpu/runner.py:39-70);
+    one rate gives the single chain's row."""
+    n_obs = len(obs_names(cfg)) if n_obs is None else int(n_obs)
     pack = pack or (lambda u: u)
     unpack = unpack or (lambda s: s)
+
+    def append_acc(row, rate):
+        return torch.cat([row.reshape(rate.numel(), -1),
+                          rate.reshape(-1, 1)], 1).reshape(-1)
 
     def step(st, base_key, sweep_idx):
         """-> (state, the sweep's rate or None)."""
@@ -51,7 +60,7 @@ def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
                     acc = acc + rate
             row = measure_state(st)
             if with_acc:
-                row = torch.cat([row, (acc / me).reshape(1)])
+                row = append_acc(row, acc / me)
             rows.append(row)
         for i in range(n_blocks * me, n_sweeps):
             st, _ = step(st, base_key, sweep0 + i)

@@ -17,6 +17,13 @@ Two formats, as in the reference:
   interrupted save never looks like a checkpoint.  ``Simulation.save``
   writes this one: the port always holds the packed state.
 
+A beta scan (models/ensemble.py BetaScan) writes the reference's
+``betascan`` .npz (qcdgpu_tpu/models/ensemble.py:515-583): ``kind =
+betascan``, the header, ``betas`` (f32 [C]), ``keys`` (u32 [C, 2], each
+chain's base key), ``us_ri`` (the canonical fields as float [2, C, 4, N,
+N, X, Y, Z, T]) and ``sweep_idx``; ``save_betascan`` / ``load_betascan``.
+``load_state`` refuses it, as the reference does.
+
 Arrays travel as numpy; a tensor argument is copied to the host first.
 """
 
@@ -168,3 +175,46 @@ def load_state(path):
                 u = tuple(z[f"links_pk_{k}"] for k in range(8))
     history = [obs] if obs.size else []
     return cfg, u, sweep_idx, history, rng_stream
+
+
+BETASCAN_KIND = b"betascan"
+
+
+def save_betascan(path, cfg: SimConfig, betas, keys, u, sweep_idx: int):
+    """Write a beta scan's state as the reference's ``betascan`` .npz (".npz"
+    appended when missing, as numpy does): betas [C], base keys [C, 2],
+    the canonical complex fields u [C, 4, N, N, X, Y, Z, T].  Written to a
+    sibling file first and moved into place."""
+    final = str(path) if str(path).endswith(".npz") else str(path) + ".npz"
+    tmp = final + ".tmp.npz"
+    np.savez_compressed(
+        tmp,
+        version=np.int64(FORMAT_VERSION),
+        kind=np.bytes_(BETASCAN_KIND),
+        config_json=np.bytes_(json.dumps(cfg.to_dict()).encode()),
+        betas=np.asarray(_host(betas), np.float32),
+        keys=np.asarray(_host(keys), np.uint32),
+        us_ri=links_to_host(u).astype(np.float32),
+        sweep_idx=np.int64(sweep_idx),
+    )
+    os.replace(tmp, final)
+
+
+def load_betascan(path):
+    """Returns (cfg, betas f32 [C], keys u32 [C, 2], u complex [C, 4, N,
+    N, X, Y, Z, T], sweep_idx) of a ``betascan`` .npz written by either
+    package; refuses other kinds."""
+    with np.load(path, allow_pickle=False) as z:
+        version = int(z["version"])
+        if version != FORMAT_VERSION:
+            raise ValueError(f"unsupported version {version}")
+        kind = bytes(z["kind"]) if "kind" in z.files else b"simulation"
+        if kind != BETASCAN_KIND:
+            raise ValueError(
+                f"not a BetaScan checkpoint (kind={kind.decode()!r}; use "
+                "`resume` for single-chain Simulation states)")
+        cfg = SimConfig.from_dict(json.loads(bytes(z["config_json"]).decode()))
+        cdtype = np.complex128 if cfg.dtype == "complex128" else np.complex64
+        return (cfg, np.asarray(z["betas"], np.float32),
+                np.asarray(z["keys"], np.uint32),
+                links_from_host(z["us_ri"], cdtype), int(z["sweep_idx"]))

@@ -5,16 +5,17 @@ literature and against the reference's self-regression anchors:
 
   1. SU(2) heat-bath, 8^4, beta=2.4            -> mean plaquette vs 0.6300
   2. SU(3) HB+OR (Cabibbo-Marinari), 16^4, 6.0 -> mean plaquette vs 0.5937
+  3. SU(3) deconfinement, 24^3 x 6, beta_c +- 0.25 (a two-chain BetaScan)
+     -> <|P|> above > 3 x below and > 0.05
   4. RNG parity (moments of threefry, Philox and the native reference
      generators; the device streams bit-identical to the native ones)
   5. multi-card 32^4 (skipped, with its reason, unless two cards are
      attached; sharded == unsharded bit equality runs in
      tests/test_torch_sharded.py and chip_smoke.py)
 
-Config 3 (the deconfinement beta scan) needs BetaScan (ROADMAP M13) and
-config 6 (XLA vs Pallas engine) the dense engine (M11); asking for either
-raises NotImplementedError.  ``check_su2`` / ``check_su3`` take config
-overrides (``rng_mode="hw"``, another generator, ...) so that the same
+Config 6 (XLA vs Pallas engine) needs the dense engine (M11); asking for
+it raises NotImplementedError.  ``check_su2`` / ``check_su3`` /
+``check_deconfinement`` take config overrides (``rng_mode="hw"``, another generator, ...) so that the same
 gates hold every random source.  Each check reports measured / expected /
 deviation and PASS/FAIL; the criterion is agreement within
 max(5 sigma_stat, systematic window), and at full depth the self-anchor
@@ -43,6 +44,7 @@ SU3_SELF_WINDOW = 1.0e-4
 SU2_SELF_ANCHOR = 0.6304030  # +- 2.7e-4 (1000 sweeps, 8^4, seed 42)
 SU2_SELF_ERR = 2.7e-4
 SU2_SELF_WINDOW = 2.5e-4
+BETA_C_NT6 = 5.894  # SU(3) deconfinement coupling at N_t = 6
 
 
 def _self_gate(mean, err, anchor, anchor_err, window, gated=True):
@@ -122,10 +124,33 @@ def check_su3(quick=False, device="cuda", **overrides):
     }
 
 
-def check_deconfinement(quick=False, device="cuda"):
-    raise NotImplementedError(
-        "validate config 3 (deconfinement beta scan) needs BetaScan, not "
-        "ported yet (ROADMAP M13)")
+def check_deconfinement(quick=False, device="cuda", **overrides):
+    """|Polyakov| must be ~0 below beta_c(N_t = 6) and clearly nonzero
+    above: one BetaScan of two chains (reference validate.py:141-165)."""
+    from .models.ensemble import BetaScan
+    from .ops.measure import measure_obs_names
+
+    dims = (12, 12, 12, 6) if quick else (24, 24, 24, 6)
+    betas = [BETA_C_NT6 - 0.25, BETA_C_NT6 + 0.25]
+    cfg = SimConfig(
+        group=3, dims=dims, beta=betas[0], algorithm="heatbath", n_or=1,
+        sweeps_therm=100 if quick else 200,
+        sweeps=150 if quick else 300, seed=5,
+    ).replace(**overrides)
+    scan = BetaScan(cfg, betas, device=device)
+    scan.thermalize()
+    obs = scan.run()  # [2, n_meas, n_obs]
+    names = list(measure_obs_names(cfg))
+    i_re, i_im = names.index("poly_re"), names.index("poly_im")
+    pabs = np.abs(obs[:, :, i_re] + 1j * obs[:, :, i_im]).mean(axis=1)
+    lo, hi = float(pabs[0]), float(pabs[1])
+    return {
+        "name": f"deconfinement {cfg.dims[0]}^3x{cfg.dims[3]}: |P| across "
+                f"beta_c={BETA_C_NT6}" + _suffix(overrides),
+        "measured": {"below": lo, "above": hi},
+        "expected": "|P|(above) > 3 * |P|(below) and |P|(above) > 0.05",
+        "pass": bool(hi > 3 * lo and hi > 0.05),
+    }
 
 
 def moment_sigmas(u):
@@ -290,7 +315,7 @@ CHECKS = {
 }
 
 
-def run_validation(configs=(1, 2, 4, 5), quick=False, out_path=None,
+def run_validation(configs=(1, 2, 3, 4, 5), quick=False, out_path=None,
                    device="cuda"):
     results = []
     for c in configs:

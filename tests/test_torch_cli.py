@@ -1,6 +1,7 @@
 """The port's command line (qcdgpu_tpu_torch/cli.py) on the CPU: run with
-periodic checkpoints, resume bit for bit, info, validate's refusals, and
-the unported features refused with their ROADMAP items."""
+periodic checkpoints, resume bit for bit, a beta scan and its resume,
+info, validate's refusals, and the unported features refused with their
+ROADMAP items."""
 
 import json
 import os
@@ -58,9 +59,48 @@ def test_info_prints_the_device(capsys):
     assert json.loads(capsys.readouterr().out)["backend"] == "cpu"
 
 
+SCAN = ["--group", "2", "--dims", "4", "--betas", "1.0:4.0:3",
+        "--reunit-every", "2", "--seed", "2", "--device", "cpu"]
+
+
+def test_scan_then_resume_is_one_scan(tmp_path):
+    """scan 3 + 3 sweeps, then --resume-state for 3 more: the resumed
+    series and links equal an uninterrupted 3 + 6 scan's, bit for bit;
+    scan.json carries the reference's row keys; the plaquette rises with
+    beta."""
+    from qcdgpu_tpu_torch.utils.checkpoint import load_betascan
+
+    a = _run(tmp_path, "a", "scan", *SCAN, "--therm", "3", "--sweeps", "3")
+    b = _run(tmp_path, "b", "scan", "--resume-state",
+             os.path.join(a, "scan_state.npz"), "--sweeps", "3",
+             "--device", "cpu")
+    c = _run(tmp_path, "c", "scan", *SCAN, "--therm", "3", "--sweeps", "6")
+    recs = []
+    for out in (a, b, c):
+        with open(os.path.join(out, "scan.json")) as f:
+            recs.append(json.load(f))
+    rows = recs[0]["scan"]
+    assert [r["beta"] for r in rows] == [1.0, 2.5, 4.0]
+    keys = {"beta", "poly_abs", "poly_abs_err", "poly_sus", "poly_sus_err"}
+    for name in ("plq", "plq_s", "plq_t", "action", "poly_re", "poly_im"):
+        keys |= {name, name + "_err"}
+    assert all(set(r) == keys for rec in recs for r in rec["scan"])
+    plq = [r["plq"] for r in rows]
+    assert plq[0] < plq[1] < plq[2]
+    for name, series in recs[2]["series"].items():
+        assert recs[1]["series"][name] == [s[3:] for s in series]
+    _, betas, keys_b, u_b, idx_b = load_betascan(
+        os.path.join(b, "scan_state.npz"))
+    _, _, keys_c, u_c, idx_c = load_betascan(
+        os.path.join(c, "scan_state.npz"))
+    assert idx_b == idx_c == 9 and betas.tolist() == [1.0, 2.5, 4.0]
+    np.testing.assert_array_equal(keys_b, keys_c)
+    np.testing.assert_array_equal(u_b, u_c)
+
+
 @pytest.mark.parametrize("args,item", [
-    (["scan", "--betas", "5.6,6.0"], "M13"),
-    (["validate", "--configs", "3"], "M13"),
+    (["scan", "--betas", "5.6,6.0", "--rng-mode", "prngcl:ranlux3"], "M11"),
+    (["scan", "--betas", "5.6,6.0", "--mesh", "2,1,1,1"], "M15"),
     (["validate", "--configs", "6"], "M11"),
     (["run", "--get-qtop"], "M12"),
     (["run", "--wilson-loops", "1x1"], "M12"),

@@ -144,7 +144,9 @@ def test_import_leaves_jax_out():
             "qcdgpu_tpu_torch.ops.prng_streams, qcdgpu_tpu_torch.cli, "
             "qcdgpu_tpu_torch.validate, qcdgpu_tpu_torch.utils.checkpoint, "
             "qcdgpu_tpu_torch.utils.report, qcdgpu_tpu_torch.utils.profile, "
-            "qcdgpu_tpu_torch.native.prngcl; "
+            "qcdgpu_tpu_torch.native.prngcl, "
+            "qcdgpu_tpu_torch.models.ensemble, "
+            "qcdgpu_tpu_torch.models.gauge; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'qcdgpu_tpu' or "
             "m.startswith('qcdgpu_tpu.')]; print(bad); sys.exit(bool(bad))")
