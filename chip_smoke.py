@@ -17,7 +17,11 @@ each timed:
                   source, all at once); registers, stack frame and spills
                   of every kernel instantiation, threefry, Philox and
                   stream, unsharded, on a shard (K1a, K5a, K5b: "_shard")
-                  and over a chain axis (K1c: "_chains");
+                  and over a chain axis (K1c: "_chains"), every K1 and K3
+                  instantiation with no stack frame and no spills (a
+                  ranlux window's frame excepted); the static SASS
+                  instruction mix of K1 Philox SU(3) heat-bath and K3
+                  SU(3) where the toolkit has cuobjdump;
   3. kernels    — every kernel instantiation against its plain PyTorch
                   version on the card (hot starts, seed 1): K1 threefry for
                   each kind x group x tracking, every (mu, parity), at
@@ -57,7 +61,8 @@ each timed:
                   from bytes (a stream stage's state words included; on a
                   shard only the halo columns read), f32 operations and
                   threefry's and Philox's integer operations, each
-                  operation kind at its own pipe's rate;
+                  operation kind at its own pipe's rate, and the f32
+                  floor of a -fmad=false build;
                   K1a, K5a and K5b on one shard of 32^4 mesh (2,2,1,1),
                   and the halo refresh of one array; every K1c
                   instantiation, K2c, K3c and K4c at 24^3 x 6 with 11
@@ -175,6 +180,11 @@ CHAIN_BETAS = {3: (5.5, 5.9, 6.3), 2: (2.1, 2.3, 2.5)}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# The f32 floor of a kernel built with -fmad=false (ops/cuda/build.py): no
+# multiply-add contraction, so each f32 multiply and add is an instruction
+# of its own, at one per lane per clock: 128 lanes x 132 SMs x 1.98 GHz,
+# half the data sheet's FMA rate.  Printed beside the bound, not in it.
+F32_INSTR_PER_S = 128 * 132 * 1.98e9
 
 # Main-path runs of phase 5: (label, idle share measured (the bench and
 # the slice configurations), SimConfig fields beyond dims=32^4, cold start,
@@ -331,21 +341,76 @@ def kernel_label(mangled, kinds):
 
 
 def ptxas_summary(log, kinds):
-    """[(kernel, 'N registers, S bytes stack frame, spills')] from nvcc's
-    -Xptxas -v output."""
+    """[(kernel, 'N registers, S bytes stack frame, spills', mangled name)]
+    from nvcc's -Xptxas -v output."""
     rows, name, frame = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name, frame = kernel_label(m[1], kinds), ""
+            name, mangled, frame = kernel_label(m[1], kinds), m[1], ""
             continue
         if "stack frame" in line and name:
             frame = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append((name, f"{m[1]} registers; {frame}"))
+            rows.append((name, f"{m[1]} registers; {frame}", mangled))
             name = None
     return rows
+
+
+def frame_and_spills(line):
+    """(stack frame bytes, spill store + load bytes) of a ptxas_summary
+    line."""
+    num = [int(re.search(rf"(\d+) bytes {k}", line)[1])
+           for k in ("stack frame", "spill stores", "spill loads")]
+    return num[0], num[1] + num[2]
+
+
+def needs_no_frame(name):
+    """The K1 (stage_*, with K1a and K1c) and K3 (plane_sums_kernel and
+    plane_sums_tile_kernel, with K3c and K5a) instantiations keep
+    everything in registers: no stack frame, no spills.  A ranlux stream's
+    24-word lag window is indexed by its run-time pointer and lives in a
+    frame by design (streams.cuh); it must not spill."""
+    return name.startswith(("stage_", "plane_sums_kernel",
+                            "plane_sums_tile_kernel"))
+
+
+# SASS opcode classes (by mnemonic prefix), for the static instruction mix
+SASS_CLASSES = (
+    ("f32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
+             "MUFU", "FRND", "FCHK")),
+    ("f64", ("DADD", "DMUL", "DFMA", "DSETP")),
+    ("integer", ("IADD", "IMAD", "LOP", "SHF", "ISETP", "IABS", "LEA",
+                 "IMNMX", "SEL", "PRMT", "POPC", "FLO", "BREV", "I2F", "F2I",
+                 "VIADD", "VIMNMX", "UIADD", "UIMAD", "ULOP", "USHF",
+                 "ULEA", "UISETP", "USEL", "UPRMT")),
+    ("global load", ("LDG",)), ("global store", ("STG",)),
+    ("shared", ("LDS", "STS")), ("local", ("LDL", "STL")),
+    ("constant", ("LDC", "ULDC")), ("shuffle", ("SHFL",)),
+)
+
+
+def sass_mix(lib_path, mangled):
+    """{class: count} of the SASS instructions of one kernel in the built
+    library (cuobjdump, static: a loop's body counts once), or None when
+    the toolkit has no cuobjdump."""
+    from qcdgpu_tpu_torch.ops.cuda import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", "-fun", mangled, str(lib_path)],
+                         capture_output=True, text=True, check=True).stdout
+    mix = {k: 0 for k, _ in SASS_CLASSES}
+    mix["generic"] = mix["other"] = 0
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                         out):
+        op = m[1]
+        cls = "generic" if op in ("LD", "ST") else next(
+            (k for k, pre in SASS_CLASSES if op.startswith(pre)), "other")
+        mix[cls] += 1
+    return mix
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +463,10 @@ def rng_ops_per_site(n, kind, k_trials, n_hit, fam):
 
 
 def stage_ops_per_site(n, kind, k_trials, n_hit):
-    """f32 operations of a site's stage."""
+    """f32 operations of a site's stage, the heat-bath's k_trials counted
+    in full (the kernel skips a site's trials after its first accepted one,
+    so this is the most the data can need; every stage's bound is its
+    bytes' all the same)."""
     staples = 13 * mmul_ops(n) + 5 * 2 * n * n + 19 * codec_ops(n)
     flip = {"heatbath": HB_SETUP + k_trials * HB_TRIAL + HB_FINISH,
             "overrelax": OR_FLIP, "metropolis": n_hit * METRO_HIT}[kind]
@@ -478,6 +546,17 @@ def columns_read(reads, local, halo):
     return len(cols)
 
 
+def plane_decodes(dims, shard):
+    """Links a site of K3 loads and decodes: its 16 distinct links, or with
+    the tile kernel (the whole lattice with Z*T/2 a multiple of 128:
+    csrc/measure.cu tile_fits) its own 4 and its 6 x and y neighbours,
+    plus the 4 links of each slot of the line after each 128-slot tile."""
+    t2 = dims[3] // 2
+    if shard is None and 128 % t2 == 0 and dims[2] * t2 % 128 == 0:
+        return 10 + 4 * t2 / 128
+    return 16
+
+
 def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
     """(bytes, f32 operations, integer operations) of one call of kernel
     `name` at dims: each input read once, each output written once (a stream stage's words
@@ -500,7 +579,8 @@ def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
     if name.startswith("reunit_"):
         return 2 * arr, v2 * (84 if n == 3 else 23), 0
     if name.startswith("plane_sums"):
-        per_site = 6 * (2 * mmul_ops(n) + 4 * n * n + 4 * codec_ops(n))
+        per_site = (6 * (2 * mmul_ops(n) + 4 * n * n)
+                    + plane_decodes(dims, shard) * codec_ops(n))
         return (columns_read(plane_reads(), local, halo) * col + 6 * 8,
                 2 * v2 * per_site, 0)
     x, y, z, t = dims  # polyakov_sums: the temporal arrays only
@@ -718,8 +798,23 @@ def main():
         info = build.build()
         print(f"library {info['path'].name}: built={info['built']} "
               f"in {info['seconds']:.1f} s")
-        for name, line in ptxas_summary(info["log"], cupdate.KINDS):
+        rows = ptxas_summary(info["log"], cupdate.KINDS)
+        for name, line, _ in rows:
             print(f"  ptxas {name}: {line}")
+        framed = [name for name, line, _ in rows if needs_no_frame(name)
+                  and (frame_and_spills(line)[1] or (
+                      frame_and_spills(line)[0] and "_ranlux" not in name))]
+        require(not framed, f"stack frame or spills in {framed}")
+        # the static SASS mix of the two kernels the main path spends most
+        # in: K1 Philox SU(3) heat-bath and K3 SU(3)
+        for name, _, mangled in rows:
+            if name in ("stage_heatbath_su3_philox", "plane_sums_kernel<3>",
+                        "plane_sums_tile_kernel<3>"):
+                mix = sass_mix(info["path"], mangled)
+                print(f"  SASS {name}: " + ("no cuobjdump" if mix is None
+                      else ", ".join(f"{k} {v}" for k, v in mix.items())
+                      + f"; total {sum(mix.values())} (static: a loop's "
+                      "body counts once)"))
         build.library()
 
     hots = {}
@@ -1172,7 +1267,8 @@ def main():
                                                      int_ops)
             print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
                   f"{p1:.4f} ms, bound {rec['bound_ms']:.4f} "
-                  f"ms ({rec['bound_by']})  [{smi}]")
+                  f"ms ({rec['bound_by']}), -fmad=false f32 floor "
+                  f"{f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  [{smi}]")
 
     with Phase("4 kernel timing at 32^4 and 24^3 x 6"):
         key = rng.stage_key(rng.make_base_key(1), 0, 0)
@@ -1379,7 +1475,9 @@ def main():
                       f"{k2_:.4f} ms, the loop of {nc} single-chain launches "
                       f"it replaces {l1:.4f} / {l2:.4f} ms, plain {p1:.4f} "
                       f"ms, bound {rec['bound_ms']:.4f} ms "
-                      f"({rec['bound_by']})  [{smi}]")
+                      f"({rec['bound_by']}), -fmad=false f32 floor "
+                      f"{nc * f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  "
+                      f"[{smi}]")
             del us, views, cpairs
 
     with Phase("5 main paths"):

@@ -1,13 +1,13 @@
 // Device helpers shared by the qcdgpu_tpu_torch kernels: (re, im) complex
-// and N x N matrix algebra (Mat<2>, Mat<3>), the two-row codec, direct
-// packed-neighbour addressing, threefry2x32-20, Philox-4x32-10 (the fast
+// and N x N matrix algebra (Mat<2>, Mat<3>), the two-row codec, packed-
+// neighbour addressing by slot deltas, threefry2x32-20, Philox-4x32-10 (the fast
 // counter-based source of rng_mode "hw"), the sampler's polynomial
 // transcendentals and the block reductions.
 // They replace the TPU kernels' inlined helpers (qcdgpu_tpu/ops/pallas/
 // core.py: threefry2x32, bits_to_uniform, _codec_rows, shift_comp_packed,
 // slab_site_index_packed; qcdgpu_tpu/ops/fastmath.py), which worked on whole
 // [Y, Z*T/2] slabs; here each is a per-thread scalar function, so the
-// neighbour shifts become address arithmetic instead of rolls and masks.
+// neighbour shifts become slot deltas instead of rolls and masks.
 //
 // Every helper keeps the operation order of its plain PyTorch twin
 // (qcdgpu_tpu_torch/ops/cuda/core.py, ops/fastmath.py, ops/rng.py), which in
@@ -28,16 +28,45 @@
 
 namespace qg {
 
+// n / d for 0 <= n < 2^31 by one multiply-high and a shift, with the
+// magic computed on the host (Granlund and Montgomery's round-up method, as
+// in CUTLASS's FastDivmod): m = ceil(2^(31 + l) / d), l = ceil(log2 d), is
+// exact on that range.  It replaces the ~20-instruction runtime divisions of
+// a slot's decode.
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+};
+
+__host__ inline FastDiv make_fastdiv(int d) {
+  FastDiv f = {d, 0u, 0u};
+  if (d > 1) {
+    int l = 0;
+    while ((1ll << l) < d) ++l;
+    f.mul = (uint32_t)(((1ull << (31 + l)) + (uint64_t)d - 1) / (uint64_t)d);
+    f.shr = (uint32_t)(l - 1);
+  }
+  return f;
+}
+
+__device__ __forceinline__ int div_by(int n, const FastDiv& f) {
+  return f.d == 1 ? n : (int)(__umulhi((uint32_t)n, f.mul) >> f.shr);
+}
+
 struct Dims {
   int x, y, z, t;  // lattice extents (T even)
   int t2;          // T / 2
   int v2;          // X*Y*Z*T/2: slots per packed array
+  FastDiv ft2, fz, fy;  // division by T/2, Z and Y (a slot's decode)
 };
 
 __host__ inline Dims make_dims(int X, int Y, int Z, int T) {
   Dims d;
   d.x = X; d.y = Y; d.z = Z; d.t = T; d.t2 = T / 2;
   d.v2 = X * Y * Z * (T / 2);
+  d.ft2 = make_fastdiv(d.t2);
+  d.fz = make_fastdiv(Z);
+  d.fy = make_fastdiv(Y);
   return d;
 }
 
@@ -49,9 +78,9 @@ __host__ inline Dims make_dims(int X, int Y, int Z, int T) {
 // Sites are addressed in interior coordinates (-1 and x / y step into the
 // halos); parity and the threefry counter use the global coordinates
 // (x0 + x, y0 + y), so a sharded chain draws what the unsharded one draws.
-// A kernel runs one thread per interior site; its slot in the padded array
-// is encode_slot of the decoded site.  Slots are int: 4 N v2 < 2^31 is
-// checked by the wrappers (core.check_packed).
+// A kernel runs one thread per interior site, numbered in slot order over
+// the interior; its slot in the padded array is SiteAddr::own.  Slots are
+// int: 4 N v2 < 2^31 is checked by the wrappers (core.check_packed).
 struct ShardDims {
   int x, y, z, t;  // interior extents (Z and T are never split)
   int t2;          // T / 2
@@ -61,6 +90,7 @@ struct ShardDims {
   int n;           // interior sites per parity: x * y * z * t2
   int x0, y0;      // global coordinates of the first interior slab and row
   int gy;          // global Y extent (the dense site index's row stride)
+  FastDiv ft2, fz, fy;  // division by T/2, Z and the interior Y
 };
 
 __host__ inline ShardDims make_shard_dims(int lx, int ly, int Z, int T, int hx,
@@ -72,6 +102,9 @@ __host__ inline ShardDims make_shard_dims(int lx, int ly, int Z, int T, int hx,
   d.v2 = (lx + 2 * hx) * d.py * Z * (T / 2);
   d.n = lx * ly * Z * (T / 2);
   d.x0 = x0; d.y0 = y0; d.gy = gy;
+  d.ft2 = make_fastdiv(d.t2);
+  d.fz = make_fastdiv(Z);
+  d.fy = make_fastdiv(ly);
   return d;
 }
 
@@ -84,6 +117,18 @@ __host__ __device__ __forceinline__ int n_sites(const ShardDims& d) {
 struct Links {
   float* p[8];  // us[2*mu + parity]
 };
+
+// L.p[2 * dir + par] by constant-index selects: indexing the parameter
+// array with a run-time index makes the compiler copy it to a stack frame,
+// and then every link load is a generic load behind a local one
+__device__ __forceinline__ float* link_array(const Links& L, int dir,
+                                             int par) {
+  float* const even = dir == 0 ? L.p[0] : dir == 1 ? L.p[2]
+                      : dir == 2 ? L.p[4] : L.p[6];
+  float* const odd = dir == 0 ? L.p[1] : dir == 1 ? L.p[3]
+                     : dir == 2 ? L.p[5] : L.p[7];
+  return par ? odd : even;
+}
 
 // ---------------------------------------------------------------------------
 // complex numbers and N x N matrices (N = 2 or 3)
@@ -196,101 +241,82 @@ __device__ __forceinline__ void store_rows(float* arr, int slot, int v2,
 }
 
 // ---------------------------------------------------------------------------
-// direct packed-neighbour addressing
+// packed-neighbour addressing: slot deltas, no division, no frame
 // ---------------------------------------------------------------------------
 
-struct Site { int c[4]; };  // (x, y, z, t)
+// A site of the parity a kernel works on: its own slot, its counter, and
+// the slot change of one step along each axis.  The arrays of both
+// parities share one layout and a site's slot is linear in x, y and z with
+// a wrap on each, and in t through t / 2, so a neighbour's slot (in the
+// other parity's array) is own + fwd[a] (+1 along a) or own + bwd[a] (-1),
+// and x + mu - nu is own + fwd[mu] + bwd[nu] (mu != nu: the steps act on
+// different coordinates).  The deltas are built once per site with
+// compare-and-select wraps; fwd / bwd are only indexed by constants (the
+// unrolled loops) or through pick(), so they stay in registers.  It
+// replaces the decode / step / re-encode of every neighbour (three runtime
+// divisions, a `% n` per step and a runtime-indexed coordinate array in a
+// stack frame).
+struct SiteAddr {
+  int own;          // slot in the (padded) array of the site's parity
+  uint32_t dense;   // global dense site index (the counter-based sources)
+  int fwd[4], bwd[4];
+};
 
-// slot -> (x, y, z, t) for the array of parity p
-__device__ __forceinline__ Site decode_slot(int slot, int p, const Dims& d) {
-  Site s;
-  int k = slot % d.t2;
-  int r = slot / d.t2;
-  s.c[2] = r % d.z;
-  r /= d.z;
-  s.c[1] = r % d.y;
-  s.c[0] = r / d.y;
-  s.c[3] = 2 * k + ((p + s.c[0] + s.c[1] + s.c[2]) & 1);
-  return s;
+// v[i] for a run-time i by constant-index selects (no local array)
+__device__ __forceinline__ int pick(int i, const int (&v)[4]) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
 }
 
-__device__ __forceinline__ int dim_of(const Dims& d, int ax) {
-  return ax == 0 ? d.x : ax == 1 ? d.y : ax == 2 ? d.z : d.t;
+// the deltas along a spatial axis of extent n and slot stride s at
+// coordinate c: periodic, or straight into the halo on a split axis
+__device__ __forceinline__ void axis_steps(int c, int n, int s, bool split,
+                                           int& f, int& b) {
+  f = (!split && c == n - 1) ? -(n - 1) * s : s;
+  b = (!split && c == 0) ? (n - 1) * s : -s;
 }
 
-// site + delta * axis-hat, periodic
-__device__ __forceinline__ Site step(Site s, int ax, int delta, const Dims& d) {
-  int n = dim_of(d, ax);
-  s.c[ax] = (s.c[ax] + delta + n) % n;
-  return s;
+// along t, slot t / 2: +1 keeps the pair of an even t and moves an odd t to
+// the next pair (T - 1 wraps to 0); -1 the other way round
+__device__ __forceinline__ void t_steps(int t, const int T, int t2, int& f,
+                                        int& b) {
+  const bool odd = (t & 1) != 0;
+  f = odd ? (t == T - 1 ? 1 - t2 : 1) : 0;
+  b = odd ? 0 : (t == 0 ? t2 - 1 : -1);
 }
 
-// slot of a site in the array of its own parity
-__device__ __forceinline__ int encode_slot(const Site& s, const Dims& d) {
-  return ((s.c[0] * d.y + s.c[1]) * d.z + s.c[2]) * d.t2 + s.c[3] / 2;
+// thread g (slot order) of parity p on the whole lattice: slot g itself
+__device__ __forceinline__ SiteAddr site_addr(int g, int p, const Dims& d) {
+  const int r = div_by(g, d.ft2), k = g - r * d.t2;  // r = (x*Y + y)*Z + z
+  const int r2 = div_by(r, d.fz), z = r - r2 * d.z;  // r2 = x*Y + y
+  const int x = div_by(r2, d.fy), y = r2 - x * d.y;
+  const int t = 2 * k + ((p + x + y + z) & 1);
+  SiteAddr a;
+  a.own = g;
+  a.dense = (uint32_t)(r * d.t + t);
+  axis_steps(x, d.x, d.y * d.z * d.t2, false, a.fwd[0], a.bwd[0]);
+  axis_steps(y, d.y, d.z * d.t2, false, a.fwd[1], a.bwd[1]);
+  axis_steps(z, d.z, d.t2, false, a.fwd[2], a.bwd[2]);
+  t_steps(t, d.t, d.t2, a.fwd[3], a.bwd[3]);
+  return a;
 }
 
-__device__ __forceinline__ uint32_t dense_index(const Site& s, const Dims& d) {
-  return (uint32_t)(((s.c[0] * d.y + s.c[1]) * d.z + s.c[2]) * d.t + s.c[3]);
-}
-
-// the slot a thread updates: its own slot in an unpadded array
-__device__ __forceinline__ int own_slot(int slot, const Site&, const Dims&) {
-  return slot;
-}
-
-// --- the same on a halo-padded shard (ShardDims) ---------------------------
-
-// interior index -> interior (x, y, z, t), t by the global parity rule
-__device__ __forceinline__ Site decode_slot(int slot, int p,
-                                            const ShardDims& d) {
-  Site s;
-  int k = slot % d.t2;
-  int r = slot / d.t2;
-  s.c[2] = r % d.z;
-  r /= d.z;
-  s.c[1] = r % d.y;
-  s.c[0] = r / d.y;
-  s.c[3] = 2 * k + ((p + d.x0 + s.c[0] + d.y0 + s.c[1] + s.c[2]) & 1);
-  return s;
-}
-
-// site + delta * axis-hat: into the halo on a split axis, periodic otherwise
-__device__ __forceinline__ Site step(Site s, int ax, int delta,
-                                     const ShardDims& d) {
-  if ((ax == 0 && d.hx) || (ax == 1 && d.hy)) {
-    s.c[ax] += delta;
-    return s;
-  }
-  const int n = ax == 0 ? d.x : ax == 1 ? d.y : ax == 2 ? d.z : d.t;
-  s.c[ax] = (s.c[ax] + delta + n) % n;
-  return s;
-}
-
-// slot of a site (interior or halo) in the padded array of its own parity
-__device__ __forceinline__ int encode_slot(const Site& s, const ShardDims& d) {
-  return (((s.c[0] + d.hx) * d.py + s.c[1] + d.hy) * d.z + s.c[2]) * d.t2 +
-         s.c[3] / 2;
-}
-
-// the GLOBAL dense index of an interior site (threefry's counter; the
-// global volume must stay below 2^31)
-__device__ __forceinline__ uint32_t dense_index(const Site& s,
-                                                const ShardDims& d) {
-  return (uint32_t)((((s.c[0] + d.x0) * d.gy + s.c[1] + d.y0) * d.z + s.c[2]) *
-                        d.t + s.c[3]);
-}
-
-__device__ __forceinline__ int own_slot(int, const Site& s,
-                                        const ShardDims& d) {
-  return encode_slot(s, d);
-}
-
-// U_dir at a site whose parity is par (D: Dims or ShardDims)
-template <int N, class D>
-__device__ __forceinline__ Mat<N> load_link(const Links& L, int dir, int par,
-                                            const Site& s, const D& d) {
-  return load_mat<N>(L.p[2 * dir + par], encode_slot(s, d), d.v2);
+// thread g (slot order over the interior) of parity p on a shard: t by the
+// global parity rule, the slot in the padded array, the GLOBAL dense index
+// (the global volume must stay below 2^31)
+__device__ __forceinline__ SiteAddr site_addr(int g, int p,
+                                              const ShardDims& d) {
+  const int r = div_by(g, d.ft2), k = g - r * d.t2;
+  const int r2 = div_by(r, d.fz), z = r - r2 * d.z;
+  const int x = div_by(r2, d.fy), y = r2 - x * d.y;
+  const int t = 2 * k + ((p + d.x0 + x + d.y0 + y + z) & 1);
+  SiteAddr a;
+  a.own = (((x + d.hx) * d.py + y + d.hy) * d.z + z) * d.t2 + k;
+  a.dense = (uint32_t)((((x + d.x0) * d.gy + y + d.y0) * d.z + z) * d.t + t);
+  axis_steps(x, d.x, d.py * d.z * d.t2, d.hx != 0, a.fwd[0], a.bwd[0]);
+  axis_steps(y, d.y, d.z * d.t2, d.hy != 0, a.fwd[1], a.bwd[1]);
+  axis_steps(z, d.z, d.t2, false, a.fwd[2], a.bwd[2]);
+  t_steps(t, d.t, d.t2, a.fwd[3], a.bwd[3]);
+  return a;
 }
 
 // ---------------------------------------------------------------------------
@@ -434,6 +460,57 @@ __device__ __forceinline__ void block_tree_sum(double* sh) {
     if ((int)threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
   }
   __syncthreads();
+}
+
+// threadIdx.x and blockIdx read again where they are used: otherwise the
+// compiler keeps a kernel's first read alive across all of its work, which
+// at the register cap costs K3 a spill
+__device__ __forceinline__ unsigned fresh_tid_x() {
+#ifdef __CUDA_ARCH__
+  unsigned t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+#else
+  return threadIdx.x;
+#endif
+}
+
+// the block's index in the grid, x fastest
+__device__ __forceinline__ unsigned fresh_block_index() {
+#ifdef __CUDA_ARCH__
+  unsigned bx, by;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+  return by * gridDim.x + bx;
+#else
+  return blockIdx.y * gridDim.x + blockIdx.x;
+#endif
+}
+
+// Sum K f64 values per thread over the block in a fixed order: a shuffle
+// tree in each warp, the warps' sums through shared memory, then thread k
+// adds warp sums 0, 1, ... of value k and writes it to row (blockIdx.y *
+// gridDim.x + blockIdx.x) of partials [blocks, K].  One barrier.  Every
+// thread of the block must call it; blockDim.x must be a multiple of 32.
+template <int K>
+__device__ __forceinline__ void block_sums(const double (&v)[K],
+                                          double* __restrict__ partials) {
+  __shared__ double warp_sums[32][K];
+  const unsigned tid = fresh_tid_x();
+  const int lane = tid & 31, w = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double s = v[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) warp_sums[w][k] = s;
+  }
+  __syncthreads();
+  if ((int)tid < K) {
+    double s = warp_sums[0][tid];
+    for (int i = 1; i < (int)(blockDim.x >> 5); ++i) s += warp_sums[i][tid];
+    partials[(size_t)fresh_block_index() * K + tid] = s;
+  }
 }
 
 // Sum one count per thread over the block and add the block's total to

@@ -26,10 +26,26 @@
 // is valid for any T, including T/2 odd.
 //
 // What bounds them on an H100: K3 reads each link 4 times per parity pass
-// (~0.2 GB at SU(3) 32^4, mostly L2 hits) for ~4k flops per site, so it is
-// compute-bound like the stage kernel; K4 touches only the temporal links
-// (1/4 of the state) with one thread per column, so it is bound by
-// bandwidth and by its small thread count (X*Y*Z).
+// (~0.2 GB at SU(3) 32^4, mostly L2 hits) for 3.3k f32 operations per site
+// at -fmad=false, so it is bound by instruction slots and gather latency
+// like the stage kernel (0.10 ms of f32 instructions at 32^4, above its
+// 0.06 ms HBM bound); K4 touches only the temporal links (1/4 of the
+// state) with one thread per column, so it is bound by bandwidth and by
+// its small thread count (X*Y*Z).  K3's design: the slot deltas of
+// common.cuh (no division, no frame), each distinct link loaded and
+// decoded once per site (16, not 24), 128 registers at 2 blocks of 256 an
+// SM, and the block's six sums by shuffles with one barrier (block_sums)
+// in place of six shared-memory trees.  Where Z*T/2 is a multiple of 128
+// (16^4, 32^4, 64^4) a block covers 128 slots of both parities, whole
+// (z, t) lines of one (x, y) row, and shares its links through shared
+// memory (plane_sums_tile_kernel): each thread decodes its own four links
+// into the tile once, and a site reads its own links and its z and t
+// neighbours there, loading only its x and y neighbours (10.5 loads and
+// decodes a site, not 16; faster than the register kernel at SU(3) and
+// SU(2) 32^4, PERF.md).  The other shapes (24^3 x 6: Z*T/2 = 72) and the
+// shards (K5a) run the register kernel, plane_sums_kernel.  Both compute a
+// site's traces with the same operations (plane_site, plane_tile_site), so
+// only the order of the f64 sums differs.
 //
 // K3c / K4c (qg_plane_sums_chains, qg_polyakov_sums_chains) are K3 / K4 on
 // the chain-stacked arrays [C, 2, N, 2, X, Y, Z*T/2] of a beta scan, chain
@@ -39,66 +55,230 @@
 // K4's order, so its sums are K3 / K4's on that chain's arrays, bit for bit.
 //
 // Reduction: the TPU kernels carry f32 Kahan sums across a sequential grid;
-// blocks here run in no order, so each block tree-reduces its threads' f64
-// values in shared memory into a [n_blocks, n_out] scratch, and a second
-// one-block kernel sums the partials in a fixed order.  No atomics: a run's
-// measurement series is reproducible bit for bit.
+// blocks here run in no order, so each block reduces its threads' f64
+// values in a fixed order (K3: block_sums; K4: a shared-memory tree) into a
+// [n_blocks, n_out] scratch, and a second one-block kernel sums the
+// partials in a fixed order.  No atomics: a run's measurement series is
+// reproducible bit for bit.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace qg {
 
 // Only the unsharded geometry has a chain axis (K3c/K4c): the shard forms
-// (K5a/K5b) compile without its offsets and keep their registers (K5a
-// SU(3) sits at 128, the most that lets two 256-thread blocks share an
-// SM).
+// (K5a/K5b) compile without its offsets.
 template <class D> constexpr bool kChains = false;
 template <> constexpr bool kChains<Dims> = true;
 
-// chain_stride: floats from one chain's array to the next (0, one chain);
-// chain blockIdx.y writes partials row block blockIdx.y * gridDim.x
+// K3's block (the wrappers' REDUCE_BLOCK) and the blocks an SM must hold
+// at once, which caps its registers at 65536 / (256 x 2) = 128 (SU(3)
+// takes them all; uncapped it takes 201 and ran slower on the H100).
+constexpr int kPlaneThreads = 256;
+constexpr int kPlaneMinBlocks = 2;
+
+// The six plaquettes at site g of either parity (g < nv: parity 0 slot g,
+// else parity 1 slot g - nv), in f32 as the plain version forms them: the
+// four links U_a(x) loaded and decoded once, each neighbour link U_nu(x+mu)
+// once (16 loads, not one per use: 24).  The planes are computed in the
+// order (0,1), (0,2), (1,2), (0,3), (1,3), (2,3), U_3 last: in PLANES order
+// the shard form spilled at the 128-register cap.
 template <int N, class D>
-__global__ void plane_sums_kernel(Links L, D d, long long chain_stride,
-                                  double* __restrict__ partials) {
-  extern __shared__ double sh[];
+__device__ __forceinline__ void plane_site(const Links& L, int g, const D& d,
+                                           float (&tr6)[6]) {
+  const int nv = n_sites(d), v2 = d.v2;
+  const int p = g >= nv ? 1 : 0;
+  const int q = p ^ 1;
+  const SiteAddr x = site_addr(g - p * nv, p, d);
+  Mat<N> own[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    own[a] = load_mat<N>(link_array(L, a, p), x.own, v2);
+  // (mu, nu, the plane's index in PLANES order)
+  const int planes[6][3] = {{0, 1, 0}, {0, 2, 1}, {1, 2, 3},
+                            {0, 3, 2}, {1, 3, 4}, {2, 3, 5}};
+#pragma unroll
+  for (int pl = 0; pl < 6; ++pl) {
+    const int mu = planes[pl][0], nu = planes[pl][1];
+    const Mat<N> a = mmul(own[mu], load_mat<N>(link_array(L, nu, q),
+                                               x.own + x.fwd[mu], v2));
+    const Mat<N> b = mmul(own[nu], load_mat<N>(link_array(L, mu, q),
+                                               x.own + x.fwd[nu], v2));
+    float tr = 0.f;
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const float t = a.a[r][c].re * b.a[r][c].re + a.a[r][c].im * b.a[r][c].im;
+        tr = (r == 0 && c == 0) ? t : tr + t;
+      }
+    tr6[planes[pl][2]] = tr;
+  }
+}
+
+// chain_stride: floats from one chain's array to the next (0, one chain);
+// chain blockIdx.y writes partials row block blockIdx.y * gridDim.x.  The
+// block's six sums by block_sums (shuffles, one barrier).
+template <int N, class D>
+__global__ void __launch_bounds__(kPlaneThreads, kPlaneMinBlocks)
+plane_sums_kernel(Links L, D d, long long chain_stride,
+                  double* __restrict__ partials) {
   if constexpr (kChains<D>) {
     const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
 #pragma unroll
     for (int k = 0; k < 8; ++k) L.p[k] += off;
-    partials += (size_t)blockIdx.y * gridDim.x * 6;
   }
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nv = n_sites(d);
-  const bool active = g < 2 * nv;
   float tr6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (active) {
-    const int p = g >= nv ? 1 : 0;
-    const int q = p ^ 1;
-    const Site x = decode_slot(g - p * nv, p, d);
-    const int planes[6][2] = {{0, 1}, {0, 2}, {0, 3}, {1, 2}, {1, 3}, {2, 3}};
+  if (g < 2 * n_sites(d)) plane_site<N>(L, g, d, tr6);
+  double v[6];
 #pragma unroll
-    for (int pl = 0; pl < 6; ++pl) {
-      const int mu = planes[pl][0], nu = planes[pl][1];
-      const Mat<N> a = mmul(load_link<N>(L, mu, p, x, d),
-                            load_link<N>(L, nu, q, step(x, mu, 1, d), d));
-      const Mat<N> b = mmul(load_link<N>(L, nu, p, x, d),
-                            load_link<N>(L, mu, q, step(x, nu, 1, d), d));
-      float tr = 0.f;
+  for (int k = 0; k < 6; ++k) v[k] = (double)tr6[k];
+  block_sums(v, partials);
+}
+
+// K3's tile: a block of kPlaneThreads threads holds kTileSlots slots of
+// both parities (threads 0-127 parity 0, 128-255 parity 1) on whole (z, t)
+// lines of one (x, y) row, plus the line after its last (z + 1, wrapped;
+// T/2 <= 32 slots).  Its rows are kTileLen long whatever T is, so that
+// every component sits at a constant offset (a run-time stride cost the
+// kernel a spill at the 128-register cap).
+constexpr int kTileSlots = kPlaneThreads / 2;
+constexpr int kTileLen = kTileSlots + 32;
+
+inline bool tile_fits(const Dims& d) {
+  return d.t2 <= kTileLen - kTileSlots && kTileSlots % d.t2 == 0 &&
+         (d.z * d.t2) % kTileSlots == 0;
+}
+
+// the decoded matrix of direction a, parity p at tile slot j, structure of
+// arrays: component c at tile[((p * 4 + a) * 2 N^2 + c) * kTileLen + j]
+template <int N>
+__device__ __forceinline__ void tile_put(float* tile, int p, int a, int j,
+                                         const Mat<N>& m) {
+  float* t = tile + (p * 4 + a) * 2 * N * N * kTileLen + j;
 #pragma unroll
-      for (int r = 0; r < N; ++r)
+  for (int r = 0; r < N; ++r)
 #pragma unroll
-        for (int c = 0; c < N; ++c) {
-          const float t = a.a[r][c].re * b.a[r][c].re + a.a[r][c].im * b.a[r][c].im;
-          tr = (r == 0 && c == 0) ? t : tr + t;
-        }
-      tr6[pl] = tr;
+    for (int c = 0; c < N; ++c) {
+      t[((r * N + c) * 2 + 0) * kTileLen] = m.a[r][c].re;
+      t[((r * N + c) * 2 + 1) * kTileLen] = m.a[r][c].im;
     }
+}
+
+template <int N>
+__device__ __forceinline__ Mat<N> tile_get(const float* tile, int p, int a,
+                                           int j) {
+  const float* t = tile + (p * 4 + a) * 2 * N * N * kTileLen + j;
+  Mat<N> m;
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      m.a[r][c].re = t[((r * N + c) * 2 + 0) * kTileLen];
+      m.a[r][c].im = t[((r * N + c) * 2 + 1) * kTileLen];
+    }
+  return m;
+}
+
+// thread tid of tile b: its four own links into the tile, and the first
+// T/2 threads of each parity the links of the line after the tile
+template <int N>
+__device__ __forceinline__ void plane_tile_fill(const Links& L, const Dims& d,
+                                                float* tile, int tid, int b) {
+  const int p = tid >= kTileSlots ? 1 : 0, i = tid - p * kTileSlots;
+  const int s0 = b * kTileSlots;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    tile_put<N>(tile, p, a, i, load_mat<N>(link_array(L, a, p), s0 + i, d.v2));
+  if (i < d.t2) {
+    const int r = div_by(s0, d.ft2);  // (x Y + y) Z + z0
+    const int z0 = r - div_by(r, d.fz) * d.z;
+    int z = z0 + kTileSlots / d.t2;  // the line after the tile, wrapped
+    z = z == d.z ? 0 : z;
+    const int slot = s0 + (z - z0) * d.t2 + i;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      tile_put<N>(tile, p, a, kTileSlots + i,
+                  load_mat<N>(link_array(L, a, p), slot, d.v2));
   }
+}
+
+// plane_site's traces for thread tid of tile b, the z and t neighbours and
+// the own links from the tile (same operations, same bits)
+template <int N>
+__device__ __forceinline__ void plane_tile_site(const Links& L, const Dims& d,
+                                                const float* tile, int tid,
+                                                int b, float (&tr6)[6]) {
+  const int p = tid >= kTileSlots ? 1 : 0, i = tid - p * kTileSlots;
+  const int q = p ^ 1, v2 = d.v2;
+  const SiteAddr x = site_addr(b * kTileSlots + i, p, d);
+  const int planes[6][3] = {{0, 1, 0}, {0, 2, 1}, {1, 2, 3},
+                            {0, 3, 2}, {1, 3, 4}, {2, 3, 5}};
 #pragma unroll
   for (int pl = 0; pl < 6; ++pl) {
-    sh[threadIdx.x] = (double)tr6[pl];
-    block_tree_sum(sh);
-    if (threadIdx.x == 0) partials[blockIdx.x * 6 + pl] = sh[0];
+    const int mu = planes[pl][0], nu = planes[pl][1];
+    // U_nu(x + mu), U_mu(x + nu): a z step is the next line of the tile, a
+    // t step stays on the line
+    const Mat<N> unu_xpm =
+        mu == 2 ? tile_get<N>(tile, q, nu, i + d.t2)
+        : mu == 3 ? tile_get<N>(tile, q, nu, i + x.fwd[3])
+        : load_mat<N>(link_array(L, nu, q), x.own + x.fwd[mu], v2);
+    const Mat<N> umu_xpn =
+        nu == 2 ? tile_get<N>(tile, q, mu, i + d.t2)
+        : nu == 3 ? tile_get<N>(tile, q, mu, i + x.fwd[3])
+        : load_mat<N>(link_array(L, mu, q), x.own + x.fwd[nu], v2);
+    const Mat<N> a = mmul(tile_get<N>(tile, p, mu, i), unu_xpm);
+    const Mat<N> c = mmul(tile_get<N>(tile, p, nu, i), umu_xpn);
+    float tr = 0.f;
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float t = a.a[r][k].re * c.a[r][k].re +
+                        a.a[r][k].im * c.a[r][k].im;
+        tr = (r == 0 && k == 0) ? t : tr + t;
+      }
+    tr6[planes[pl][2]] = tr;
   }
+}
+
+// K3 / K3c where tile_fits: dynamic shared memory of tile_bytes(N); chain
+// blockIdx.y as plane_sums_kernel
+template <int N>
+__global__ void __launch_bounds__(kPlaneThreads, kPlaneMinBlocks)
+plane_sums_tile_kernel(Links L, Dims d, long long chain_stride,
+                       double* __restrict__ partials) {
+  extern __shared__ float tile[];
+  const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) L.p[k] += off;
+  plane_tile_fill<N>(L, d, tile, threadIdx.x, blockIdx.x);
+  __syncthreads();
+  float tr6[6];
+  plane_tile_site<N>(L, d, tile, threadIdx.x, blockIdx.x, tr6);
+  double v[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) v[k] = (double)tr6[k];
+  block_sums(v, partials);
+}
+
+inline size_t tile_bytes(int n) {
+  return (size_t)2 * 4 * 2 * n * n * kTileLen * sizeof(float);
+}
+
+template <int N>
+cudaError_t launch_plane_tile(const Links& L, const Dims& d, dim3 grid,
+                              long long chain_stride, double* partials,
+                              cudaStream_t s) {
+  const size_t smem = tile_bytes(N);  // 90 KB at SU(3), 40 KB at SU(2)
+  cudaError_t err = cudaFuncSetAttribute(
+      plane_sums_tile_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  plane_sums_tile_kernel<N><<<grid, kPlaneThreads, smem, s>>>(
+      L, d, chain_stride, partials);
+  return cudaGetLastError();
 }
 
 // a spatial column (x, y, z) of the lattice or of a shard's interior: the
@@ -182,23 +362,35 @@ inline bool chain_count_ok(int n_chains) {
 }
 
 // n_chains chains, each array's chains chain_stride floats apart (one
-// chain: 1, 0); partials [n_chains, n_blocks, 6], out [n_chains, 6]
+// chain: 1, 0); partials [n_chains, n_blocks, 6] with n_blocks =
+// ceil(2 * sites per parity / kPlaneThreads), out [n_chains, 6]
 template <class D>
-int plane_sums(const Links& L, int n, const D& d, int block, double* partials,
+int plane_sums(const Links& L, int n, const D& d, double* partials,
                double* out, cudaStream_t s, int n_chains = 1,
                long long chain_stride = 0) {
-  if (!pow2_block(block) || (n != 2 && n != 3) || !chain_count_ok(n_chains))
+  if ((n != 2 && n != 3) || !chain_count_ok(n_chains))
     return (int)cudaErrorInvalidValue;
+  const int block = kPlaneThreads;
   const int n_blocks = (2 * n_sites(d) + block - 1) / block;
-  const size_t smem = block * sizeof(double);
+  const size_t smem = block * sizeof(double);  // the finish kernel's
   const dim3 grid(n_blocks, n_chains);
-  if (n == 3)
-    plane_sums_kernel<3><<<grid, block, smem, s>>>(L, d, chain_stride,
-                                                   partials);
-  else
-    plane_sums_kernel<2><<<grid, block, smem, s>>>(L, d, chain_stride,
-                                                   partials);
-  cudaError_t err = cudaGetLastError();
+  bool tiled = false;
+  if constexpr (std::is_same_v<D, Dims>) tiled = tile_fits(d);
+  cudaError_t err;
+  if (tiled) {
+    if constexpr (std::is_same_v<D, Dims>)
+      err = n == 3 ? launch_plane_tile<3>(L, d, grid, chain_stride, partials, s)
+                   : launch_plane_tile<2>(L, d, grid, chain_stride, partials,
+                                          s);
+  } else {
+    if (n == 3)
+      plane_sums_kernel<3><<<grid, block, 0, s>>>(L, d, chain_stride,
+                                                  partials);
+    else
+      plane_sums_kernel<2><<<grid, block, 0, s>>>(L, d, chain_stride,
+                                                  partials);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
   finish_sums_kernel<<<n_chains, block, smem, s>>>(partials, n_blocks, 6,
                                                    out);
@@ -231,31 +423,30 @@ int polyakov_sums(const float* u6, const float* u7, int n, const D& d,
 }  // namespace qg
 
 // n: 2 or 3; partials: f64 [n_blocks * 6] with
-// n_blocks = ceil(2 * V2 / block); out: f64 [6]
+// n_blocks = ceil(2 * V2 / 256) (kPlaneThreads); out: f64 [6]
 extern "C" int qg_plane_sums(void* u0, void* u1, void* u2, void* u3, void* u4,
                              void* u5, void* u6, void* u7, int n, int X,
-                             int Y, int Z, int T, int block, void* partials,
-                             void* out, void* stream) {
+                             int Y, int Z, int T, void* partials, void* out,
+                             void* stream) {
   const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
                         (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
-  return qg::plane_sums(L, n, qg::make_dims(X, Y, Z, T), block,
-                        (double*)partials, (double*)out, (cudaStream_t)stream);
+  return qg::plane_sums(L, n, qg::make_dims(X, Y, Z, T), (double*)partials,
+                        (double*)out, (cudaStream_t)stream);
 }
 
 // K5a: qg_plane_sums over one shard's interior sites (u0..u7 its padded
 // arrays, geometry as qg_stage_shard); n_blocks = ceil(2 * lx*ly*Z*T/2 /
-// block).  The caller sums the shards.
+// 256).  The caller sums the shards.
 extern "C" int qg_plane_sums_local(void* u0, void* u1, void* u2, void* u3,
                                    void* u4, void* u5, void* u6, void* u7,
                                    int n, int lx, int ly, int Z, int T, int hx,
-                                   int hy, int x0, int y0, int gy, int block,
+                                   int hy, int x0, int y0, int gy,
                                    void* partials, void* out, void* stream) {
   const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
                         (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
   return qg::plane_sums(L, n,
                         qg::make_shard_dims(lx, ly, Z, T, hx, hy, x0, y0, gy),
-                        block, (double*)partials, (double*)out,
-                        (cudaStream_t)stream);
+                        (double*)partials, (double*)out, (cudaStream_t)stream);
 }
 
 // n: 2 or 3; partials: f64 [n_blocks * 2] with
@@ -289,13 +480,12 @@ extern "C" int qg_plane_sums_chains(void* u0, void* u1, void* u2, void* u3,
                                     void* u4, void* u5, void* u6, void* u7,
                                     long long chain_stride, int n_chains,
                                     int n, int X, int Y, int Z, int T,
-                                    int block, void* partials, void* out,
-                                    void* stream) {
+                                    void* partials, void* out, void* stream) {
   const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
                         (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
-  return qg::plane_sums(L, n, qg::make_dims(X, Y, Z, T), block,
-                        (double*)partials, (double*)out, (cudaStream_t)stream,
-                        n_chains, chain_stride);
+  return qg::plane_sums(L, n, qg::make_dims(X, Y, Z, T), (double*)partials,
+                        (double*)out, (cudaStream_t)stream, n_chains,
+                        chain_stride);
 }
 
 // K4c: qg_polyakov_sums over n_chains chain-stacked temporal arrays;

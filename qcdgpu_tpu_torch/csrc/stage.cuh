@@ -34,25 +34,41 @@
 //
 // What bounds it on an H100: per site it reads 19 links (12 f32 each at
 // SU(3), 8 at SU(2); each link neighbours 8 sites, so much of it comes from
-// L1/L2) and does about 3.5k f32 operations of SU(3) matrix algebra (0.9k at
-// SU(2)) plus 0.6k per subgroup for heat-bath or n_hit x 0.1k for
-// Metropolis, and up to 2k integer operations of threefry (or the stream
-// generator's steps, a few hundred to a few thousand: ranlux3's luxury skips
-// are the most).  That is above the card's f32-per-HBM-byte balance point,
-// so it is bound by instruction throughput and registers rather than by HBM
-// bandwidth; overrelaxation draws nothing and sits closest to the bandwidth
-// floor.
+// L1/L2) and does 5.5k f32 operations at SU(3) heat-bath (3.5k of staple
+// algebra, 0.6k per subgroup of sampling; 0.9k + 0.3k at SU(2)), plus the
+// draws: ~80 integer operations a Philox or threefry call, or a stream
+// generator's steps (ranlux3's luxury skips the most).  The library is
+// built with -fmad=false (the twin's bits), so every f32 multiply and add
+// is an instruction of its own: at one f32 instruction per lane per clock
+// (33.5e12 a second) SU(3) heat-bath cannot take less than 0.086 ms at
+// 32^4, above its 0.068 ms HBM bound.  Instruction slots and the latency of the
+// gathers, with 16 warps an SM, bound it; overrelaxation draws nothing and
+// sits closest to the bandwidth floor.  Tensor cores do not apply: these
+// are 3x3 complex f32 products that must round as the twin does, and wgmma
+// has no f32 input.
 //
-// What the design does about that: one thread per site, so no shared memory
+// What the design does about that: one thread per site, no shared memory
 // and no synchronisation (except the tracked count's one block reduction
-// and one 64-bit atomic per block); neighbours are addressed directly
-// (decode slot, step the coordinate, re-encode) instead of the TPU kernel's
-// roll-and-mask shifts of whole slabs; random numbers are drawn per trial or
-// hit on demand rather than as stored uniforms.  The kind, N, tracking and
-// the random source are template parameters, so each instantiation carries
-// only its own branch.  The algebra is fully unrolled and lives in
-// registers; __launch_bounds__(128) lets the compiler use up to 255
-// registers per thread, so it need not spill.
+// and one 64-bit atomic per block).  A site's neighbours are slot deltas
+// built once (common.cuh SiteAddr: three multiply-high divisions, compare-
+// and-select wraps; the TPU kernel's roll-and-mask shifts of whole slabs
+// become address arithmetic), every mu-dependent value and link array is
+// chosen by constant-index selects, so nothing lives in a stack frame, and
+// each link is multiplied in as it is loaded.  Random numbers are drawn per
+// trial or hit on demand; a heat-bath trial after a site's first accepted
+// one is not computed (nor drawn, for the counter-based sources).  The
+// kind, N, tracking, the random source and the geometry are template
+// parameters, so each instantiation carries only its own branch.  128
+// threads a block, at least 4 blocks an SM (kStageMinBlocks).  Measured
+// and dropped on the H100 (PERF.md): 96 registers (spills), one wave
+// of persistent blocks walking the sites, L1 prefetch of the next staple
+// term, mu as a template parameter; all slower.  So was shared memory:
+// of a site's 19 links, the sites of a block's (z, t) lines share only
+// U_mu of the other parity at x +- z and x +- t (for mu along x or y, 4
+// loads become 1.25 with a halo line each side), and L1 already serves
+// those repeats.  Staging them in shared memory, decoded once or by
+// cp.async behind the first staple term, made K1 1.17-1.24x slower at
+// SU(3) 32^4 and 1.05x at SU(2), with the same bits.
 //
 // The random source R (struct Threefry or Philox here, Stream<G> in
 // streams.cuh) opens a per-site source after the staples; its pair(j, a, b)
@@ -118,6 +134,8 @@ struct Threefry {
   uint32_t k0, k1;
 
   struct Src {
+    // a draw is a function of its slot: draws nobody uses need not be made
+    static constexpr bool kCounter = true;
     uint32_t k0, k1, sidx, slot0;
     __device__ __forceinline__ void subgroup(uint32_t first_slot) {
       slot0 = first_slot;
@@ -131,9 +149,8 @@ struct Threefry {
     __device__ __forceinline__ void close() {}
   };
 
-  template <class D>
-  __device__ __forceinline__ Src open(int, const Site& x, const D& d) const {
-    return {k0, k1, dense_index(x, d), 0u};
+  __device__ __forceinline__ Src open(int, const SiteAddr& a) const {
+    return {k0, k1, a.dense, 0u};
   }
 };
 
@@ -148,6 +165,7 @@ struct Philox {
   uint32_t k0, k1;
 
   struct Src {
+    static constexpr bool kCounter = true;
     uint32_t k0, k1, sidx, slot0, blk;
     uint32_t w[4];
     __device__ __forceinline__ void subgroup(uint32_t first_slot) {
@@ -166,17 +184,21 @@ struct Philox {
     __device__ __forceinline__ void close() {}
   };
 
-  template <class D>
-  __device__ __forceinline__ Src open(int, const Site& x, const D& d) const {
+  __device__ __forceinline__ Src open(int, const SiteAddr& a) const {
     // blk: no block yet (a slot's block index is below 2^31)
-    return {k0, k1, dense_index(x, d), 0u, 0xFFFFFFFFu, {0u, 0u, 0u, 0u}};
+    return {k0, k1, a.dense, 0u, 0xFFFFFFFFu, {0u, 0u, 0u, 0u}};
   }
 };
 
 // Kennedy-Pendleton multiplier for one subgroup (ops/cuda/update.py
 // heatbath_flip): k_trials masked trials, first accepted wins, identity on
 // exhaustion (reported in `exhausted`).  Trial t draws pairs 2t (r1, r2)
-// and 2t + 1 (r3, r4); the direction draws pair 2 k_trials.
+// and 2t + 1 (r3, r4); the direction draws pair 2 k_trials.  The result
+// depends only on the first accepted trial, so the trials after it are not
+// computed: a counter-based source (S::kCounter) stops drawing too, and a
+// warp leaves the loop when its last site has accepted; a stream's
+// generator must still step through every trial's draws, so only their
+// arithmetic is skipped.  Same bits as computing all k_trials.
 template <class S>
 __device__ __forceinline__ Quat heatbath_flip(const Quat& q_w, float tbn,
                                               S& src, int k_trials,
@@ -191,14 +213,18 @@ __device__ __forceinline__ Quat heatbath_flip(const Quat& q_w, float tbn,
   float lam2_sel = 0.0f;
   bool ok = false;
   for (int t = 0; t < k_trials; ++t) {
+    if (S::kCounter && ok) break;
     float r1, r2, r3, r4;
     src.pair(2u * t, r1, r2);
     src.pair(2u * t + 1u, r3, r4);
-    const float c2 = cos2_2pi(r2);
-    const float lam2 = -inv2a * (log_u01(r1) + c2 * log_u01(r3));
-    const bool acc = (r4 * r4) <= (1.0f - lam2);
-    if (acc && !ok) lam2_sel = lam2;
-    ok = ok || acc;
+    if (!ok) {
+      const float c2 = cos2_2pi(r2);
+      const float lam2 = -inv2a * (log_u01(r1) + c2 * log_u01(r3));
+      if ((r4 * r4) <= (1.0f - lam2)) {
+        lam2_sel = lam2;
+        ok = true;
+      }
+    }
   }
   exhausted = !ok;
   const float x0 = fminf(fmaxf(1.0f - 2.0f * lam2_sel, -1.0f), 1.0f);
@@ -267,37 +293,39 @@ __device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
                                                const R& rng, float tbn,
                                                int k_trials, int n_hit,
                                                float delta) {
-  const int p = parity, q = parity ^ 1;
-  const Site x = decode_slot(slot, p, d);
+  const int p = parity, q = parity ^ 1, v2 = d.v2;
+  const SiteAddr x = site_addr(slot, p, d);
+  const int xpm = x.own + pick(mu, x.fwd);  // x + mu
+  const float* umu_q = link_array(L, mu, q);
 
-  // staple sum A in _staple_W's order: nu ascending, term = fwd + bwd
+  // staple sum A in _staple_W's order: nu ascending, term = fwd + bwd; each
+  // link is multiplied in as soon as it is loaded
   Mat<N> acc;
   bool first = true;
 #pragma unroll
   for (int nu = 0; nu < 4; ++nu) {
     if (nu == mu) continue;
-    const Site xpm = step(x, mu, 1, d);
-    const Site xpn = step(x, nu, 1, d);
-    const Site xmn = step(x, nu, -1, d);
-    const Site xpmmn = step(xpm, nu, -1, d);
+    const float* unu_p = link_array(L, nu, p);
+    const float* unu_q = link_array(L, nu, q);
+    const int xmn = x.own + x.bwd[nu];  // x - nu
     // forward: U_nu(x+mu) [U_nu(x) U_mu(x+nu)]^+
-    const Mat<N> inner = mmul(load_link<N>(L, nu, p, x, d),
-                              load_link<N>(L, mu, q, xpn, d));
-    const Mat<N> fwd = mmul_bdag(load_link<N>(L, nu, q, xpm, d), inner);
+    const Mat<N> inner = mmul(load_mat<N>(unu_p, x.own, v2),
+                              load_mat<N>(umu_q, x.own + x.fwd[nu], v2));
+    const Mat<N> fwd = mmul_bdag(load_mat<N>(unu_q, xpm, v2), inner);
     // backward: [U_mu(x-nu) U_nu(x+mu-nu)]^+ U_nu(x-nu)
     const Mat<N> bwd = mmul(
-        mdag(mmul(load_link<N>(L, mu, q, xmn, d), load_link<N>(L, nu, p, xpmmn, d))),
-        load_link<N>(L, nu, q, xmn, d));
+        mdag(mmul(load_mat<N>(umu_q, xmn, v2),
+                  load_mat<N>(unu_p, xpm + x.bwd[nu], v2))),
+        load_mat<N>(unu_q, xmn, v2));
     const Mat<N> term = madd(fwd, bwd);
     acc = first ? term : madd(acc, term);
     first = false;
   }
-  float* target = L.p[2 * mu + p];
-  const int own = own_slot(slot, x, d);
-  Mat<N> u = load_mat<N>(target, own, d.v2);
+  float* target = link_array(L, mu, p);
+  Mat<N> u = load_mat<N>(target, x.own, v2);
   Mat<N> w = mmul(u, acc);
 
-  typename R::Src src = rng.open(slot, x, d);
+  typename R::Src src = rng.open(slot, x);
   const uint32_t per_slots = KIND == HEATBATH ? 2u * k_trials + 1u
                              : KIND == METROPOLIS ? 2u * n_hit : 0u;
   constexpr int n_sg = N == 3 ? 3 : 1;
@@ -322,13 +350,18 @@ __device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
     subgroup_left_mul(flip, i, j, u);
     subgroup_left_mul(flip, i, j, w);
   }
-  store_rows(target, own, d.v2, u);
+  store_rows(target, x.own, v2, u);
   src.close();
   return TRACK ? count : 0u;
 }
 
+// Threads per block, and the blocks an SM must hold at once, which caps a
+// thread's registers at 65536 / (128 x 4) = 128: SU(3) uses all of them
+// with no spill (a cap of 96, 5 blocks, spills and measured slower).
+constexpr int kStageThreads = 128;
+constexpr int kStageMinBlocks = 4;
 template <int N, int KIND, bool TRACK, class R, class D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kStageThreads, kStageMinBlocks)
 stage_kernel(Links L, int mu, int parity, D d, R rng, float tbn,
              int k_trials, int n_hit, float delta, unsigned long long* count) {
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
@@ -350,9 +383,8 @@ template <int N, int KIND, bool TRACK, class R, class D>
 int launch_stage(const Links& L, int mu, int parity, const D& d,
                  const R& rng, float tbn, int k_trials, int n_hit, float delta,
                  unsigned long long* count, cudaStream_t s) {
-  const int threads = 128;
-  const int blocks = (n_sites(d) + threads - 1) / threads;
-  stage_kernel<N, KIND, TRACK, R, D><<<blocks, threads, 0, s>>>(
+  const int blocks = (n_sites(d) + kStageThreads - 1) / kStageThreads;
+  stage_kernel<N, KIND, TRACK, R, D><<<blocks, kStageThreads, 0, s>>>(
       L, mu, parity, d, rng, tbn, k_trials, n_hit, delta, count);
   return (int)cudaGetLastError();
 }
@@ -371,7 +403,7 @@ int launch_stage(const Links& L, int mu, int parity, const D& d,
 // the single-chain stage_site, so chain c computes exactly what K1 does on
 // its own arrays; the tracked count goes to count[c].
 template <int N, int KIND, bool TRACK, class R>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kStageThreads, kStageMinBlocks)
 stage_chains_kernel(Links L, long long chain_stride, int mu, int parity,
                     Dims d, const float* __restrict__ betas,
                     float two_over_n, const uint32_t* __restrict__ base_keys,
@@ -416,9 +448,8 @@ template <int N, int KIND, bool TRACK, class R>
 int launch_stage_chains(const Links& L, const Chains& ch, int mu, int parity,
                         const Dims& d, int k_trials, int n_hit, float delta,
                         unsigned long long* count, cudaStream_t s) {
-  const int threads = 128;
-  const dim3 grid((n_sites(d) + threads - 1) / threads, ch.n);
-  stage_chains_kernel<N, KIND, TRACK, R><<<grid, threads, 0, s>>>(
+  const dim3 grid((n_sites(d) + kStageThreads - 1) / kStageThreads, ch.n);
+  stage_chains_kernel<N, KIND, TRACK, R><<<grid, kStageThreads, 0, s>>>(
       L, ch.stride, mu, parity, d, ch.betas, ch.two_over_n, ch.keys,
       ch.sweep_idx, ch.stage_id, k_trials, n_hit, delta, count);
   return (int)cudaGetLastError();

@@ -270,6 +270,8 @@ struct Stream {
   int ptr0, skip;
 
   struct Src {
+    // each draw steps the generator: every draw is made, used or not
+    static constexpr bool kCounter = false;
     G g;
     __device__ __forceinline__ void subgroup(uint32_t) {}
     __device__ __forceinline__ void pair(uint32_t, float& a, float& b) {
@@ -281,8 +283,7 @@ struct Stream {
 
   // slot: the thread's site index, which is also its words' index (a
   // shard's words are unpadded: [W, x, y, Z*T/2] of its interior)
-  template <class D>
-  __device__ __forceinline__ Src open(int slot, const Site&, const D&) const {
+  __device__ __forceinline__ Src open(int slot, const SiteAddr&) const {
     Src src;
     src.g.load(ws, slot, stride, s0, ptr0, skip);
     return src;

@@ -60,7 +60,7 @@ SIGNATURES = {
         _P, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _I, _I,
         ctypes.c_float, _P, _P],
     "qg_reunit": [_P, _I, _I, _P],
-    "qg_plane_sums": [_P] * 8 + [_I] * 6 + [_P, _P, _P],
+    "qg_plane_sums": [_P] * 8 + [_I] * 5 + [_P, _P, _P],
     "qg_polyakov_sums": [_P, _P] + [_I] * 6 + [_P, _P, _P],
     # a shard's geometry: lx, ly, Z, T, hx, hy, x0, y0, global Y
     "qg_stage_shard": [_P] * 8 + [_I] * 14 + [
@@ -72,14 +72,14 @@ SIGNATURES = {
     "qg_stage_stream_shard": [_P] * 8 + [_I] * 15 + [
         _P, _I, ctypes.c_uint, _I, _I, ctypes.c_float, _I, _I,
         ctypes.c_float, _P, _P],
-    "qg_plane_sums_local": [_P] * 8 + [_I] * 11 + [_P, _P, _P],
+    "qg_plane_sums_local": [_P] * 8 + [_I] * 10 + [_P, _P, _P],
     "qg_polyakov_sums_local": [_P, _P] + [_I] * 11 + [_P, _P, _P],
     # the chain-batched forms: chain stride (floats) and chain count first
     "qg_stage_chains": [_P] * 8 + [_L] + [_I] * 11 + [
         _P, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint, _I, _I,
         ctypes.c_float, _P, _P],
     "qg_reunit_chains": [_P, _I, _I, _I, _P],
-    "qg_plane_sums_chains": [_P] * 8 + [_L] + [_I] * 7 + [_P, _P, _P],
+    "qg_plane_sums_chains": [_P] * 8 + [_L] + [_I] * 6 + [_P, _P, _P],
     "qg_polyakov_sums_chains": [_P, _P, _L] + [_I] * 7 + [_P, _P, _P],
 }
 

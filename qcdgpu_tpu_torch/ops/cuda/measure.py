@@ -29,9 +29,11 @@ import torch
 from . import build, core
 
 PLANES = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
-# threads per block of the measurement kernels (power of two); the f64
-# partials scratch holds one row per block
+# threads per block of the Polyakov kernels (power of two), and the block
+# K3 is built for (csrc/measure.cu kPlaneThreads); the f64 partials scratch
+# holds one row per block
 REDUCE_BLOCK = 256
+PLANE_BLOCK = 256
 
 LAUNCHES = {f"{k}_su{n}": 0
             for k in ("plane_sums", "polyakov_sums", "plane_sums_local",
@@ -110,10 +112,10 @@ def polyakov_sums_ref(us, dims, shard=None):
                         tr_im.to(torch.float64).sum()])
 
 
-def _scratch(n_threads, n_out, device, n_chains=None):
+def _scratch(n_threads, n_out, device, n_chains=None, block=REDUCE_BLOCK):
     """(partials, out): one partials row per block (per chain), and the
     sums, [n_out] (or [n_chains, n_out])."""
-    n_blocks = -(-n_threads // REDUCE_BLOCK)
+    n_blocks = -(-n_threads // block)
     lead = () if n_chains is None else (n_chains,)
     return (torch.empty((n_chains or 1) * n_blocks * n_out,
                         dtype=torch.float64, device=device),
@@ -130,11 +132,11 @@ def plane_sums(us, dims):
     lib = build.library()
     x, y, z, t = (int(d) for d in dims)
     dev = us[0].device
-    partials, out = _scratch(x * y * z * t, 6, dev)
+    partials, out = _scratch(x * y * z * t, 6, dev, block=PLANE_BLOCK)
     with torch.cuda.device(dev):
         err = lib.qg_plane_sums(
-            *[a.data_ptr() for a in us], n, x, y, z, t, REDUCE_BLOCK,
-            partials.data_ptr(), out.data_ptr(), build.stream_handle(dev),
+            *[a.data_ptr() for a in us], n, x, y, z, t, partials.data_ptr(),
+            out.data_ptr(), build.stream_handle(dev),
         )
     build.check(err, name)
     LAUNCHES[name] += 1
@@ -184,11 +186,12 @@ def plane_sums_local(us, shard):
     name = f"plane_sums_local_su{n}"
     lib = build.library()
     dev = us[0].device
-    partials, out = _scratch(int(np.prod(shard.interior)), 6, dev)
+    partials, out = _scratch(int(np.prod(shard.interior)), 6, dev,
+                             block=PLANE_BLOCK)
     with torch.cuda.device(dev):
         err = lib.qg_plane_sums_local(
             *[a.data_ptr() for a in us], n, *shard.kernel_args(),
-            REDUCE_BLOCK, partials.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), out.data_ptr(),
             build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
@@ -244,11 +247,11 @@ def plane_sums_chains(us, dims):
     lib = build.library()
     x, y, z, t = (int(d) for d in dims)
     dev = us[0].device
-    partials, out = _scratch(x * y * z * t, 6, dev, c)
+    partials, out = _scratch(x * y * z * t, 6, dev, c, PLANE_BLOCK)
     with torch.cuda.device(dev):
         err = lib.qg_plane_sums_chains(
             *[a.data_ptr() for a in us], us[0][0].numel(), c, n, x, y, z, t,
-            REDUCE_BLOCK, partials.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), out.data_ptr(),
             build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1

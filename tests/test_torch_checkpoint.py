@@ -6,6 +6,7 @@ resume; a reference chain continued in the port (ROADMAP M8); and the
 port's native generator library against the reference's."""
 
 import os
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -150,8 +151,21 @@ def test_reference_chain_resumes_in_the_port(tmp_path):
     np.testing.assert_allclose(sim.u.numpy(), np.asarray(ref.u), atol=2e-5)
 
 
+def _ref_prngcl_available(deadline_s=60.0):
+    """Whether the reference's native PRNG library loads, waiting for it on
+    a cold checkout: there several test workers build it at once into the
+    same file, not atomically, and a worker that opens the half-written file
+    caches None (qcdgpu_tpu/native/build.py, prngcl.py).  Clear that cache
+    and try again until the writer has finished."""
+    end = time.monotonic() + deadline_s
+    while not ref_prngcl.available() and time.monotonic() < end:
+        ref_prngcl._lib.cache_clear()
+        time.sleep(0.5)
+    return ref_prngcl.available()
+
+
 @pytest.mark.parametrize("gen", ["ranlux3", "xor128", "mrg32k3a"])
 def test_native_prngcl_matches_reference(gen):
-    assert prngcl.available() and ref_prngcl.available()
+    assert prngcl.available() and _ref_prngcl_available()
     np.testing.assert_array_equal(prngcl.fill(gen, 17, 4096),
                                   ref_prngcl.fill(gen, 17, 4096))

@@ -22,6 +22,7 @@ from qcdgpu_tpu.ops.lattice import parity_mask, site_index
 from qcdgpu_tpu.ops.samplers import update_links
 from qcdgpu_tpu.ops.staples import staple_sum
 from qcdgpu_tpu.sim import hot_start
+from qcdgpu_tpu_torch.ops import fastmath as tfm
 from qcdgpu_tpu_torch.ops import rng as trng
 from qcdgpu_tpu_torch.ops.cuda import engine as teng
 from qcdgpu_tpu_torch.ops.cuda import update as tupd
@@ -75,6 +76,54 @@ def test_heatbath_flip_matches_samplers():
                              list(torch.from_numpy(u)), 4)
     np.testing.assert_allclose(torch.stack(got).numpy(), np.asarray(ref),
                                atol=2e-6)
+
+
+def _kp_accepts(q, tbn, r):
+    """Whether one Kennedy-Pendleton trial with uniforms r = (r1, r2, r3,
+    r4) accepts at each site (the acceptance test of heatbath_flip)."""
+    n2 = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]
+    k = n2 * (1.0 / torch.sqrt(torch.clamp(n2, min=tfm.f32(1e-38))))
+    inv2a = 1.0 / (2.0 * torch.clamp(tbn * k, min=tfm.f32(1e-10)))
+    lam2 = -inv2a * (tfm.log_u01(r[0])
+                     + tfm.cos2_2pi(r[1]) * tfm.log_u01(r[2]))
+    return (r[3] * r[3]) <= (1.0 - lam2)
+
+
+@pytest.mark.parametrize("scale,seed", [(0.05, 0), (0.3, 1), (2.0, 2)])
+def test_heatbath_flip_ignores_trials_after_first_accept(scale, seed):
+    """The kernels stop a site's trials at its first accepted one (and do
+    not draw the rest from a counter-based source): heatbath_flip's
+    multiplier and exhausted count must not change when every later
+    trial's uniforms are replaced by fresh ones."""
+    rs = np.random.default_rng(seed)
+    sites, k_trials = 4096, 4
+    q = tuple(torch.from_numpy(
+        rs.standard_normal((4, sites)).astype(np.float32) * scale))
+    u = list(torch.from_numpy(
+        rs.uniform(1e-6, 1.0, (4 * k_trials + 2, sites)).astype(np.float32)))
+    tbn = tupd.two_beta_over_n(BETA, 3)
+    first = torch.full((sites,), k_trials)  # k_trials: none accepted
+    for t in reversed(range(k_trials)):
+        first = torch.where(_kp_accepts(q, tbn, u[4 * t: 4 * t + 4]), t,
+                            first)
+    # later trials decide some sites, and some sites have trials after
+    # their deciding one
+    assert ((first > 0) & (first < k_trials)).any()
+    assert (first < k_trials - 1).any()
+    fresh = torch.from_numpy(
+        rs.uniform(1e-6, 1.0, (4 * k_trials, sites)).astype(np.float32))
+    later = [torch.where(first < i // 4, fresh[i], u[i])
+             for i in range(4 * k_trials)] + u[4 * k_trials:]
+    ref, n_ref = tupd.heatbath_flip(q, tbn, u, k_trials, with_count=True)
+    got, n_got = tupd.heatbath_flip(q, tbn, later, k_trials,
+                                    with_count=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(n_got) == int(n_ref) == int((first == k_trials).sum())
+    # the deciding trial itself does matter
+    moved = [torch.where(first == i // 4, fresh[i], u[i])
+             for i in range(4 * k_trials)] + u[4 * k_trials:]
+    other = tupd.heatbath_flip(q, tbn, moved, k_trials)
+    assert not all(torch.equal(a, b) for a, b in zip(other, ref))
 
 
 def test_stage_refuses_bad_input(u0):
