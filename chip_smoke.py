@@ -9,15 +9,19 @@ and nvcc.  With ``--cards N`` it builds the kernels and runs only phase 7:
 the bench configuration on an XY mesh, SU(3) heat-bath + 1 OR with
 track_kp_exhaust on an X mesh and prngcl:ranlux3 on an XY mesh, each with
 its shards spread over N cards, against the unsharded chain on card 0
-(links, series and streams bit-identical).  With no argument, phases 1-6,
+(links, series and streams bit-identical); then a scan of 2N chains on
+(2,2,1,1) with its N chain blocks on the N cards against one block on
+card 0 (links and series bit-identical).  With no argument, phases 1-6,
 each timed:
 
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
   2. build      — nvcc builds csrc/*.cu into build/ (one process per
                   source, all at once); registers, stack frame and spills
                   of every kernel instantiation, threefry, Philox and
-                  stream, unsharded, on a shard (K1a, K5a, K5b: "_shard")
-                  and over a chain axis (K1c: "_chains"), every K1 and K3
+                  stream, unsharded, on a shard (K1a, K5a, K5b: "_shard"),
+                  over a chain axis (K1c: "_chains") and both (K1ac:
+                  "_shard_chains"; K5a/K5b and K5ac/K5bc share their
+                  kernels, as K3/K4 and K3c/K4c do), every K1 and K3
                   instantiation with no stack frame and no spills (a
                   ranlux window's frame excepted); the static SASS
                   instruction mix of K1 Philox SU(3) heat-bath and K3
@@ -54,7 +58,19 @@ each timed:
                   against K1 on every chain's arrays (|d| 0, per-chain
                   counts equal); K2c, K3c, K4c against their twins and
                   against K2, K3, K4 per chain (bit-identical) at both
-                  shapes (24^3 x 6: SU(3));
+                  shapes (24^3 x 6: SU(3)); every K1ac instantiation over
+                  the 8 stages of a sweep on the shards of 8^4 on (2,2,1,1)
+                  with 3 chains (the shape and mesh of its own phase-5
+                  scan), and SU(3) HB, OR and tracked HB at 24^3 x 6 on
+                  (2,2,1,1) with the scan's 11 chains, the halo refresh
+                  between stages, against its plain twin and K1a on every
+                  chain's padded arrays (|d| 0, per-chain counts equal);
+                  SU(3) HB and OR the same way at the chain blocks of
+                  phase 5's other mesh scans: 32^4 with 2 chains and with
+                  1, 12^3 x 6 with each 2-chain block of the
+                  CLI scan; K5ac/K5bc against their twins and bit-identical
+                  to K5a/K5b per chain, and K2c on padded arrays
+                  bit-identical to K2 per chain, at all of these shapes;
   4. timing     — each instantiation and its plain version at 32^4, CUDA
                   events, in the order plain, kernel, kernel (K2
                   over the 8 arrays in turn, per array), beside its bound
@@ -68,7 +84,9 @@ each timed:
                   instantiation, K2c, K3c and K4c at 24^3 x 6 with 11
                   chains, each beside the loop of 11 single-chain launches
                   on the chain views that it replaces, its bound C times
-                  the single chain's;
+                  the single chain's; every K1ac instantiation, K5ac and
+                  K5bc on shard 0 of 24^3 x 6 on (2,2,1,1) with 11 chains,
+                  beside the loop of 11 K1a (K5a, K5b) launches;
   5. main paths — first small hot starts through the library API, CUDA
                   against the CPU path (threefry slices, and ranlux3).
                   Then Simulation(cfg) with no device argument at 32^4
@@ -107,10 +125,19 @@ each timed:
                   ms/sweep and idle share, every chain bit-identical to
                   its own Simulation (seed + 1000 c, betas[c]; links and
                   series), which run one after the other for the time
-                  they take; and `cli.main(["scan", ...])` 10 + 10 sweeps
-                  then `scan --resume-state` for 10, with exact launch
-                  counts, whose series and links must equal an
-                  uninterrupted scan's;
+                  they take; the same scans on mesh (2,2,1,1) (the chain x
+                  lattice scan: 96 K1ac launches per sweep), every chain's
+                  links bit-identical to the unsharded scan's and its
+                  series within 1e-6, and bit-identical to its sharded
+                  Simulation on the mesh; the reference's layout example,
+                  2 chains of 32^4 on (2,2,1,1), chain_mesh 2 bit-identical
+                  to 1; every K1c and K1ac instantiation's own 3-chain 8^4
+                  scan, unsharded and on (2,2,1,1); `cli.main(["scan",
+                  ...])` 10 + 10 sweeps then `scan --resume-state` for 10,
+                  with exact launch counts, whose series and links must
+                  equal an uninterrupted scan's, and the same at 12^3 x 6
+                  with `--mesh 2,2,1,1 --chain-mesh 2`, resumed with
+                  `--chain-mesh 1`;
   6. physics    — through the port's validate.py (its anchors, windows and
                   chains): SU(3) 16^4 beta=6.0 heat-bath (window 0.5937 +-
                   5e-4) and the same on mesh (2,2,1,1), which must
@@ -123,7 +150,9 @@ each timed:
                   beta=2.4 Metropolis with track_acceptance in the
                   literature window; check_deconfinement (BASELINE config
                   3: 24^3 x 6, beta 5.894 -+ 0.25, HB + 1 OR, 200 + 300
-                  sweeps, one two-chain BetaScan) with threefry and hw;
+                  sweeps, one two-chain BetaScan) with threefry and hw,
+                  each also on (2,2,1,1) in 2 chain blocks with the
+                  unsharded <|P|> (within 1e-6);
                   `python -m qcdgpu_tpu_torch rngtest` with the native
                   host generators built.
 
@@ -172,6 +201,13 @@ THERM, RUN = 20, 20
 SCAN_DIMS = (24, 24, 24, 6)
 SCAN_GRID = "5.6:6.1:11"
 CHAIN_BETAS = {3: (5.5, 5.9, 6.3), 2: (2.1, 2.3, 2.5)}
+# the chain x lattice scan (K1ac, K5ac, K5bc): config 3 on MESH, and the
+# reference's own example of the layout (qcdgpu_tpu/parallel/mesh.py:
+# 89-97), a 2-beta scan of 32^4 lattices on (2,2,1,1) in 2 chain blocks
+LAYOUT_BETAS = (5.9, 6.1)
+# the command line's scan on a mesh: 4 chains in 2 blocks
+CLI_MESH_DIMS = (12, 12, 12, 6)
+CLI_MESH_GRID = "5.6:6.1:4"
 
 # One H100 SXM, NVIDIA's data sheet: HBM bandwidth and f32 rate outside the
 # tensor cores.  Integer operations run on their own pipe: 64 32-bit integer
@@ -697,6 +733,35 @@ def multicard(n_cards):
                   f"ms/sweep  [{smi[0]}]")
             require(same and len(used) == n_cards,
                     f"{label}: mesh {mesh} on {n_cards} cards differs")
+        # the chain x lattice scan with its chain blocks spread over the
+        # cards (block b on card b) against one block on card 0: config 3's
+        # lattice and sweep on MESH, 2 chains per card
+        from qcdgpu_tpu_torch.models import BetaScan, baseline_config
+
+        cfg = baseline_config(3).replace(mesh=MESH)
+        betas = np.linspace(5.6, 6.1, 2 * n_cards)
+        out = []
+        for blocks, devices in ((1, None), (n_cards, cards)):
+            scan = BetaScan(cfg, betas, blocks, device="cuda:0",
+                            devices=devices)
+            scan.warmup()
+            t0 = time.perf_counter()
+            scan.thermalize(10)
+            obs = scan.run(10, 1)
+            ms = (time.perf_counter() - t0) / 20 * 1e3
+            used = sorted({str(d) for g in scan._run.grid.grids
+                           for d in g.devices})
+            out.append((tuple(a.cpu() for a in scan.us), obs, ms, used))
+            del scan
+        (u1, o1, ms1, _), (un, on, msn, used) = out
+        same = (all(torch.equal(a, b) for a, b in zip(u1, un))
+                and np.array_equal(o1, on))
+        print(f"scan of {len(betas)} chains on mesh {MESH}: {n_cards} chain "
+              f"blocks on {used} vs one block on cuda:0, thermalize(10) + "
+              f"run(10, 1): links and series bit-identical {same}; "
+              f"{msn:.3f} vs {ms1:.3f} ms/sweep  [{smi[0]}]")
+        require(same and len(used) == n_cards,
+                f"chain blocks on {n_cards} cards differ")
     print(smi[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -756,6 +821,11 @@ def main():
         # 125); its Philox instantiations K9's too
         record[name] = (name, "stage_chains.cu", "update.py:543"
                         if "_philox" in name else "update.py:460")
+    for name in cupdate.CHAIN_SHARD_INSTANCES:
+        # K1ac: the shard form of _stage_kernel vmapped over a chain block
+        # (models/ensemble.py:96-131); its Philox instantiations K9's too
+        record[name] = (name, "stage_chains_sharded.cu", "update.py:543"
+                        if "_philox" in name else "update.py:602")
     for n in GROUPS:
         record[f"reunit_chains_su{n}"] = (f"reunit_chains_su{n}", "reunit.cu",
                                           "reunit.py:22")
@@ -764,6 +834,12 @@ def main():
         record[f"polyakov_sums_chains_su{n}"] = (
             f"polyakov_sums_chains_su{n}", "measure.cu", "measure.py:155")
     for n in GROUPS:
+        # K5ac / K5bc: the sharded measurement bodies over a chain block
+        record[f"plane_sums_local_chains_su{n}"] = (
+            f"plane_sums_local_chains_su{n}", "measure.cu", "measure.py:269")
+        record[f"polyakov_sums_local_chains_su{n}"] = (
+            f"polyakov_sums_local_chains_su{n}", "measure.cu",
+            "measure.py:349")
         record[f"plane_sums_local_su{n}"] = (f"plane_sums_local_su{n}",
                                              "measure.cu", "measure.py:269")
         record[f"polyakov_sums_local_su{n}"] = (
@@ -1016,6 +1092,68 @@ def main():
                             lst.append(x.tolist())
         return {t: tuple(o) for t, o in out.items()}
 
+    def k1ac_compare(n, kind, hw, dims, betas, k_trials):
+        """K1ac on the shards of dims on MESH over the 8 stages of a sweep
+        (sweep index 3) in sweep order, C hot starts, as k1c_compare: each
+        instantiation (untracked and, where the kind draws, tracked) on its
+        own copy of the shards, K1a (tracked where the kind draws) on each
+        chain's padded arrays of another copy, the plain twin on the
+        originals; each copy's halos refreshed after every stage, whole
+        padded arrays compared.  -> {track: (max |d| vs twin, max |d| vs
+        K1a per chain, per-stage per-chain counts: kernel, twin, K1a)}."""
+        us, b_t, k_t, keys = chain_inputs(dims, n, betas)
+        grid = ShardGrid(dims, MESH, [dev])
+        mode = "hw" if hw else "threefry"
+        draws = kind != "overrelax"
+        tracks = (False, True) if draws else (False,)
+
+        def zeros():
+            return torch.zeros(len(betas), dtype=torch.int64, device=dev)
+
+        def stage(shards, k1a, mu, p, count):
+            for g, sh in zip(grid.shards, shards):
+                if not k1a:
+                    cupdate.stage_update_chains(
+                        sh, mu, p, b_t, k_t, 3, 4 * p + mu, dims, k_trials,
+                        kind=kind, count=count, rng_mode=mode, shard=g)
+                    continue
+                for c, beta in enumerate(b_t.tolist()):
+                    key = (rng.stage_key(keys[c], 3, 4 * p + mu) if draws
+                           else (0, 0))
+                    cupdate.stage_update(
+                        tuple(a[c] for a in sh), mu, p, beta, key, dims,
+                        k_trials, kind=kind, rng_mode=mode, shard=g,
+                        count=None if count is None else count[c:c + 1])
+            sharded.refresh_halos(shards, grid, (2 * mu + p,))
+
+        base = sharded.shard_links(us, grid)
+        got = {t: tuple(tuple(a.clone() for a in sh) for sh in base)
+               for t in tracks}
+        one = tuple(tuple(a.clone() for a in sh) for sh in base)
+        out = {t: [0.0, 0.0, ([], [], [])] for t in tracks}
+        for p in (0, 1):
+            for mu in range(4):
+                counts = {t: zeros() if t else None for t in tracks}
+                c_p, c_1 = (zeros(), zeros()) if draws else (None, None)
+                for t in tracks:
+                    stage(got[t], False, mu, p, counts[t])
+                stage(one, True, mu, p, c_1)
+                for g, sh in zip(grid.shards, base):
+                    cupdate.stage_update_chains_ref(
+                        sh, mu, p, b_t, k_t, 3, 4 * p + mu, dims, k_trials,
+                        kind=kind, count=c_p, rng_mode=mode, shard=g)
+                sharded.refresh_halos(base, grid, (2 * mu + p,))
+                for t in tracks:
+                    o = out[t]
+                    for shk, shp, sh1 in zip(got[t], base, one):
+                        for a, b, c in zip(shk, shp, sh1):
+                            o[0] = max(o[0], float((a - b).abs().max()))
+                            o[1] = max(o[1], float((a - c).abs().max()))
+                    if t:
+                        for lst, x in zip(o[2], (counts[t], c_p, c_1)):
+                            lst.append(x.tolist())
+        return {t: tuple(o) for t, o in out.items()}
+
     def source_note(gen):
         return (f" ({gen}; words bit-identical)" if is_stream(gen)
                 else " (hw: Philox; bit-identical)" if gen else "")
@@ -1248,6 +1386,96 @@ def main():
             require(k2_twin < REUNIT_TOL and k2_single == 0.0
                     and d3 < PLANE_TOL and d4 < POLY_TOL and same, msg)
         mark("K2c-K4c")
+        # K1ac: every instantiation at STREAM_SMALL_RUN on MESH (the shape
+        # and mesh of its own phase-5 scan) with 3 chains of distinct beta;
+        # SU(3) HB (threefry and Philox, untracked and tracked) and OR at
+        # SCAN_DIMS on MESH with the scan's 11 chains (config 3 on the
+        # mesh); SU(3) HB and OR at the chain blocks of phase 5's other
+        # mesh scans: the 32^4 layout scan's (both chains in one block, and
+        # the second chain alone, as in its 2 blocks) and the CLI scan's
+        # (12^3 x 6, its 2 blocks of 2 chains); heat-bath with the scans'
+        # K
+        cli_betas = cli._parse_betas(CLI_MESH_GRID)
+        cases = [(n, kind, hw, STREAM_SMALL_RUN, CHAIN_BETAS[n])
+                 for n in GROUPS for kind in cupdate.KINDS
+                 for hw in (False, True) if not (hw and kind == "overrelax")]
+        cases += [(3, kind, hw, SCAN_DIMS, scan_betas)
+                  for kind, hw in (("heatbath", False), ("heatbath", True),
+                                   ("overrelax", False))]
+        cases += [(3, kind, False, dims, betas)
+                  for dims, betas in ((BIG, LAYOUT_BETAS),
+                                      (BIG, LAYOUT_BETAS[1:]),
+                                      (CLI_MESH_DIMS, cli_betas[:2]),
+                                      (CLI_MESH_DIMS, cli_betas[2:]))
+                  for kind in ("heatbath", "overrelax")]
+        for n, kind, hw, dims, betas in cases:
+            t0 = time.perf_counter()
+            k_trials = 1 if (kind == "heatbath"
+                             and dims == STREAM_SMALL_RUN) else 4
+            res = k1ac_compare(n, kind, hw, dims, betas, k_trials)
+            secs = time.perf_counter() - t0
+            for track, (d_twin, d_k1a, (ck, cp, c1)) in res.items():
+                name = cupdate.instance_name(
+                    kind, n, track, shard=True,
+                    philox=hw and kind != "overrelax", chains=True)
+                note_err(name, d_twin)
+                msg = (f"K1ac {name} {dims} mesh {MESH} x {len(betas)} "
+                       f"chains: max |d| {d_twin:.3e} vs plain twin, "
+                       f"{d_k1a:.3e} vs K1a per chain")
+                if track:
+                    msg += (f"; per-chain counts kernel {ck[-1]} twin "
+                            f"{cp[-1]} K1a {c1[-1]} (last stage, K="
+                            f"{k_trials}, {sum(map(sum, ck))} in the sweep)")
+                print(msg + f" ({secs:.1f} s with its pair)")
+                require(d_twin == 0.0 and d_k1a == 0.0 and ck == cp == c1,
+                        msg)
+        mark("K1ac")
+        # K5ac, K5bc against their twins (PLANE_TOL, POLY_TOL) and against
+        # K5a, K5b on every chain's padded arrays (bit-identical); K2c on
+        # the padded arrays against K2 per chain, at the shapes K1ac is
+        # held at
+        for n, dims, betas in [(n, STREAM_SMALL_RUN, CHAIN_BETAS[n])
+                               for n in GROUPS] + [
+                (3, SCAN_DIMS, scan_betas), (3, BIG, LAYOUT_BETAS),
+                (3, BIG, LAYOUT_BETAS[1:]), (3, CLI_MESH_DIMS, cli_betas[:2]),
+                (3, CLI_MESH_DIMS, cli_betas[2:])]:
+            us, _, _, _ = chain_inputs(dims, n, betas)
+            grid = ShardGrid(dims, MESH, [dev])
+            nc = len(betas)
+            d5a = d5b = k2 = 0.0
+            same = True
+            for g, sh in zip(grid.shards, sharded.shard_links(us, grid)):
+                vol = n * int(np.prod(g.interior))
+                p3 = cmeasure.plane_sums_chains(sh, dims, g)
+                p4 = cmeasure.polyakov_sums_chains(sh, dims, g)
+                d5a = max(d5a, float(
+                    (p3 - cmeasure.plane_sums_chains_ref(sh, dims, g)
+                     ).abs().max()) / vol)
+                d5b = max(d5b, float(
+                    (p4 - cmeasure.polyakov_sums_chains_ref(sh, dims, g)
+                     ).abs().max()) / (vol // dims[3]))
+                for c in range(nc):
+                    view = tuple(a[c] for a in sh)
+                    same = same and torch.equal(
+                        p3[c], cmeasure.plane_sums_local(view, g)) and (
+                        torch.equal(p4[c],
+                                    cmeasure.polyakov_sums_local(view, g)))
+                drift = sh[5] * 1.001
+                got = creunit.reunitarize_chains(drift.clone(), g.padded)
+                for c in range(nc):
+                    creunit.reunitarize_dir(drift[c], g.padded)
+                k2 = max(k2, float((got - drift).abs().max()))
+            note_err(f"plane_sums_local_chains_su{n}", d5a)
+            note_err(f"polyakov_sums_local_chains_su{n}", d5b)
+            msg = (f"SU({n}) {dims} mesh {MESH} x {nc} chains, per shard: "
+                   f"K5ac |d sum|/(N vol) {d5a:.3e} (< {PLANE_TOL}), K5bc "
+                   f"{d5b:.3e} (< {POLY_TOL}) vs twins; K5ac, K5bc "
+                   f"bit-identical to K5a, K5b per chain: {same}; K2c on "
+                   f"the padded arrays vs K2 per chain: max |d| {k2:.3e}")
+            print(msg)
+            require(d5a < PLANE_TOL and d5b < POLY_TOL and same and k2 == 0.0,
+                    msg)
+        mark("K5ac, K5bc, K2c on padded arrays")
 
     def time_pairs(pairs, dims, shard=None):
         """Time each (plain, kernel) pair: plain, kernel, kernel (the plain
@@ -1479,6 +1707,79 @@ def main():
                       f"{nc * f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  "
                       f"[{smi}]")
             del us, views, cpairs
+
+        # K1ac, K5ac, K5bc on shard 0 of SCAN_DIMS on MESH over the scan's
+        # 11 chains, as K1c above: each beside the loop of single-chain K1a
+        # (K5a, K5b) launches on the chain views that it replaces; bound =
+        # C x the single chain's work on the shard
+        for n in GROUPS:
+            us, b_t, k_t, keys = chain_inputs(SCAN_DIMS, n, scan_betas)
+            grid = ShardGrid(SCAN_DIMS, MESH, [dev])
+            g0 = grid.shards[0]
+            s0 = sharded.shard_links(us, grid)[0]
+            del us
+            views = [tuple(a[c] for a in s0) for c in range(nc)]
+            betas = b_t.tolist()
+            cnt_c = torch.zeros(nc, dtype=torch.int64, device=dev)
+            cnt_1 = torch.zeros(1, dtype=torch.int64, device=dev)
+            keys1 = [rng.stage_key(k, 0, 1) for k in keys]
+            cpairs = {}
+            for n_, kind, track in k1_cases:
+                for hw in (False, True):
+                    if n_ != n or (hw and kind == "overrelax"):
+                        continue
+                    ph = hw and kind != "overrelax"
+                    kw = dict(kind=kind, count=cnt_c if track else None,
+                              rng_mode="hw" if hw else "threefry", shard=g0)
+                    kw1 = dict(kw, count=cnt_1 if track else None)
+                    cpairs[cupdate.instance_name(
+                        kind, n, track, shard=True, philox=ph,
+                        chains=True)] = (
+                        lambda kw=kw: cupdate.stage_update_chains_ref(
+                            s0, 1, 0, b_t, k_t, 0, 1, SCAN_DIMS, **kw),
+                        lambda kw=kw: cupdate.stage_update_chains(
+                            s0, 1, 0, b_t, k_t, 0, 1, SCAN_DIMS, **kw),
+                        lambda kw1=kw1, kind=kind: [
+                            cupdate.stage_update(
+                                v, 1, 0, betas[c], keys1[c]
+                                if kind != "overrelax" else (0, 0),
+                                SCAN_DIMS, **kw1)
+                            for c, v in enumerate(views)],
+                        1, 40, cupdate.instance_name(kind, n, track,
+                                                     shard=True, philox=ph),
+                        0 if kind == "overrelax"
+                        else nc * THREEFRY_CALL_OPS)
+            for k in ("plane_sums", "polyakov_sums"):
+                kern, ref, one = (getattr(cmeasure, f"{k}_chains"),
+                                  getattr(cmeasure, f"{k}_chains_ref"),
+                                  getattr(cmeasure, f"{k}_local"))
+                cpairs[f"{k}_local_chains_su{n}"] = (
+                    lambda ref=ref: ref(s0, SCAN_DIMS, g0),
+                    lambda kern=kern: kern(s0, SCAN_DIMS, g0),
+                    lambda one=one: [one(v, g0) for v in views],
+                    1, 40, f"{k}_local_su{n}", 0)
+            for name, (plain, kern, loop, r_plain, reps, single,
+                       extra) in cpairs.items():
+                p1 = event_ms(plain, r_plain, warm=False)
+                k1 = event_ms(kern, reps)
+                l1 = event_ms(loop, reps)
+                k2_ = event_ms(kern, reps)
+                l2 = event_ms(loop, reps)
+                rec = record[name]
+                rec["ms"], rec["plain_ms"] = (k1 + k2_) / 2, p1
+                nbytes, f32_ops, int_ops = work(single, g0.interior,
+                                                shard=g0)
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    nc * nbytes, nc * f32_ops, nc * int_ops + extra)
+                print(f"{name} {SCAN_DIMS} mesh {MESH} shard 0 x {nc} "
+                      f"chains: kernel {k1:.4f} / {k2_:.4f} ms, the loop of "
+                      f"{nc} single-chain launches it replaces {l1:.4f} / "
+                      f"{l2:.4f} ms, plain {p1:.4f} ms, bound "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                      f"-fmad=false f32 floor "
+                      f"{nc * f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  "
+                      f"[{smi}]")
+            del s0, views, cpairs
 
     with Phase("5 main paths"):
         mark("before phase 5")
@@ -1789,32 +2090,39 @@ def main():
 
         # the beta scan, BASELINE config 3: SU(3) 24^3 x 6 HB + 2 OR, cold,
         # reunit_every=10, the grid 5.6:6.1:11, through BetaScan on the card
-        def expected_chains(cfg, n_sweeps, n_reunit, n_meas):
-            """Launches per counter of a scan: one K1c launch per stage and
-            one K2c launch per array, K3c + K4c per measurement, for all
-            chains at once."""
+        def expected_chains(cfg, n_sweeps, n_reunit, n_meas, blocks=1):
+            """Launches per counter of a scan: per chain block, one K1c
+            launch per stage and one K2c launch per array, K3c + K4c per
+            measurement, for all its chains at once; on a mesh each of
+            them once per shard, of K1ac and K5ac / K5bc."""
             n = cfg.group
             tracked = cfg.track_acceptance or cfg.track_kp_exhaust
+            k = int(np.prod(cfg.mesh))
+            sh, loc, per = k > 1, "_local" if k > 1 else "", k * blocks
             expect = {
-                cupdate.instance_name(cfg.algorithm, n, tracked,
+                cupdate.instance_name(cfg.algorithm, n, tracked, shard=sh,
                                       philox=cfg.rng_mode == "hw",
-                                      chains=True): 8 * n_sweeps,
-                f"plane_sums_chains_su{n}": n_meas,
-                f"polyakov_sums_chains_su{n}": n_meas,
+                                      chains=True): 8 * n_sweeps * per,
+                f"plane_sums{loc}_chains_su{n}": n_meas * per,
+                f"polyakov_sums{loc}_chains_su{n}": n_meas * per,
             }
             if n_reunit:
-                expect[f"reunit_chains_su{n}"] = 8 * n_reunit
+                expect[f"reunit_chains_su{n}"] = 8 * n_reunit * per
             if cfg.n_or:
-                expect[cupdate.instance_name("overrelax", n, chains=True)] = (
-                    8 * cfg.n_or * n_sweeps)
+                expect[cupdate.instance_name("overrelax", n, shard=sh,
+                                             chains=True)] = (
+                    8 * cfg.n_or * n_sweeps * per)
             return expect
 
-        def drive_scan(label, cfg):
+        def drive_scan(label, cfg, flat=None):
             """BetaScan(cfg, the scan grid) on the card by default:
             warmup(), thermalize(THERM), run(RUN, 1), counters zeroed
             before and read after; then the idle share; then each chain
-            against its own Simulation, run one after the other (links and
-            series bit-identical)."""
+            against its own Simulation (sharded on cfg's mesh), run one
+            after the other (links and series bit-identical); with flat
+            (the unsharded scan's links and series) the links must equal
+            its links bit for bit and the series its series within 1e-6.
+            -> (links, series)."""
             n_sweeps = 2 + THERM + RUN
             n_reunit = sum(1 for i in range(THERM + RUN) if i % 10 == 9)
             expect = expected_chains(cfg, n_sweeps, n_reunit, 1 + RUN)
@@ -1842,7 +2150,9 @@ def main():
                   f"({run_ms / nc:.4f} per chain)  [{smi}]")
             plq = obs[:, -1, 0]
             print(f"  plaquette by beta {[round(float(x), 5) for x in plq]}; "
-                  f"launches {launches}")
+                  f"launches {launches}; per sweep "
+                  f"{sum(v for k, v in expect.items() if k.startswith('stage_')) / n_sweeps:.0f} "
+                  f"stage launches")
             require(obs.shape == (nc, RUN, len(scan.obs_names))
                     and np.isfinite(obs).all(), f"{label}: bad series")
             require(((0.3 < plq) & (plq < 1.0)).all() and plq[-1] > plq[0],
@@ -1852,6 +2162,15 @@ def main():
             for k, v in launches.items():
                 record[k]["launches"] += v
             scan_us = tuple(a.clone() for a in scan.us)
+            if flat is not None:
+                same_links = all(torch.equal(a, b)
+                                 for a, b in zip(scan_us, flat[0]))
+                d_obs = float(np.abs(obs - flat[1]).max())
+                print(f"  against the unsharded scan: links bit-identical "
+                      f"{same_links}; series max |d| {d_obs:.3e} (< 1e-6), "
+                      f"bit-identical {bool(np.array_equal(obs, flat[1]))}")
+                require(same_links and d_obs < 1e-6,
+                        f"{label}: differs from the unsharded scan")
             idle_share(scan)
             del scan
             t0 = time.perf_counter()
@@ -1871,7 +2190,8 @@ def main():
                 del sim
             seq_ms = (time.perf_counter() - t0) / n_sweeps * 1e3
             print(f"  {nc} Simulations one after the other (seed + 1000 c, "
-                  f"betas[c]; warmup, thermalize({THERM}), run({RUN}, 1)): "
+                  f"betas[c], mesh {tuple(cfg.mesh)}; warmup, "
+                  f"thermalize({THERM}), run({RUN}, 1)): "
                   f"thermalize {seq_therm / THERM * 1e3:.3f} ms/sweep of all "
                   f"chains (the scan: {therm_ms:.3f}), run with measurement "
                   f"{seq_run / RUN * 1e3:.3f} (the scan: {run_ms:.3f}); "
@@ -1879,24 +2199,71 @@ def main():
                   f"bit-identical to its scan chain (links, series): "
                   f"{same}  [{smi}]")
             require(all(same), f"{label}: chains differ from Simulations")
+            return scan_us, obs
 
+        # config 3 unsharded, then on MESH (the chain x lattice scan: K1ac,
+        # K5ac, K5bc), each chain against the unsharded scan and its
+        # sharded Simulation
         scan3 = baseline_config(3)
         for mode in ("threefry", "hw"):
-            drive_scan(f"scan: BASELINE config 3, SU(3) {SCAN_DIMS} HB + 2 "
-                       f"OR, {SCAN_GRID}, {mode}",
-                       scan3.replace(rng_mode=mode))
+            flat = drive_scan(f"scan: BASELINE config 3, SU(3) {SCAN_DIMS} "
+                              f"HB + 2 OR, {SCAN_GRID}, {mode}",
+                              scan3.replace(rng_mode=mode))
+            drive_scan(f"scan on mesh {MESH}: BASELINE config 3, SU(3) "
+                       f"{SCAN_DIMS} HB + 2 OR, {SCAN_GRID}, {mode}",
+                       scan3.replace(rng_mode=mode, mesh=MESH), flat)
+            del flat
 
-        mark("config-3 scans")
+        mark("config-3 scans, unsharded and on the mesh")
 
-        # every K1c instantiation through a scan of its own at 8^4, 3
-        # chains of distinct beta: warmup(), thermalize(2), run(2, 1),
-        # reunit_every=2, alternating cold and hot starts, one in three
-        # with 1 OR pass (the overrelaxation instantiations)
-        for i, (n, kind, track, hw) in enumerate(itertools.product(
-                GROUPS, DRAWING, (False, True), (False, True))):
+        # the reference's example of the layout: a 2-beta scan of 32^4
+        # lattices on MESH in 2 chain blocks (here on one card), against
+        # one block: links and series bit-identical
+        layout = SimConfig(group=3, dims=BIG, reunit_every=10, start="cold",
+                           seed=0, mesh=MESH)
+        runs = []
+        for blocks in (1, 2):
+            zero_counters()
+            scan = BetaScan(layout, LAYOUT_BETAS, blocks)
+            scan.warmup()
+            t1 = time.perf_counter()
+            scan.thermalize(10).sync()
+            t2 = time.perf_counter()
+            obs = scan.run(10, 1)
+            t3 = time.perf_counter()
+            launches = {k: v for c in counters for k, v in c.items() if v}
+            expect = expected_chains(layout, 22, 2, 11, blocks)
+            print(f"scan SU(3) {BIG} betas {LAYOUT_BETAS} on mesh {MESH}, "
+                  f"chain_mesh {blocks}: thermalize {(t2 - t1) * 1e2:.3f} "
+                  f"ms/sweep, run with measurement {(t3 - t2) * 1e2:.3f} "
+                  f"ms/sweep; plaquette {obs[:, -1, 0].tolist()}; launches "
+                  f"{launches}  [{smi}]")
+            require(launches == expect, f"chain_mesh {blocks}: launches "
+                    f"{launches}, expected {expect}")
+            for k, v in launches.items():
+                record[k]["launches"] += v
+            runs.append((tuple(a.clone() for a in scan.us), obs))
+            del scan
+        same = (all(torch.equal(a, b) for a, b in zip(*(r[0] for r in runs)))
+                and np.array_equal(runs[0][1], runs[1][1]))
+        print(f"  chain_mesh 2 against 1: links and series bit-identical "
+              f"{same}")
+        require(same, "32^4 layout scan: chain_mesh 2 differs from 1")
+        del runs
+
+        mark("32^4 layout scan")
+
+        # every K1c and K1ac instantiation through a scan of its own at
+        # 8^4, 3 chains of distinct beta, unsharded and on MESH: warmup(),
+        # thermalize(2), run(2, 1), reunit_every=2, alternating cold and
+        # hot starts, one in three with 1 OR pass (the overrelaxation
+        # instantiations)
+        for i, (mesh, n, kind, track, hw) in enumerate(itertools.product(
+                ((1, 1, 1, 1), MESH), GROUPS, DRAWING, (False, True),
+                (False, True))):
             kw = dict(group=n, algorithm=kind, dims=STREAM_SMALL_RUN,
                       reunit_every=2, start=("cold", "hot")[i % 2], seed=i,
-                      n_or=int(i % 3 == 0),
+                      n_or=int(i % 3 == 0), mesh=mesh,
                       rng_mode="hw" if hw else "threefry")
             if track:
                 kw["track_kp_exhaust" if kind == "heatbath"
@@ -1909,8 +2276,8 @@ def main():
             launches = {k: v for c in counters for k, v in c.items() if v}
             expect = expected_chains(cfg, 6, 2, 3)
             label = (f"scan {cfg.rng_mode} SU({n}) {kind} track={track} "
-                     f"n_or={cfg.n_or} {cfg.start} {STREAM_SMALL_RUN} x "
-                     f"{len(CHAIN_BETAS[n])} chains")
+                     f"n_or={cfg.n_or} {cfg.start} {STREAM_SMALL_RUN} mesh "
+                     f"{mesh} x {len(CHAIN_BETAS[n])} chains")
             plq = [round(float(x), 5) for x in obs[:, -1, 0]]
             print(f"{label}: plaquette {plq}"
                   + (f", {scan.obs_names[-1]} {obs[:, :, -1].tolist()}"
@@ -1969,6 +2336,50 @@ def main():
         del whole
         mark("CLI scan + resume")
 
+        # the scan on a mesh from the command line: --mesh MESH
+        # --chain-mesh 2 (4 chains of 12^3 x 6), then --resume-state in one
+        # block; series and links equal an uninterrupted scan's
+        mesh_arg = ",".join(map(str, MESH))
+        dims_arg = ",".join(map(str, CLI_MESH_DIMS))
+        cli_mesh = scan_cli.replace(dims=CLI_MESH_DIMS, mesh=MESH)
+        with tempfile.TemporaryDirectory() as tmp:
+            a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+            cli_launches("scan --mesh --chain-mesh 2",
+                         ["scan", "--dims", dims_arg, "--n-or", "2",
+                          "--betas", CLI_MESH_GRID, "--mesh", mesh_arg,
+                          "--chain-mesh", "2", "--therm", "10", "--sweeps",
+                          "10", "--out", a],
+                         expected_chains(cli_mesh, 22, 2, 11, 2))
+            cli_launches("scan --resume-state --chain-mesh 1",
+                         ["scan", "--resume-state",
+                          os.path.join(a, "scan_state.npz"), "--chain-mesh",
+                          "1", "--sweeps", "10", "--out", b],
+                         expected_chains(cli_mesh, 12, 1, 11))
+            with open(os.path.join(b, "scan.json")) as f:
+                rec_b = json.load(f)
+            _, _, _, u_b, idx_b = load_betascan(
+                os.path.join(b, "scan_state.npz"))
+        whole = BetaScan(cli_mesh.replace(sweeps=20),
+                         cli._parse_betas(CLI_MESH_GRID), 2)
+        whole.warmup().thermalize()
+        obs = whole.run()
+        same_series = all(
+            np.array_equal(np.asarray(rec_b["series"][name], np.float32),
+                           obs[:, 10:, k])
+            for k, name in enumerate(whole.obs_names))
+        same_links = np.array_equal(u_b, whole.u.cpu().numpy())
+        print(f"CLI scan {CLI_MESH_DIMS} mesh {MESH} chain_mesh 2, 10 + 10 "
+              f"sweeps, then --resume-state --chain-mesh 1 for 10: series "
+              f"and links bit-identical to an uninterrupted scan: "
+              f"{same_series and same_links}; timings {rec_b['timings']}  "
+              f"[{smi}]")
+        require(same_series and same_links and idx_b == 30
+                and rec_b["config"]["mesh"] == list(MESH),
+                "CLI scan on a mesh + resume differs from the uninterrupted "
+                "scan")
+        del whole
+        mark("CLI scan on a mesh + resume")
+
     def gate(r):
         """Print a validate.py check's result and require it to pass."""
         sg = r.get("self_regression")
@@ -2025,14 +2436,25 @@ def main():
         del sim
 
         # BASELINE config 3: deconfinement across beta_c(N_t = 6) on 24^3 x
-        # 6, one two-chain BetaScan, threefry and hw
+        # 6, one two-chain BetaScan, threefry and hw; then on MESH in 2
+        # chain blocks, which must give the unsharded <|P|> digits
         for mode in ("threefry", "hw"):
-            r = validate.check_deconfinement(rng_mode=mode)
-            msg = (f"{r['name']}: <|P|> below {r['measured']['below']:.6f}, "
-                   f"above {r['measured']['above']:.6f} ({r['expected']}); "
-                   f"pass {r['pass']}")
-            print(msg)
-            require(r["pass"], msg)
+            flat = None
+            for kw in ({}, dict(mesh=MESH, chain_mesh=2)):
+                r = validate.check_deconfinement(rng_mode=mode, **kw)
+                msg = (f"{r['name']}: <|P|> below "
+                       f"{r['measured']['below']:.7f}, above "
+                       f"{r['measured']['above']:.7f} ({r['expected']}); "
+                       f"pass {r['pass']}")
+                print(msg)
+                require(r["pass"], msg)
+                if flat is None:
+                    flat = r["measured"]
+                    continue
+                d = max(abs(r["measured"][k] - flat[k]) for k in flat)
+                print(f"  |d| from the unsharded scan's <|P|>: {d:.1e} "
+                      "(< 1e-6)")
+                require(d < 1e-6, f"{r['name']}: differs from unsharded")
 
         # the PRNG self-test from the command line; the native host
         # generators must build here

@@ -13,7 +13,8 @@ too).  Subcommands:
   validate  physics acceptance suite (BASELINE configs 1-5)
   rngtest   PRNG self-test (threefry, Philox, native and device streams)
   scan      beta scan: one chain per beta in one batched run (BetaScan),
-            scan.json, scan_state.npz; --resume-state continues it
+            scan.json, scan_state.npz; --resume-state continues it (on any
+            --mesh and --chain-mesh)
 
 --device (default cuda) picks the card, or the CPU, where the kernels'
 plain PyTorch versions run; without a card the default raises.
@@ -26,6 +27,8 @@ Examples:
       --algorithm heatbath --n-or 1 --therm 300 --sweeps 500 --out out/
   python -m qcdgpu_tpu_torch scan --dims 24,24,24,6 --n-or 2 \
       --betas 5.6:6.1:11 --therm 200 --sweeps 400 --out scan/
+  python -m qcdgpu_tpu_torch scan --dims 32 --betas 5.9,6.1 \
+      --mesh 2,2,1,1 --chain-mesh 2 --therm 100 --sweeps 200 --out scan2/
 """
 
 from __future__ import annotations
@@ -307,8 +310,10 @@ def cmd_scan(args):
     from .utils.stats import analyze_series, susceptibility
 
     if args.resume_state:
+        # the checkpoint holds the global fields: --mesh and --chain-mesh
+        # lay the resumed scan out anew
         scan = BetaScan.load(args.resume_state, chain_mesh=args.chain_mesh,
-                             device=args.device)
+                             device=args.device, mesh=args.mesh)
         cfg = scan.cfg
         betas = [float(b) for b in scan.betas]
     else:
@@ -450,9 +455,13 @@ def main(argv=None):
     p.add_argument("--resume-state", dest="resume_state", default=None,
                    help="continue a scan from its scan_state.npz")
     p.add_argument("--chain-mesh", dest="chain_mesh", type=int, default=0,
-                   help="devices the chains spread over: 0 (auto) and 1 "
-                        "run every chain on --device (more is not ported "
-                        "yet, M15)")
+                   help="blocks the chains are cut into (must divide the "
+                        "number of betas); 0 (auto): 1, as every block "
+                        "sits on --device.  Blocks are there for parity "
+                        "with the reference and make a scan slower (one "
+                        "host thread launches them in turn).  With --mesh "
+                        "mx,my,1,1 every chain's lattice is also split "
+                        "into X/Y shards")
     p.set_defaults(fn=cmd_scan)
 
     p = sub.add_parser("info", help="device info")

@@ -53,6 +53,14 @@
 // models/ensemble.py:129-131): partials [C, n_blocks, k], and the finish
 // kernel one block per chain.  Each chain's blocks and finish run in K3 /
 // K4's order, so its sums are K3 / K4's on that chain's arrays, bit for bit.
+// K5ac / K5bc (qg_plane_sums_local_chains, qg_polyakov_sums_local_chains)
+// are the same on one shard of a scan on an X/Y mesh: a block of chains'
+// padded arrays [C, 2, N, 2, lx + 2 hx, ly + 2 hy, Z*T/2] (the reference
+// vmaps the sharded measurement body, ops/pallas/sharded.py, over each
+// device's chain block, models/ensemble.py:96-131); chain c's sums are
+// K5a / K5b's on its own padded arrays, bit for bit.  The caller adds each
+// chain's shard sums in shard order.  One kernel serves one chain and C:
+// the single-chain entry points pass C = 1 and a chain stride of 0.
 //
 // Reduction: the TPU kernels carry f32 Kahan sums across a sequential grid;
 // blocks here run in no order, so each block reduces its threads' f64
@@ -65,11 +73,6 @@
 #include "common.cuh"
 
 namespace qg {
-
-// Only the unsharded geometry has a chain axis (K3c/K4c): the shard forms
-// (K5a/K5b) compile without its offsets.
-template <class D> constexpr bool kChains = false;
-template <> constexpr bool kChains<Dims> = true;
 
 // K3's block (the wrappers' REDUCE_BLOCK) and the blocks an SM must hold
 // at once, which caps its registers at 65536 / (256 x 2) = 128 (SU(3)
@@ -123,11 +126,9 @@ template <int N, class D>
 __global__ void __launch_bounds__(kPlaneThreads, kPlaneMinBlocks)
 plane_sums_kernel(Links L, D d, long long chain_stride,
                   double* __restrict__ partials) {
-  if constexpr (kChains<D>) {
-    const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
+  const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) L.p[k] += off;
-  }
+  for (int k = 0; k < 8; ++k) L.p[k] += off;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   float tr6[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (g < 2 * n_sites(d)) plane_site<N>(L, g, d, tr6);
@@ -302,12 +303,10 @@ __global__ void polyakov_sums_kernel(const float* __restrict__ u6,
                                      long long chain_stride,
                                      double* __restrict__ partials) {
   extern __shared__ double sh[];
-  if constexpr (kChains<D>) {
-    const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
-    u6 += off;
-    u7 += off;
-    partials += (size_t)blockIdx.y * gridDim.x * 2;
-  }
+  const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
+  u6 += off;
+  u7 += off;
+  partials += (size_t)blockIdx.y * gridDim.x * 2;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int n_col = d.x * d.y * d.z;
   float tr_re = 0.f, tr_im = 0.f;
@@ -499,4 +498,35 @@ extern "C" int qg_polyakov_sums_chains(void* u6, void* u7,
                            qg::make_dims(X, Y, Z, T), block, (double*)partials,
                            (double*)out, (cudaStream_t)stream, n_chains,
                            chain_stride);
+}
+
+// K5ac: qg_plane_sums_local over n_chains chain-stacked padded arrays of one
+// shard (u0..u7 [C, 2, n, 2, lx + 2 hx, ly + 2 hy, Z*T/2]; chain_stride the
+// padded floats per chain); partials f64 [n_chains * n_blocks * 6], out f64
+// [n_chains, 6]
+extern "C" int qg_plane_sums_local_chains(
+    void* u0, void* u1, void* u2, void* u3, void* u4, void* u5, void* u6,
+    void* u7, long long chain_stride, int n_chains, int n, int lx, int ly,
+    int Z, int T, int hx, int hy, int x0, int y0, int gy, void* partials,
+    void* out, void* stream) {
+  const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
+                        (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
+  return qg::plane_sums(L, n,
+                        qg::make_shard_dims(lx, ly, Z, T, hx, hy, x0, y0, gy),
+                        (double*)partials, (double*)out, (cudaStream_t)stream,
+                        n_chains, chain_stride);
+}
+
+// K5bc: qg_polyakov_sums_local over n_chains chain-stacked padded temporal
+// arrays of one shard; partials f64 [n_chains * n_blocks * 2], out f64
+// [n_chains, 2]
+extern "C" int qg_polyakov_sums_local_chains(
+    void* u6, void* u7, long long chain_stride, int n_chains, int n, int lx,
+    int ly, int Z, int T, int hx, int hy, int x0, int y0, int gy, int block,
+    void* partials, void* out, void* stream) {
+  return qg::polyakov_sums(
+      (const float*)u6, (const float*)u7, n,
+      qg::make_shard_dims(lx, ly, Z, T, hx, hy, x0, y0, gy), block,
+      (double*)partials, (double*)out, (cudaStream_t)stream, n_chains,
+      chain_stride);
 }

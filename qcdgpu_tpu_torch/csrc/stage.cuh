@@ -20,7 +20,9 @@
 //
 // K1c, the same stage over the C chains of a beta scan in one launch
 // (stage_chains_kernel below, built from stage_chains.cu): each chain runs
-// stage_site on its own arrays with its own coupling and key.
+// stage_site on its own arrays with its own coupling and key.  K1ac is K1c
+// on a shard (D = ShardDims, stage_chains_sharded.cu): a block of chains
+// of a scan on an X/Y mesh.
 //
 // What it computes, for every site x of parity p (one thread each):
 //   A = sum_{nu != mu} [ U_nu(x+mu) (U_nu(x) U_mu(x+nu))^+
@@ -84,6 +86,8 @@
 // so no thread reads a link another thread writes; a stream's words are the
 // thread's own site's too.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -402,10 +406,29 @@ int launch_stage(const Links& L, int mu, int parity, const D& d,
 // so a stage costs one launch and no host key for any C.  Each site runs
 // the single-chain stage_site, so chain c computes exactly what K1 does on
 // its own arrays; the tracked count goes to count[c].
-template <int N, int KIND, bool TRACK, class R>
-__global__ void __launch_bounds__(kStageThreads, kStageMinBlocks)
+//
+// K1ac, the same kernel with D = ShardDims (stage_chains_sharded.cu): one
+// shard of an X/Y mesh over a block of chains (the reference vmaps the
+// sharded stage body of ops/pallas/sharded.py over each device's chain
+// block, models/ensemble.py:96-131), each chain's arrays halo-padded
+// ([C, 2, N, 2, lx + 2 hx, ly + 2 hy, Z*T/2], chain_stride the padded
+// floats per chain), the counters from global coordinates as K1a's: chain
+// c computes what K1a does on its own padded arrays.
+//
+// The blocks an SM must hold are K1's (kStageMinBlocks), except for SU(3)
+// overrelaxation on a shard: with the chain's eight offset pointers it
+// spills 4 bytes at K1's 128-register cap (ptxas for sm_90a), so it is
+// built for 3 blocks an SM (at most 168 registers).
+template <int N, int KIND, class D>
+constexpr int kChainMinBlocks =
+    N == 3 && KIND == OVERRELAX && std::is_same_v<D, ShardDims>
+        ? 3 : kStageMinBlocks;
+
+template <int N, int KIND, bool TRACK, class R, class D>
+__global__ void __launch_bounds__(kStageThreads,
+                                  (kChainMinBlocks<N, KIND, D>))
 stage_chains_kernel(Links L, long long chain_stride, int mu, int parity,
-                    Dims d, const float* __restrict__ betas,
+                    D d, const float* __restrict__ betas,
                     float two_over_n, const uint32_t* __restrict__ base_keys,
                     uint32_t sweep_idx, uint32_t stage_id, int k_trials,
                     int n_hit, float delta, unsigned long long* count) {
@@ -434,7 +457,7 @@ stage_chains_kernel(Links L, long long chain_stride, int mu, int parity,
   }
 }
 
-// The per-chain arguments of K1c.
+// The per-chain arguments of K1c / K1ac.
 struct Chains {
   long long stride;        // floats from one chain's array to the next
   int n;                   // C, gridDim.y
@@ -444,15 +467,66 @@ struct Chains {
   uint32_t sweep_idx, stage_id;
 };
 
-template <int N, int KIND, bool TRACK, class R>
+template <int N, int KIND, bool TRACK, class R, class D>
 int launch_stage_chains(const Links& L, const Chains& ch, int mu, int parity,
-                        const Dims& d, int k_trials, int n_hit, float delta,
+                        const D& d, int k_trials, int n_hit, float delta,
                         unsigned long long* count, cudaStream_t s) {
   const dim3 grid((n_sites(d) + kStageThreads - 1) / kStageThreads, ch.n);
-  stage_chains_kernel<N, KIND, TRACK, R><<<grid, kStageThreads, 0, s>>>(
+  stage_chains_kernel<N, KIND, TRACK, R, D><<<grid, kStageThreads, 0, s>>>(
       L, ch.stride, mu, parity, d, ch.betas, ch.two_over_n, ch.keys,
       ch.sweep_idx, ch.stage_id, k_trials, n_hit, delta, count);
   return (int)cudaGetLastError();
+}
+
+template <class R, class D>
+int launch_chains_drawing(const Links& L, const Chains& ch, int n, int kind,
+                          bool track, int mu, int parity, const D& d,
+                          int k_trials, int n_hit, float delta,
+                          unsigned long long* cnt, cudaStream_t s) {
+#define QG_STAGE(NN, KK, TT)                                                  \
+  if (n == NN && kind == KK && track == TT)                                   \
+    return launch_stage_chains<NN, KK, TT, R>(L, ch, mu, parity, d,           \
+                                              k_trials, n_hit, delta, cnt, s);
+  QG_STAGE(3, HEATBATH, false)
+  QG_STAGE(3, HEATBATH, true)
+  QG_STAGE(3, METROPOLIS, false)
+  QG_STAGE(3, METROPOLIS, true)
+  QG_STAGE(2, HEATBATH, false)
+  QG_STAGE(2, HEATBATH, true)
+  QG_STAGE(2, METROPOLIS, false)
+  QG_STAGE(2, METROPOLIS, true)
+#undef QG_STAGE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The 18 instantiations of K1c (D = Dims) or K1ac (D = ShardDims),
+// chosen at run time: threefry for every kind, N in {2, 3}, tracked or not
+// (10), and Philox (rng_mode "hw": heat-bath and Metropolis, 8).
+template <class D>
+int stage_chains(const Links& L, const Chains& ch, int n, int kind,
+                 int track, int philox, int mu, int parity, const D& d,
+                 int k_trials, int n_hit, float delta,
+                 unsigned long long* cnt, cudaStream_t s) {
+  if (ch.n < 1 || ch.n > 65535 || ch.stride < 0 ||
+      (track && (cnt == nullptr || kind == OVERRELAX)) ||
+      (philox && kind == OVERRELAX))
+    return (int)cudaErrorInvalidValue;
+  if (philox)
+    return launch_chains_drawing<Philox>(L, ch, n, kind, track != 0, mu,
+                                         parity, d, k_trials, n_hit, delta,
+                                         cnt, s);
+  if (kind == OVERRELAX) {
+    if (n == 3)
+      return launch_stage_chains<3, OVERRELAX, false, Threefry>(
+          L, ch, mu, parity, d, k_trials, n_hit, delta, cnt, s);
+    if (n == 2)
+      return launch_stage_chains<2, OVERRELAX, false, Threefry>(
+          L, ch, mu, parity, d, k_trials, n_hit, delta, cnt, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_chains_drawing<Threefry>(L, ch, n, kind, track != 0, mu,
+                                         parity, d, k_trials, n_hit, delta,
+                                         cnt, s);
 }
 
 // The drawing kinds (heat-bath, Metropolis) of one random source on one

@@ -1,9 +1,10 @@
 // K1c entry point: the checkerboard stage batched over C independent
 // chains (a beta scan), for threefry (every kind, N in {2, 3}, tracked or
 // not: 10 instantiations) and Philox (rng_mode "hw": heat-bath and
-// Metropolis, 8).  The kernel, stage_chains_kernel, and its note on what
-// it replaces are in stage.cuh; each site runs the single-chain
-// stage_site, so chain c is K1 on its own arrays, bit for bit.
+// Metropolis, 8).  The kernel, stage_chains_kernel, its dispatch
+// (stage_chains) and its note on what it replaces are in stage.cuh; each
+// site runs the single-chain stage_site, so chain c is K1 on its own
+// arrays, bit for bit.
 //
 // What bounds it is what bounds K1 (stage.cuh), times C: the chains are
 // independent, so C x K1's blocks run in one launch (at 24^3 x 6, 324
@@ -14,31 +15,6 @@
 // Its own source, so that nvcc builds its 18 instantiations in parallel
 // with the others.
 #include "stage.cuh"
-
-namespace qg {
-
-template <class R>
-int launch_chains_drawing(const Links& L, const Chains& ch, int n, int kind,
-                          bool track, int mu, int parity, const Dims& d,
-                          int k_trials, int n_hit, float delta,
-                          unsigned long long* cnt, cudaStream_t s) {
-#define QG_STAGE(NN, KK, TT)                                                  \
-  if (n == NN && kind == KK && track == TT)                                   \
-    return launch_stage_chains<NN, KK, TT, R>(L, ch, mu, parity, d,           \
-                                              k_trials, n_hit, delta, cnt, s);
-  QG_STAGE(3, HEATBATH, false)
-  QG_STAGE(3, HEATBATH, true)
-  QG_STAGE(3, METROPOLIS, false)
-  QG_STAGE(3, METROPOLIS, true)
-  QG_STAGE(2, HEATBATH, false)
-  QG_STAGE(2, HEATBATH, true)
-  QG_STAGE(2, METROPOLIS, false)
-  QG_STAGE(2, METROPOLIS, true)
-#undef QG_STAGE
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace qg
 
 // u0..u7: the chain-stacked arrays us[2*mu + p], [C, 2, N, 2, X, Y,
 // Z*T/2]; chain_stride: floats per chain of one array (4 N X Y Z T / 2);
@@ -57,31 +33,11 @@ extern "C" int qg_stage_chains(void* u0, void* u1, void* u2, void* u3,
                                int k_trials, int n_hit, float delta,
                                void* count, void* stream) {
   using namespace qg;
-  if (n_chains < 1 || n_chains > 65535 || chain_stride < 0 ||
-      (track && (count == nullptr || kind == OVERRELAX)) ||
-      (philox && kind == OVERRELAX))
-    return (int)cudaErrorInvalidValue;
   const Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
                     (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
   const Chains ch = {chain_stride, n_chains, (const float*)betas, two_over_n,
                      (const uint32_t*)base_keys, sweep_idx, stage_id};
-  const Dims d = make_dims(X, Y, Z, T);
-  unsigned long long* cnt = (unsigned long long*)count;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (philox)
-    return launch_chains_drawing<Philox>(L, ch, n, kind, track != 0, mu,
-                                         parity, d, k_trials, n_hit, delta,
-                                         cnt, s);
-  if (kind == OVERRELAX) {
-    if (n == 3)
-      return launch_stage_chains<3, OVERRELAX, false, Threefry>(
-          L, ch, mu, parity, d, k_trials, n_hit, delta, cnt, s);
-    if (n == 2)
-      return launch_stage_chains<2, OVERRELAX, false, Threefry>(
-          L, ch, mu, parity, d, k_trials, n_hit, delta, cnt, s);
-    return (int)cudaErrorInvalidValue;
-  }
-  return launch_chains_drawing<Threefry>(L, ch, n, kind, track != 0, mu,
-                                         parity, d, k_trials, n_hit, delta,
-                                         cnt, s);
+  return stage_chains(L, ch, n, kind, track, philox, mu, parity,
+                      make_dims(X, Y, Z, T), k_trials, n_hit, delta,
+                      (unsigned long long*)count, (cudaStream_t)stream);
 }

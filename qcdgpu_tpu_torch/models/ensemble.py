@@ -1,6 +1,6 @@
 """The beta-scan ensemble: C independent Markov chains, one per coupling,
 on one lattice — port of qcdgpu_tpu/models/ensemble.py (its Pallas chain
-tier, ensemble.py:120-131).
+tiers, ensemble.py:96-131, and its chain meshes, :209-270).
 
     scan = BetaScan(baseline_config(3), betas)   # on the card
     scan.warmup().thermalize(n)
@@ -16,11 +16,26 @@ way.  Chain c draws under ``rng.make_base_key(cfg.seed + 1000 c)`` and is,
 bit for bit, the single-chain ``Simulation`` of seed ``cfg.seed + 1000 c``
 and beta ``betas[c]``.
 
+The chain x lattice layout: with ``cfg.mesh = (mx, my, 1, 1)`` every
+chain's lattice is cut into the X/Y shards of that mesh, each shard's
+arrays chain-stacked and halo-padded, and a stage is one K1ac launch per
+shard for all chains, then the halo refresh (K5ac/K5bc measure); chain c
+is then its sharded ``Simulation`` on the same mesh, bit for bit, and the
+unsharded scan's chain c in its links.  ``chain_mesh`` cuts the chains into
+that many equal blocks (parallel/mesh.py ChainGrid), each with its own
+shards, all on ``device`` unless ``devices`` spreads the blocks (block b on
+``devices[b % len(devices)]``); chain_mesh 0 (auto) takes the largest
+divisor of C that fits the cards of ``devices`` // prod(cfg.mesh), and 1
+without ``devices`` or on the CPU.  Blocks change nothing in any chain.
+They exist for parity with the reference's layout and make no scan
+faster: the blocks run one after the other from one host thread, and the
+scan is host-bound, so each block adds its launches to a sweep (PERF.md
+§5).
+
 Supported: threefry and rng_mode "hw" (Philox), SU(2) and SU(3), every
 update algorithm, the tracked statistics (one column per chain), cold and
-hot starts, an unsharded lattice on one device.  PRNGCL streams (M11), a
-lattice mesh or chains over several cards (chain_mesh > 1; M15) raise
-NotImplementedError; chain_mesh 0 (auto) resolves to 1.
+hot starts, X/Y meshes and chain blocks.  PRNGCL streams and Z/T meshes
+(M11) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,43 +47,84 @@ import torch
 
 from ..config import SimConfig
 from ..ops import rng
-from ..ops.cuda import engine
+from ..ops.cuda import engine, sharded
 from ..ops.measure import obs_names
+from ..parallel.mesh import ChainGrid, block_cards, resolve_chain_mesh
 from ..runner import build_chunk_runner
 
 
-def make_ensemble_runner(cfg: SimConfig, n_chains: int, device="cuda"):
+def make_ensemble_runner(cfg: SimConfig, n_chains: int, device="cuda",
+                         chain_mesh: int = 1, devices=None):
     """Runner over C = n_chains chains with per-chain beta and key, on the
-    shared chunk runner: run.packed(state, None, sweep0, n, me).  State is
-    (us, betas, keys): the chain-stacked 8-tuple, f32 [C] and int32 [C, 2]
-    (u32 bits) on ``device``; the runner's key argument is unused (each
-    chain carries its own).  Rows are the C chains' rows flattened
-    chain-major, [C * n_obs], with one tracked column per chain.
-    run.packed_cold_start() and run.packed_hot_start(keys) build
-    chain-stacked starts."""
+    shared chunk runner: run.packed(state, None, sweep0, n, me).  The
+    chains are cut into ``chain_mesh`` blocks (run.grid, a ChainGrid; C %
+    chain_mesh != 0 raises ValueError), block b on ``devices[b %
+    len(devices)]`` (default: every block on ``device``).  State is one
+    (shards, betas, keys) per block: the block's chain-stacked 8-tuple per
+    shard of cfg.mesh (one shard without halo when unsharded), f32 [Cb] and
+    int32 [Cb, 2] (u32 bits) on the block's device (run.state builds it);
+    the runner's key argument is unused (each chain carries its own).  Rows
+    are the C chains' rows flattened chain-major, [C * n_obs], on
+    ``device``, with one tracked column per chain.  run.packed_cold_start()
+    and run.packed_hot_start(keys) build the blocks' links; run.scatter /
+    run.gather convert between them and the global chain-stacked
+    8-tuple."""
     engine.check_supported_chains(cfg)
     dev = engine.resolve_device(device)
-    dims = tuple(cfg.dims)
+    cgrid = ChainGrid(cfg, n_chains, chain_mesh, [dev] if devices is None
+                      else [engine.resolve_device(d) for d in devices])
     with_acc = engine.tracks(cfg)
     n_obs = len(obs_names(cfg))
-    chain_sweep = engine.make_chain_sweep(cfg)
+    sweeps = [engine.make_chain_sweep(cfg, g) for g in cgrid.grids]
 
     def sweep(st, _key, sweep_idx):
-        us, betas, keys = st
-        out = chain_sweep(us, betas, keys, sweep_idx)
+        out, rates = [], []
+        for chain_sweep, (shards, betas, keys) in zip(sweeps, st):
+            r = chain_sweep(shards, betas, keys, sweep_idx)
+            if with_acc:
+                r, rate = r
+                rates.append(rate.to(dev))
+            out.append((r, betas, keys))
         if with_acc:
-            return (out[0], betas, keys), out[1]
-        return out, betas, keys
+            return tuple(out), torch.cat(rates)
+        return tuple(out)
 
     def measure_state(st):
-        return engine.measure_chains(st[0], dims).reshape(-1)
+        return torch.cat([engine.measure_chains(b[0], g.shards).to(dev)
+                          for b, g in zip(st, cgrid.grids)]).reshape(-1)
+
+    def per_shard(make):
+        """make(chains, shard, device) for every shard of every block."""
+        return tuple(tuple(make(chains, g, d)
+                           for g, d in zip(grid.shards, grid.devices))
+                     for chains, grid in zip(cgrid.blocks, cgrid.grids))
+
+    def gather(blocks):
+        parts = [sharded.gather_links(b, g)
+                 for b, g in zip(blocks, cgrid.grids)]
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(torch.cat([p[k].to(dev) for p in parts])
+                     for k in range(len(parts[0])))
 
     run = build_chunk_runner(cfg, sweep, measure_state, with_acc=with_acc,
                              device=dev, n_obs=n_chains * n_obs)
-    run.packed_cold_start = lambda: engine.packed_cold_start_chains(
-        cfg, n_chains, dev)
-    run.packed_hot_start = lambda keys: engine.packed_hot_start_chains(
-        cfg, keys, dev)
+    run.grid = cgrid
+    run.packed_cold_start = lambda: per_shard(
+        lambda chains, g, d: engine.packed_cold_start_chains(
+            cfg, len(chains), d, g))
+    run.packed_hot_start = lambda keys: per_shard(
+        lambda chains, g, d: engine.packed_hot_start_chains(
+            cfg, [keys[c] for c in chains], d, g))
+    run.scatter = lambda us: tuple(
+        sharded.shard_links(tuple(a[chains.start:chains.stop] for a in us),
+                            g)
+        for chains, g in zip(cgrid.blocks, cgrid.grids))
+    run.gather = gather
+    run.state = lambda blocks, betas, keys: tuple(
+        (b, betas_tensor(betas[chains.start:chains.stop], g.devices[0]),
+         keys_tensor(keys[chains.start:chains.stop], g.devices[0]))
+        for b, chains, g in zip(blocks, cgrid.blocks, cgrid.grids))
     return run
 
 
@@ -83,58 +139,76 @@ def keys_tensor(keys, device):
     return torch.from_numpy(bits.copy()).to(device)
 
 
+def _clone(x):
+    """A copy of nested tuples of tensors."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return tuple(_clone(v) for v in x)
+
+
 class BetaScan:
     """Finite-temperature / coupling scan: one chain per beta on a shared
     lattice; the Polyakov-loop series across the grid locates the
     deconfinement transition (BASELINE config 3: 24^3 x 6).
 
-    ``us`` is the live chain-stacked packed state (the kernels update it in
-    place) and ``u`` the canonical complex fields [C, 4, N, N, X, Y, Z, T],
-    as ``Simulation.us`` / ``Simulation.u``; ``betas`` (f32 [C]), ``keys``
-    (u32 [C, 2], chain c's base key) and ``sweep_idx`` are the rest of the
-    state.  ``device`` is 'cuda' (the default) or 'cpu'; 'cuda' without a
-    card raises."""
+    ``us`` is the chain-stacked packed state (gathered from the chain
+    blocks and shards; with one block and no mesh the live tensors the
+    kernels update in place) and ``u`` the canonical complex fields [C, 4,
+    N, N, X, Y, Z, T], as ``Simulation.us`` / ``Simulation.u``; ``betas``
+    (f32 [C]), ``keys`` (u32 [C, 2], chain c's base key) and ``sweep_idx``
+    are the rest of the state.  ``device`` is 'cuda' (the default) or
+    'cpu'; 'cuda' without a card raises."""
 
     def __init__(self, cfg: SimConfig, betas, chain_mesh: int = 1, *,
-                 device="cuda", _init=None):
-        """chain_mesh: chains over this many devices; 0 (auto) and 1 run
-        every chain on ``device`` (more than 1 is M15).  _init: (u, keys,
-        sweep_idx) of a checkpoint (load())."""
+                 device="cuda", devices=None, _init=None):
+        """chain_mesh: the number of chain blocks, which must divide C; 0
+        (auto) resolves it from the cards that ``devices`` names
+        (block_cards, resolve_chain_mesh): 1 without ``devices``.  A
+        run-time choice, as in the reference: it changes no chain and is
+        not saved.  Blocks are there for parity with the reference and are
+        slower than one block, since one host thread launches them one
+        after the other.  devices: where the blocks go, block b on
+        devices[b % len(devices)] (default: all on ``device``).  _init:
+        (u, keys, sweep_idx) of a checkpoint (load())."""
         self.cfg = cfg
-        self.chain_mesh = int(chain_mesh) or 1
-        engine.check_supported_chains(cfg, self.chain_mesh)
+        engine.check_supported_chains(cfg)
         self.device = engine.resolve_device(device)
         self.betas = np.asarray(betas, np.float32).reshape(-1)
         c = len(self.betas)
         if c < 1:
             raise ValueError("a scan needs at least one beta")
+        if devices is not None:
+            devices = [engine.resolve_device(d) for d in devices]
+        self.chain_mesh = resolve_chain_mesh(chain_mesh, cfg, c,
+                                             block_cards(devices))
         self._n_obs = len(obs_names(cfg))
-        self._run = make_ensemble_runner(cfg, c, self.device)
+        self._run = make_ensemble_runner(cfg, c, self.device,
+                                         self.chain_mesh, devices)
         self.sweep_idx = 0
         if _init is not None:
             u, keys, self.sweep_idx = _init
             self.keys = np.asarray(keys, np.uint32).reshape(c, 2)
-            us = engine.split_links_chains(
-                torch.as_tensor(np.asarray(u, np.complex64)).to(self.device))
+            blocks = self._run.scatter(engine.split_links_chains(
+                torch.as_tensor(np.asarray(u, np.complex64)).to(self.device)))
         else:
             self.keys = np.array([rng.make_base_key(cfg.seed + 1000 * i)
                                   for i in range(c)], np.uint32)
             if cfg.start == "hot":
-                us = self._run.packed_hot_start(self.keys.tolist())
+                blocks = self._run.packed_hot_start(self.keys.tolist())
             elif cfg.start == "continue":
                 raise ValueError(
                     "start='continue' resumes a checkpoint: use "
                     "BetaScan.load(path) (CLI: `scan --resume-state`)")
             else:
-                us = self._run.packed_cold_start()
-        self._st = (us, betas_tensor(self.betas, self.device),
-                    keys_tensor(self.keys, self.device))
+                blocks = self._run.packed_cold_start()
+        self._st = self._run.state(blocks, self.betas, self.keys)
 
     # -- state ------------------------------------------------------------
     @property
     def us(self):
-        """The chain-stacked packed 8-tuple (live; updated in place)."""
-        return self._st[0]
+        """The chain-stacked packed 8-tuple of all chains: the live tensors
+        with one chain block and no mesh, else gathered (new)."""
+        return self._run.gather(tuple(b[0] for b in self._st))
 
     @property
     def u(self):
@@ -146,11 +220,13 @@ class BetaScan:
         return obs_names(self.cfg)
 
     def sync(self) -> float:
-        """Wait for the device's queued work (no-op on the CPU); returns
-        the seconds spent waiting."""
+        """Wait for the queued work of every card the scan uses (no-op on
+        the CPU); returns the seconds spent waiting."""
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(d for g in self._run.grid.grids
+                               for d in g.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         return time.perf_counter() - t0
 
     # -- simulation -------------------------------------------------------
@@ -159,9 +235,8 @@ class BetaScan:
         a CLONE of the links: the kernels update in place, so the live
         chains stay exactly as they were (Simulation.warmup)."""
         me = self.cfg.meas_every if measure_every is None else measure_every
-        us, betas, keys = self._st
-        scratch = (tuple(a.clone() for a in us), betas, keys)
-        scratch, _ = self._run.packed(scratch, None, self.sweep_idx, 1, 0)
+        scratch, _ = self._run.packed(_clone(self._st), None, self.sweep_idx,
+                                      1, 0)
         if me:
             self._run.packed(scratch, None, self.sweep_idx, me, me)
         self.sync()
@@ -198,11 +273,16 @@ class BetaScan:
                       self.sweep_idx)
 
     @classmethod
-    def load(cls, path: str, chain_mesh: int = 1, *, device="cuda"):
-        """Resume a ``betascan`` checkpoint written by either package; every
-        chain continues bit for bit."""
+    def load(cls, path: str, chain_mesh: int = 1, *, device="cuda",
+             devices=None, mesh=None):
+        """Resume a ``betascan`` checkpoint written by either package (on
+        any mesh and chain blocks); every chain continues bit for bit.
+        ``mesh`` puts the resumed scan on another X/Y mesh than the saved
+        configuration's (the file holds the global fields)."""
         from ..utils.checkpoint import load_betascan
 
         cfg, betas, keys, u, sweep_idx = load_betascan(path)
-        return cls(cfg, betas, chain_mesh, device=device,
+        if mesh is not None:
+            cfg = cfg.replace(mesh=tuple(mesh))
+        return cls(cfg, betas, chain_mesh, device=device, devices=devices,
                    _init=(u, keys, sweep_idx))

@@ -31,11 +31,11 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-# K1's Philox build, its stream families and the chain-batched K1c get a
-# source each, so that their instantiations compile in parallel with the
-# rest
-SOURCES = ("stage.cu", "stage_philox.cu", "stage_chains.cu", "reunit.cu",
-           "measure.cu") + tuple(
+# K1's Philox build, its stream families and the chain-batched K1c and
+# K1ac get a source each, so that their instantiations compile in parallel
+# with the rest
+SOURCES = ("stage.cu", "stage_philox.cu", "stage_chains.cu",
+           "stage_chains_sharded.cu", "reunit.cu", "measure.cu") + tuple(
     f"stage_{fam}.cu" for fam in ("xor128", "xor7", "mrg32k3a", "parkmiller",
                                   "constant", "ranlux", "ranmar"))
 HEADERS = ("common.cuh", "stage.cuh", "streams.cuh")
@@ -81,6 +81,14 @@ SIGNATURES = {
     "qg_reunit_chains": [_P, _I, _I, _I, _P],
     "qg_plane_sums_chains": [_P] * 8 + [_L] + [_I] * 6 + [_P, _P, _P],
     "qg_polyakov_sums_chains": [_P, _P, _L] + [_I] * 7 + [_P, _P, _P],
+    # the chain-batched forms on a shard (K1ac, K5ac, K5bc)
+    "qg_stage_chains_sharded": [_P] * 8 + [_L] + [_I] * 16 + [
+        _P, ctypes.c_float, _P, ctypes.c_uint, ctypes.c_uint, _I, _I,
+        ctypes.c_float, _P, _P],
+    "qg_plane_sums_local_chains": [_P] * 8 + [_L] + [_I] * 11 + [
+        _P, _P, _P],
+    "qg_polyakov_sums_local_chains": [_P, _P, _L] + [_I] * 12 + [
+        _P, _P, _P],
 }
 
 

@@ -319,11 +319,17 @@ def check_packed(arr, n, dims, name="links"):
                          "int32 addressing")
 
 
-def check_chains(arrays, dims, n_arrays=8):
+def check_chains(arrays, dims, n_arrays=8, shard=None):
     """(C, N, device type) of n_arrays chain-stacked packed arrays ``[C, 2,
     N, 2, X, Y, Z*T/2]`` (a beta scan's, K1c-K4c): one chain count, 1 <= C
     <= 65535 (the kernels' grid Y extent), each chain's array ``a[c]`` a
-    packed array of dims, all contiguous on one device."""
+    packed array of dims, all contiguous on one device.  With ``shard`` (a
+    Shard of the lattice dims: K1ac, K5ac, K5bc) each chain's array is that
+    shard's padded one."""
+    if shard is not None:
+        if tuple(shard.dims) != tuple(dims):
+            raise ValueError(f"shard of {shard.dims}, lattice {tuple(dims)}")
+        dims = shard.padded
     if len(arrays) != n_arrays:
         raise ValueError(f"expected {n_arrays} chain-stacked arrays, got "
                          f"{len(arrays)}")

@@ -30,13 +30,18 @@ overrelaxation draws nothing; the dense XLA provenance, which draws for
 every site, is a different chain (M11).
 
 The chain axis of a beta scan (models/ensemble.py; the reference's
-Pallas chain tier, qcdgpu_tpu/models/ensemble.py:120-131): each of the 8
+Pallas chain tiers, qcdgpu_tpu/models/ensemble.py:96-131): each of the 8
 arrays is chain-stacked, ``[C, 2, N, 2, X, Y, Z*T/2]`` (the reference's
 ``vmap(split_links)`` layout, so ``us[k][c]`` is chain c's array), and
 ``make_chain_sweep`` runs every stage as one K1c launch over all chains,
 each chain with its own coupling and key; K2c reunitarizes and K3c/K4c
-measure all chains at once.  Chain c computes what the single-chain sweep
-computes on its own arrays, bit for bit.
+measure all chains at once.  On an X/Y mesh (the chain x lattice tier) a
+block of chains is cut into the shards of its grid, each shard's arrays
+chain-stacked and halo-padded: a stage is one K1ac launch per shard, then
+the halo refresh of the array it wrote, and K5ac/K5bc measure; without a
+mesh the grid is one shard without halo and this is K1c.  Chain c computes
+what its single-chain sweep (sharded or not) computes on its own arrays,
+bit for bit.
 
 Every kernel wrapper dispatches on the tensors' device (CPU: plain PyTorch
 version; CUDA: the hand-written kernel), so the same sweep serves both.
@@ -535,24 +540,15 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
 # ---------------------------------------------------------------------------
 
 
-def check_supported_chains(cfg: SimConfig, chain_mesh=1) -> None:
+def check_supported_chains(cfg: SimConfig) -> None:
     """check_supported, and the scan forms the port does not run yet, each
     refused with NotImplementedError naming its ROADMAP item."""
-    todo = []
     if streams.stream_mode_name(cfg.rng_mode):
         # the reference scans streams on its dense XLA engine
         # (qcdgpu_tpu/models/ensemble.py:132-144), another provenance
-        todo.append(f"rng_mode={cfg.rng_mode!r} in a scan (M11, dense "
-                    "engine)")
-    if int(np.prod(cfg.mesh)) != 1:
-        todo.append(f"mesh={tuple(cfg.mesh)} in a scan: the chain x "
-                    "lattice tier (M15)")
-    if int(chain_mesh) > 1:
-        todo.append(f"chain_mesh={chain_mesh}: chains over several cards "
-                    "(M15)")
-    if todo:
         raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): " + "; ".join(todo))
+            f"not ported yet (see ROADMAP.md): rng_mode={cfg.rng_mode!r} in "
+            "a scan (M11, dense engine)")
     check_supported(cfg)
 
 
@@ -569,57 +565,90 @@ def join_links_chains(us, dims):
                         for c in range(us[0].shape[0])])
 
 
-def packed_cold_start_chains(cfg: SimConfig, n_chains, device="cuda"):
-    """Unit links on every chain, chain-stacked (8 separate tensors)."""
+def packed_cold_start_chains(cfg: SimConfig, n_chains, device="cuda",
+                             shard=None):
+    """Unit links on every chain, chain-stacked (8 separate tensors); with
+    ``shard`` its padded arrays."""
     return tuple(a.expand((n_chains,) + tuple(a.shape)).contiguous()
-                 for a in packed_cold_start(cfg, device))
+                 for a in packed_cold_start(cfg, device, shard))
 
 
-def packed_hot_start_chains(cfg: SimConfig, base_keys, device="cuda"):
+def packed_hot_start_chains(cfg: SimConfig, base_keys, device="cuda",
+                            shard=None):
     """Chain c's hot start is packed_hot_start under its base key
     base_keys[c] (the reference's vmap(hot_start)(keys),
-    qcdgpu_tpu/models/ensemble.py:380-383), chain-stacked."""
-    per = [packed_hot_start(cfg, tuple(int(k) for k in key), device)
+    qcdgpu_tpu/models/ensemble.py:380-383), chain-stacked; with ``shard``
+    its padded arrays, built from global coordinates."""
+    per = [packed_hot_start(cfg, tuple(int(k) for k in key), device, shard)
            for key in base_keys]
     return tuple(torch.stack(arrs) for arrs in zip(*per))
 
 
-def make_chain_sweep(cfg: SimConfig):
-    """sweep(us, betas, base_keys, sweep_idx) -> us (in place), or with
-    tracking (us, rate), rate f32 [C]: each chain's tracked count over
-    ``tracked_stat_denom``, as the single chain forms it.  us: the
-    chain-stacked 8-tuple; betas f32 [C], base_keys int32 [C, 2] (u32
-    bits), both on the links' device, where they stay.  Every stage of
-    ``stage_schedule`` is one K1c launch over all chains (8 (1 + n_or)
-    per sweep, whatever C is), each reunitarization 8 K2c launches."""
+def make_chain_sweep(cfg: SimConfig, grid):
+    """sweep(shards, betas, base_keys, sweep_idx) -> shards (in place), or
+    with tracking (shards, rate), rate f32 [C] on the first shard's device:
+    each chain's tracked count, summed over the shards, over
+    ``tracked_stat_denom``, as its single-chain sweep forms it.  shards:
+    one chain-stacked 8-tuple per shard of ``grid`` (a ShardGrid; padded
+    on a split axis); betas f32 [C], base_keys int32 [C, 2] (u32 bits),
+    on the shards' device, where they stay.  Every stage of
+    ``stage_schedule`` is one K1ac launch per shard over all C chains (K1c
+    on a grid of one shard without halo: 8 (1 + n_or) launches per sweep,
+    whatever C is), then the halo refresh of the array it wrote (one copy
+    per slab for every chain); each reunitarization one K2c launch per
+    array and shard, on the padded arrays whole."""
     dims = tuple(cfg.dims)
     tracking = tracks(cfg)
     denom = tracked_stat_denom(cfg, dims)
     schedule = stage_schedule(cfg)
+    devices = list(dict.fromkeys(grid.devices))
+    last = {"shards": None, "plan": None}
 
-    def sweep(us, betas, base_keys, sweep_idx):
-        count = (torch.zeros(us[0].shape[0], dtype=torch.int64,
-                             device=us[0].device) if tracking else None)
+    def sweep(shards, betas, base_keys, sweep_idx):
+        if last["shards"] is not shards:
+            last.update(shards=shards,
+                        plan=sharded.halo_copies(shards, grid))
+        c = shards[0][0].shape[0]
+        counts = ({d: torch.zeros(c, dtype=torch.int64, device=d)
+                   for d in devices} if tracking else None)
         for kind, parity, mu, stage_id, counted in schedule:
-            cupdate.stage_update_chains(
-                us, mu, parity, betas, base_keys, sweep_idx, stage_id, dims,
-                cfg.kp_trials, kind=kind, n_hit=cfg.n_hit,
-                metro_delta=cfg.metro_delta,
-                count=count if counted else None, rng_mode=cfg.rng_mode)
+            for g, d, us in zip(grid.shards, grid.devices, shards):
+                cupdate.stage_update_chains(
+                    us, mu, parity, betas, base_keys, sweep_idx, stage_id,
+                    dims, cfg.kp_trials, kind=kind, n_hit=cfg.n_hit,
+                    metro_delta=cfg.metro_delta,
+                    count=counts[d] if counted else None,
+                    rng_mode=cfg.rng_mode, shard=g)
+            sharded.refresh_halos(shards, grid, (2 * mu + parity,),
+                                  last["plan"])
         if reunit_due(cfg, sweep_idx):
-            for a in us:
-                reunitarize_chains(a, dims)
+            for g, us in zip(grid.shards, shards):
+                for a in us:
+                    reunitarize_chains(a, g.padded)
         if tracking:
-            return us, count.to(torch.float32) / denom
-        return us
+            total = counts[devices[0]]
+            for d in devices[1:]:
+                total = total + counts[d].to(devices[0])
+            return shards, total.to(torch.float32) / denom
+        return shards
 
     return sweep
 
 
-def measure_chains(us, dims):
-    """Observable vectors [C, 6] (ops.measure.OBS_NAMES) of every chain:
-    K3c and K4c, then obs_base_from_sums elementwise over the chains; row c
-    is measure_all_split of chain c, bit for bit."""
-    return obs_base_from_sums(cmeasure.plane_sums_chains(us, dims),
-                              cmeasure.polyakov_sums_chains(us, dims),
-                              us[0].shape[2], tuple(dims))
+def measure_chains(shards, geoms):
+    """Observable vectors [C, 6] (ops.measure.OBS_NAMES) of every chain of
+    a block whose lattice the shards cover (``geoms``: their core.Shard
+    geometries): K3c/K4c on a shard without halo, K5ac/K5bc on a padded
+    one, each chain's f64 sums added in shard order on the first shard's
+    device (as measure_shards adds a single chain's), then
+    obs_base_from_sums elementwise over the chains; row c is measure_shards
+    of chain c, bit for bit."""
+    dev = shards[0][0].device
+    dims = tuple(geoms[0].dims)
+    sums = poly = None
+    for g, us in zip(geoms, shards):
+        s = cmeasure.plane_sums_chains(us, dims, g).to(dev)
+        p = cmeasure.polyakov_sums_chains(us, dims, g).to(dev)
+        sums = s if sums is None else sums + s
+        poly = p if poly is None else poly + p
+    return obs_base_from_sums(sums, poly, shards[0][0].shape[2], dims)

@@ -17,6 +17,11 @@ over the C chains of a beta scan (chain-stacked arrays ``[C, 2, N, 2, X,
 Y, Z*T/2]``; the reference vmaps ``measure_all_split``,
 models/ensemble.py:129-131): f64 [C, 6] and [C, 2], one launch pair for
 all chains, each chain's row bit-identical to K3 / K4 on its own arrays.
+With ``shard`` they are K5ac / K5bc: K5a / K5b over a block of chains of
+a scan on an X/Y mesh (the shard's chain-stacked padded arrays; the
+reference vmaps the sharded measurement body over each device's chain
+block, models/ensemble.py:96-131), each chain's row K5a / K5b's on its
+own padded arrays, bit for bit.
 
 Plane order: (0,1), (0,2), (0,3), (1,2), (1,3), (2,3).
 """
@@ -38,7 +43,8 @@ PLANE_BLOCK = 256
 LAUNCHES = {f"{k}_su{n}": 0
             for k in ("plane_sums", "polyakov_sums", "plane_sums_local",
                       "polyakov_sums_local", "plane_sums_chains",
-                      "polyakov_sums_chains")
+                      "polyakov_sums_chains", "plane_sums_local_chains",
+                      "polyakov_sums_local_chains")
             for n in (3, 2)}
 
 
@@ -222,59 +228,71 @@ def polyakov_sums_local(us, shard):
     return out
 
 
-def plane_sums_chains_ref(us, dims):
-    """Plain twin of K3c: plane_sums_ref of each chain, f64 [C, 6]."""
-    c, _, _ = core.check_chains(us, dims)
-    return torch.stack([plane_sums_ref(tuple(a[i] for a in us), dims)
+def plane_sums_chains_ref(us, dims, shard=None):
+    """Plain twin of K3c (K5ac with ``shard``): plane_sums_ref of each
+    chain, f64 [C, 6]."""
+    shard = core.padded_or_none(shard)
+    c, _, _ = core.check_chains(us, dims, shard=shard)
+    return torch.stack([plane_sums_ref(tuple(a[i] for a in us), dims, shard)
                         for i in range(c)])
 
 
-def polyakov_sums_chains_ref(us, dims):
-    """Plain twin of K4c: polyakov_sums_ref of each chain, f64 [C, 2]."""
-    c, _, _ = core.check_chains(us, dims)
-    return torch.stack([polyakov_sums_ref(tuple(a[i] for a in us), dims)
+def polyakov_sums_chains_ref(us, dims, shard=None):
+    """Plain twin of K4c (K5bc with ``shard``): polyakov_sums_ref of each
+    chain, f64 [C, 2]."""
+    shard = core.padded_or_none(shard)
+    c, _, _ = core.check_chains(us, dims, shard=shard)
+    return torch.stack([polyakov_sums_ref(tuple(a[i] for a in us), dims,
+                                          shard)
                         for i in range(c)])
 
 
-def plane_sums_chains(us, dims):
+def _chains_call(kind, us, dims, shard, c, n, n_out, threads, block):
+    """Launch K3c / K4c (or K5ac / K5bc on a padded shard) over the c
+    chains of ``us`` (checked, SU(n)): f64 [C, n_out]; ``threads`` the
+    kernel's threads per chain over ``block``-thread blocks."""
+    local = "" if shard is None else "_local"
+    name = f"{kind}{local}_chains_su{n}"
+    lib = build.library()
+    dev = us[0].device
+    partials, out = _scratch(threads, n_out, dev, c, block)
+    links = ([a.data_ptr() for a in us] if kind == "plane_sums"
+             else [us[6].data_ptr(), us[7].data_ptr()])
+    geom = (tuple(int(d) for d in dims) if shard is None
+            else shard.kernel_args())
+    tail = () if kind == "plane_sums" else (REDUCE_BLOCK,)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"qg_{kind}{local}_chains")(
+            *links, us[0][0].numel(), c, n, *geom, *tail,
+            partials.data_ptr(), out.data_ptr(), build.stream_handle(dev))
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def plane_sums_chains(us, dims, shard=None):
     """K3c: f64 [C, 6] plane sums of every chain of the chain-stacked
-    8-tuple.  CPU tensors take the plain version, CUDA tensors the
-    kernel."""
-    c, n, dev_type = core.check_chains(us, dims)
+    8-tuple; with ``shard`` (a ``core.Shard``: K5ac) over that shard's
+    interior sites of every chain's padded arrays.  CPU tensors take the
+    plain version, CUDA tensors the kernel."""
+    shard = core.padded_or_none(shard)
+    c, n, dev_type = core.check_chains(us, dims, shard=shard)
     if dev_type == "cpu":
-        return plane_sums_chains_ref(us, dims)
-    name = f"plane_sums_chains_su{n}"
-    lib = build.library()
-    x, y, z, t = (int(d) for d in dims)
-    dev = us[0].device
-    partials, out = _scratch(x * y * z * t, 6, dev, c, PLANE_BLOCK)
-    with torch.cuda.device(dev):
-        err = lib.qg_plane_sums_chains(
-            *[a.data_ptr() for a in us], us[0][0].numel(), c, n, x, y, z, t,
-            partials.data_ptr(), out.data_ptr(),
-            build.stream_handle(dev))
-    build.check(err, name)
-    LAUNCHES[name] += 1
-    return out
+        return plane_sums_chains_ref(us, dims, shard)
+    g = shard or core.whole(dims)
+    return _chains_call("plane_sums", us, dims, shard, c, n, 6,
+                        int(np.prod(g.interior)), PLANE_BLOCK)
 
 
-def polyakov_sums_chains(us, dims):
+def polyakov_sums_chains(us, dims, shard=None):
     """K4c: f64 [C, 2] (sum re, sum im) of tr prod_t U_t over spatial sites,
-    for every chain.  CPU tensors take the plain version, CUDA tensors the
+    for every chain; with ``shard`` (K5bc) over that shard's interior
+    columns.  CPU tensors take the plain version, CUDA tensors the
     kernel."""
-    c, n, dev_type = core.check_chains(us, dims)
+    shard = core.padded_or_none(shard)
+    c, n, dev_type = core.check_chains(us, dims, shard=shard)
     if dev_type == "cpu":
-        return polyakov_sums_chains_ref(us, dims)
-    name = f"polyakov_sums_chains_su{n}"
-    lib = build.library()
-    x, y, z, t = (int(d) for d in dims)
-    dev = us[0].device
-    partials, out = _scratch(x * y * z, 2, dev, c)
-    with torch.cuda.device(dev):
-        err = lib.qg_polyakov_sums_chains(
-            us[6].data_ptr(), us[7].data_ptr(), us[0][0].numel(), c, n, x, y,
-            z, t, REDUCE_BLOCK, partials.data_ptr(), out.data_ptr(),
-            build.stream_handle(dev))
-    build.check(err, name)
-    LAUNCHES[name] += 1
-    return out
+        return polyakov_sums_chains_ref(us, dims, shard)
+    x, y, z, _ = (shard or core.whole(dims)).interior
+    return _chains_call("polyakov_sums", us, dims, shard, c, n, 2,
+                        x * y * z, REDUCE_BLOCK)

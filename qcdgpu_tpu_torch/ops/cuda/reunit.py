@@ -8,6 +8,9 @@ the stored matrix, renormalised.  Site-local, in place.
 K2c ``reunitarize_chains``: the same kernel over one chain-stacked array
 ``[C, 2, N, 2, X, Y, Z*T/2]`` of a beta scan, chain on the grid's second
 axis (the reference vmaps ``_reunit_kernel``, models/ensemble.py:125).
+On a scan on an X/Y mesh it takes a shard's chain-stacked padded array
+(dims: the padded extents) whole: the projection is site-local, so a halo
+slot comes out with its owner's new bits.
 """
 
 from __future__ import annotations
@@ -97,8 +100,10 @@ def reunitarize_chains_ref(s, dims):
 
 def reunitarize_chains(s, dims):
     """K2c: project every chain of one chain-stacked (direction, parity)
-    array back onto SU(N), in place, in one launch.  CPU tensors take the
-    plain version, CUDA tensors the kernel."""
+    array back onto SU(N), in place, in one launch.  dims are each chain's
+    array extents: the lattice's, or a shard's padded ones (``Shard.padded``:
+    halo slots are projected as their owners are, to the same bits).  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
     _, n, dev = core.check_chains((s,), dims, 1)
     if dev == "cpu":
         return reunitarize_chains_ref(s, dims)

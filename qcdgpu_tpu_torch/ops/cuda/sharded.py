@@ -21,6 +21,11 @@ Randomness: threefry is keyed by the GLOBAL dense site index and the stage
 key, so the sharded chain runs the unsharded chain's per-site arithmetic
 and is bit-identical to it.  Stream words are shard-local and unpadded,
 ``[W, lx, ly, Z*T/2]``; the lag generators' scalars are replicated.
+
+The links of a scan on a mesh are chain-stacked, ``[C, 2, N, 2, X, Y,
+Z*T/2]`` per array (a block of chains shares one shard grid): the functions
+on links index X and Y from the end (dims -3, -2), so they serve both
+layouts, and one halo copy per slab covers every chain of the block.
 """
 
 from __future__ import annotations
@@ -40,22 +45,24 @@ def _window(lo, count, extent, device):
 
 
 def shard_links(us, grid):
-    """Global packed 8-tuple -> one halo-padded 8-tuple per shard, on the
-    shard's device: the interior slice plus, on a split axis, the wrapped
-    neighbouring slabs (what ``refresh_halos`` keeps them)."""
+    """Global packed 8-tuple (or chain-stacked) -> one halo-padded 8-tuple
+    per shard, on the shard's device: the interior slice plus, on a split
+    axis, the wrapped neighbouring slabs (what ``refresh_halos`` keeps
+    them)."""
     x_dim, y_dim = grid.dims[:2]
     out = []
     for g, dev in zip(grid.shards, grid.devices):
         src = us[0].device
         xs = _window(g.offset[0] - g.halo[0], g.padded[0], x_dim, src)
         ys = _window(g.offset[1] - g.halo[1], g.padded[1], y_dim, src)
-        out.append(tuple(a.index_select(3, xs).index_select(4, ys)
+        out.append(tuple(a.index_select(-3, xs).index_select(-2, ys)
                          .to(dev).contiguous() for a in us))
     return tuple(out)
 
 
 def interior(a, g, axis):
-    """The interior of a shard tensor whose X/Y axes are axis, axis + 1."""
+    """The interior of a shard tensor whose X/Y axes are axis, axis + 1
+    (axis -3 for links, chain-stacked or not)."""
     (lx, ly), (hx, hy) = g.local, g.halo
     return a.narrow(axis, hx, lx).narrow(axis + 1, hy, ly)
 
@@ -75,10 +82,11 @@ def _join(parts, grid, axis):
 
 
 def gather_links(shards, grid):
-    """Per-shard padded 8-tuples -> the global packed 8-tuple."""
+    """Per-shard padded 8-tuples (or chain-stacked) -> the global packed
+    8-tuple (chain-stacked)."""
     return tuple(
-        _join([interior(us[k], g, 3) for g, us in zip(grid.shards, shards)],
-              grid, 3)
+        _join([interior(us[k], g, -3) for g, us in zip(grid.shards, shards)],
+              grid, -3)
         for k in range(2 * NDIM))
 
 
@@ -117,7 +125,8 @@ def halo_copies(shards, grid):
     of lists: the Y rows (over the interior X slabs), then the X slabs of
     the Y-padded arrays, so that corners arrive from the diagonal
     neighbours transitively.  Within a phase no copy reads what another
-    writes (halos are written, interiors read)."""
+    writes (halos are written, interiors read).  X and Y are dims -3 and
+    -2, so a chain-stacked array's copies carry all its chains."""
     (lx, ly), (hx, hy) = grid.shards[0].local, grid.shards[0].halo
     plan = []
     for k in range(2 * NDIM):
@@ -125,20 +134,20 @@ def halo_copies(shards, grid):
         if hy:
             dsts, srcs = [], []
             for s in range(len(grid)):
-                lo = shards[grid.neighbour(s, 1, -1)][k].narrow(3, hx, lx)
-                hi = shards[grid.neighbour(s, 1, 1)][k].narrow(3, hx, lx)
-                dst = shards[s][k].narrow(3, hx, lx)
-                dsts += [dst[:, :, :, :, 0], dst[:, :, :, :, ly + 1]]
-                srcs += [lo[:, :, :, :, ly], hi[:, :, :, :, 1]]
+                lo = shards[grid.neighbour(s, 1, -1)][k].narrow(-3, hx, lx)
+                hi = shards[grid.neighbour(s, 1, 1)][k].narrow(-3, hx, lx)
+                dst = shards[s][k].narrow(-3, hx, lx)
+                dsts += [dst[..., 0, :], dst[..., ly + 1, :]]
+                srcs += [lo[..., ly, :], hi[..., 1, :]]
             phases.append((dsts, srcs))
         if hx:
             dsts, srcs = [], []
             for s in range(len(grid)):
                 lo = shards[grid.neighbour(s, 0, -1)][k]
                 hi = shards[grid.neighbour(s, 0, 1)][k]
-                dsts += [shards[s][k][:, :, :, 0],
-                         shards[s][k][:, :, :, lx + 1]]
-                srcs += [lo[:, :, :, lx], hi[:, :, :, 1]]
+                dsts += [shards[s][k][..., 0, :, :],
+                         shards[s][k][..., lx + 1, :, :]]
+                srcs += [lo[..., lx, :, :], hi[..., 1, :, :]]
             phases.append((dsts, srcs))
         plan.append(phases)
     return plan

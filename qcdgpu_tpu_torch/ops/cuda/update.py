@@ -69,6 +69,13 @@ stage_id)``, bit for bit: one kernel body serves both.  Threefry and
 Philox (rng_mode "hw"), unsharded; instantiations ``instance_name(...,
 chains=True)``.
 
+K1ac, K1c on one shard of a scan on an X/Y mesh (the reference vmaps the
+sharded stage body over each device's block of chains,
+models/ensemble.py:96-131): ``stage_update_chains(..., shard=)`` on the
+shard's chain-stacked padded arrays ``[C, 2, N, 2, lx + 2hx, ly + 2hy,
+Z*T/2]``; chain c's result is K1a's on its own padded arrays, bit for bit.
+Instantiations ``instance_name(..., shard=True, chains=True)``.
+
 ``stage_update`` dispatches on the tensors' device: CPU tensors go to
 the plain version, CUDA tensors to the kernel, anything else raises.
 There is no fallback from a failed build or launch.
@@ -120,13 +127,17 @@ SHARD_INSTANCES = tuple(
     name + "_shard" for name in INSTANCES + STREAM_INSTANCES
     + PHILOX_INSTANCES)
 
-# K1c: the chain-batched twin of every threefry and Philox instantiation
+# K1c: the chain-batched twin of every threefry and Philox instantiation,
+# and K1ac, its form on a shard
 CHAIN_INSTANCES = tuple(name + "_chains"
                         for name in INSTANCES + PHILOX_INSTANCES)
+CHAIN_SHARD_INSTANCES = tuple(name + "_shard_chains"
+                              for name in INSTANCES + PHILOX_INSTANCES)
 
 # kernel launches, counted where the kernel is launched (never on the CPU)
 LAUNCHES = {name: 0 for name in INSTANCES + STREAM_INSTANCES
-            + PHILOX_INSTANCES + SHARD_INSTANCES + CHAIN_INSTANCES}
+            + PHILOX_INSTANCES + SHARD_INSTANCES + CHAIN_INSTANCES
+            + CHAIN_SHARD_INSTANCES}
 RNG_MODES = ("threefry", "hw")
 
 
@@ -512,12 +523,12 @@ def chain_stage_keys(base_keys, sweep_idx, stage_id):
 
 
 def _check_chains(us, mu, parity, betas, base_keys, dims, kind, k_trials,
-                  n_hit, count, rng_mode):
-    """Validate K1c's arguments; returns (C, N, device type)."""
+                  n_hit, count, rng_mode, shard):
+    """Validate K1c's (K1ac's) arguments; returns (C, N, device type)."""
     if rng_mode not in RNG_MODES:
         raise ValueError(f"rng_mode {rng_mode!r}: the chain stage draws "
                          f"{RNG_MODES}, not a PRNGCL stream")
-    c, n, dev = core.check_chains(us, dims)
+    c, n, dev = core.check_chains(us, dims, shard=shard)
     _check_stage(mu, parity, kind, k_trials, n_hit)
     if (betas.dtype != torch.float32 or tuple(betas.shape) != (c,)
             or betas.device != us[0].device):
@@ -534,49 +545,59 @@ def _check_chains(us, mu, parity, betas, base_keys, dims, kind, k_trials,
 def stage_update_chains_ref(us, mu, parity, betas, base_keys, sweep_idx,
                             stage_id, dims, k_trials=4, kind="heatbath",
                             n_hit=3, metro_delta=0.35, count=None, *,
-                            rng_mode="threefry"):
-    """Plain twin of K1c: stage_update_ref on each chain's view with that
-    chain's beta and stage key (chain_stage_keys), in place; adds chain
-    c's tracked count to count[c].  Any device."""
+                            rng_mode="threefry", shard=None):
+    """Plain twin of K1c (K1ac with ``shard``): stage_update_ref on each
+    chain's view with that chain's beta and stage key (chain_stage_keys),
+    in place; adds chain c's tracked count to count[c].  Any device."""
+    shard = core.padded_or_none(shard)
     c, _, _ = _check_chains(us, mu, parity, betas, base_keys, dims, kind,
-                            k_trials, n_hit, count, rng_mode)
+                            k_trials, n_hit, count, rng_mode, shard)
     keys = chain_stage_keys(base_keys.cpu(), sweep_idx, stage_id).tolist()
     for i, (beta, key2) in enumerate(zip(betas.cpu().tolist(), keys)):
         stage_update_ref(tuple(a[i] for a in us), mu, parity, beta,
                          key2 if kind != "overrelax" else (0, 0), dims,
                          k_trials, kind, n_hit, metro_delta,
                          None if count is None else count[i:i + 1],
-                         rng_mode=rng_mode)
+                         rng_mode=rng_mode, shard=shard)
     return us[2 * mu + parity]
 
 
 def stage_update_chains(us, mu, parity, betas, base_keys, sweep_idx,
                         stage_id, dims, k_trials=4, kind="heatbath", n_hit=3,
-                        metro_delta=0.35, count=None, *, rng_mode="threefry"):
+                        metro_delta=0.35, count=None, *, rng_mode="threefry",
+                        shard=None):
     """K1c: one stage of ``kind`` on every chain of the chain-stacked
     8-tuple (each array [C, 2, N, 2, X, Y, Z*T/2]), in place on
     us[2*mu + parity] (returned).  betas: float32 [C]; base_keys: int32
     [C, 2], each chain's base key (rng.make_base_key); the stage key of
     chain c is rng.stage_key(base_keys[c], sweep_idx, stage_id), derived on
     the device.  count: optional int64 [C] tensor the stage adds each
-    chain's tracked count to.  rng_mode "hw" draws Philox.  CPU tensors
+    chain's tracked count to.  rng_mode "hw" draws Philox.  With ``shard``
+    (a ``core.Shard``) us are that shard's chain-stacked padded arrays
+    (K1ac; a shard without halo is the whole lattice: K1c).  CPU tensors
     take the plain version, CUDA tensors the kernel: one launch for all
     chains."""
+    shard = core.padded_or_none(shard)
     c, n, dev = _check_chains(us, mu, parity, betas, base_keys, dims, kind,
-                              k_trials, n_hit, count, rng_mode)
+                              k_trials, n_hit, count, rng_mode, shard)
     if dev == "cpu":
         return stage_update_chains_ref(
             us, mu, parity, betas, base_keys, sweep_idx, stage_id, dims,
-            k_trials, kind, n_hit, metro_delta, count, rng_mode=rng_mode)
+            k_trials, kind, n_hit, metro_delta, count, rng_mode=rng_mode,
+            shard=shard)
     track = count is not None
     philox = rng_mode == "hw" and kind != "overrelax"
-    name = instance_name(kind, n, track, philox=philox, chains=True)
+    name = instance_name(kind, n, track, shard=shard is not None,
+                         philox=philox, chains=True)
     lib = build.library()
+    entry, geom = ((lib.qg_stage_chains, tuple(int(d) for d in dims))
+                   if shard is None else
+                   (lib.qg_stage_chains_sharded, shard.kernel_args()))
     with torch.cuda.device(us[0].device):
-        err = lib.qg_stage_chains(
+        err = entry(
             *[a.data_ptr() for a in us], us[0][0].numel(), c, n,
             KINDS.index(kind), int(track), int(philox), int(mu), int(parity),
-            *(int(d) for d in dims), betas.data_ptr(),
+            *geom, betas.data_ptr(),
             fm.f32(2.0 / n), base_keys.data_ptr(),
             int(sweep_idx) & 0xFFFFFFFF, int(stage_id) & 0xFFFFFFFF,
             int(k_trials), int(n_hit), fm.f32(metro_delta),

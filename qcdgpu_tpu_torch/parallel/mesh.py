@@ -8,8 +8,13 @@ shard (i, j) of an (mx, my) mesh owns the interior
 one CUDA device (or the CPU), and its neighbours along X and Y are found by
 index arithmetic on the grid.  By default every shard sits on the
 Simulation's device, so a mesh runs on one card; ``devices=[...]`` spreads
-them, shard k on ``devices[k % len(devices)]``.  Z/T meshes and the chain
-(replica) meshes are not ported (M11, M15).
+them, shard k on ``devices[k % len(devices)]``.  Z/T meshes are not ported
+(M11).
+
+A beta scan's chains are cut into blocks (the reference's ("c",) and
+("c", "x", "y", "z", "t") meshes, mesh.py:75-112): ``ChainGrid`` holds each
+block's chains and its ``ShardGrid``, every shard of block b on
+``devices[b % len(devices)]`` (by default the scan's device).
 """
 
 from __future__ import annotations
@@ -103,3 +108,53 @@ def shard_grid(cfg, device, devices=None) -> ShardGrid:
     lists the devices to spread them over."""
     return ShardGrid(cfg.dims, cfg.mesh,
                      [device] if devices is None else list(devices))
+
+
+class ChainGrid:
+    """A beta scan's C chains in ``n_blocks`` equal blocks of consecutive
+    chains (the reference's chain-mesh axis "c"), each block with the
+    ShardGrid of cfg.mesh over the lattice, all of block b's shards on
+    ``devices[b % len(devices)]``: the reference's make_chain_mesh and
+    make_chain_lattice_mesh (mesh.py:75-112) as an explicit grid."""
+
+    def __init__(self, cfg, n_chains, n_blocks, devices):
+        n_chains, n_blocks = int(n_chains), int(n_blocks)
+        if n_blocks < 1 or n_chains % n_blocks:
+            raise ValueError(f"n_chains={n_chains} must divide evenly over "
+                             f"chain_mesh={n_blocks} blocks")
+        per = n_chains // n_blocks
+        devices = [torch.device(d) for d in devices]
+        self.blocks = tuple(range(b * per, (b + 1) * per)
+                            for b in range(n_blocks))
+        self.grids = tuple(
+            ShardGrid(cfg.dims, cfg.mesh, [devices[b % len(devices)]])
+            for b in range(n_blocks))
+
+    def __len__(self):
+        return len(self.blocks)
+
+
+def block_cards(devices) -> int:
+    """The device count that auto chain_mesh divides: the distinct cards in
+    ``devices`` (resolved torch.devices), over which the chain blocks
+    spread; 1 when ``devices`` is None, since every block then sits on the
+    scan's one device and more blocks only add host launches, or when it
+    names no card."""
+    if devices is None:
+        return 1
+    return max(len({d for d in map(torch.device, devices)
+                    if d.type == "cuda"}), 1)
+
+
+def resolve_chain_mesh(requested, cfg, n_chains, n_devices) -> int:
+    """The chain blocks of a scan (reference BetaScan._resolve_chain_mesh,
+    ensemble.py:394-413): ``requested`` when nonzero, else (0, auto) the
+    largest divisor of n_chains that fits n_devices // prod(cfg.mesh)
+    blocks, at least 1."""
+    if requested:
+        return int(requested)
+    nd = int(n_devices) // int(np.prod(cfg.mesh))
+    for d in range(min(nd, int(n_chains)), 1, -1):
+        if n_chains % d == 0:
+            return d
+    return 1

@@ -124,9 +124,11 @@ def check_su3(quick=False, device="cuda", **overrides):
     }
 
 
-def check_deconfinement(quick=False, device="cuda", **overrides):
+def check_deconfinement(quick=False, device="cuda", chain_mesh=1,
+                        **overrides):
     """|Polyakov| must be ~0 below beta_c(N_t = 6) and clearly nonzero
-    above: one BetaScan of two chains (reference validate.py:141-165)."""
+    above: one BetaScan of two chains (reference validate.py:141-165), in
+    ``chain_mesh`` blocks (on an X/Y mesh with overrides mesh=...)."""
     from .models.ensemble import BetaScan
     from .ops.measure import measure_obs_names
 
@@ -137,7 +139,7 @@ def check_deconfinement(quick=False, device="cuda", **overrides):
         sweeps_therm=100 if quick else 200,
         sweeps=150 if quick else 300, seed=5,
     ).replace(**overrides)
-    scan = BetaScan(cfg, betas, device=device)
+    scan = BetaScan(cfg, betas, chain_mesh, device=device)
     scan.thermalize()
     obs = scan.run()  # [2, n_meas, n_obs]
     names = list(measure_obs_names(cfg))

@@ -100,7 +100,7 @@ def test_scan_then_resume_is_one_scan(tmp_path):
 
 @pytest.mark.parametrize("args,item", [
     (["scan", "--betas", "5.6,6.0", "--rng-mode", "prngcl:ranlux3"], "M11"),
-    (["scan", "--betas", "5.6,6.0", "--mesh", "2,1,1,1"], "M15"),
+    (["scan", "--betas", "5.6,6.0", "--mesh", "1,1,1,2"], "M11"),
     (["validate", "--configs", "6"], "M11"),
     (["run", "--get-qtop"], "M12"),
     (["run", "--wilson-loops", "1x1"], "M12"),

@@ -17,7 +17,7 @@ from qcdgpu_tpu_torch.models import (BetaScan, SU2PureGauge, SU3PureGauge,
                                      baseline_config)
 from qcdgpu_tpu_torch.models.ensemble import keys_tensor
 from qcdgpu_tpu_torch.ops import rng
-from qcdgpu_tpu_torch.ops.cuda import engine
+from qcdgpu_tpu_torch.ops.cuda import core, engine
 from qcdgpu_tpu_torch.ops.cuda import measure as cmeasure
 from qcdgpu_tpu_torch.ops.cuda import reunit as creunit
 from qcdgpu_tpu_torch.ops.cuda import update as cupdate
@@ -101,7 +101,7 @@ def test_chain_twins_are_the_single_chain_twins(kind, track, mode):
             assert int(count[c]) == int(cnt)
     sums = cmeasure.plane_sums_chains(chains, dims)
     poly = cmeasure.polyakov_sums_chains(chains, dims)
-    row = engine.measure_chains(chains, dims)
+    row = engine.measure_chains((chains,), (core.whole(dims),))
     for c in range(3):
         view = tuple(a[c] for a in chains)
         assert torch.equal(sums[c], cmeasure.plane_sums_ref(view, dims))
@@ -210,8 +210,8 @@ def test_presets():
 
 @pytest.mark.parametrize("kw,chain_mesh,item", [
     (dict(rng_mode="prngcl:ranlux3"), 1, "M11"),
-    (dict(mesh=(2, 1, 1, 1)), 1, "M15"),
-    ({}, 2, "M15"),
+    (dict(mesh=(1, 1, 2, 1)), 1, "M11"),
+    (dict(rng_mode="prngcl:ranlux3", mesh=(2, 1, 1, 1)), 2, "M11"),
     (dict(get_qtop=True), 1, "M12"),
 ])
 def test_refusals_name_their_item(kw, chain_mesh, item):
