@@ -21,8 +21,8 @@ each timed:
                   stream, unsharded, on a shard (K1a, K5a, K5b: "_shard"),
                   over a chain axis (K1c: "_chains") and both (K1ac:
                   "_shard_chains"; K5a/K5b and K5ac/K5bc share their
-                  kernels, as K3/K4 and K3c/K4c do), every K1 and K3
-                  instantiation with no stack frame and no spills (a
+                  kernels, as K3/K4 and K3c/K4c do), every K1, K3 and
+                  K4 instantiation with no stack frame and no spills (a
                   ranlux window's frame excepted); the static SASS
                   instruction mix of K1 Philox SU(3) heat-bath and K3
                   SU(3) where the toolkit has cuobjdump;
@@ -41,7 +41,10 @@ each timed:
                   its own phase-5 run's 8^4 shape, SU(3) heat-bath (and
                   tracked) at 32^4, all bit-identical with equal counts;
                   K2-K4 for SU(3) and SU(2) at
-                  (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4; every K1a
+                  (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4; K4 again at
+                  8^4, 16^4, (2,2,2,72) (T/2 = 36: two slot pairs a
+                  lane) and SU(3) 64^4, and K5b on the shards of 64^4 on
+                  (1,8,1,1), the T/2 of every phase-5 path; every K1a
                   instantiation (threefry and stream) on the shards of
                   (8,8,4,4) mesh (2,2,1,1) and again at the 8^4 shape,
                   X, Y or XY mesh and generator of its own phase-5 run,
@@ -86,7 +89,10 @@ each timed:
                   on the chain views that it replaces, its bound C times
                   the single chain's; every K1ac instantiation, K5ac and
                   K5bc on shard 0 of 24^3 x 6 on (2,2,1,1) with 11 chains,
-                  beside the loop of 11 K1a (K5a, K5b) launches;
+                  beside the loop of 11 K1a (K5a, K5b) launches; K4, K5b,
+                  K4c and K5bc also on the device by torch.profiler
+                  (the record's device_ms), which CUDA events around
+                  back-to-back calls cannot give below ~0.05 ms;
   5. main paths — first small hot starts through the library API, CUDA
                   against the CPU path (threefry slices, and ranlux3).
                   Then Simulation(cfg) with no device argument at 32^4
@@ -208,6 +214,12 @@ LAYOUT_BETAS = (5.9, 6.1)
 # the command line's scan on a mesh: 4 chains in 2 blocks
 CLI_MESH_DIMS = (12, 12, 12, 6)
 CLI_MESH_GRID = "5.6:6.1:4"
+# K4 and K5b at the T/2 of phase 5's other paths: the SU(3) 16^4 gates
+# (T/2 = 8) and 64^4 unsharded and on (1,8,1,1) (T/2 = 32); and T/2 = 36,
+# where each of K4's lanes walks two slot pairs
+GATE_DIMS = (16, 16, 16, 16)
+HUGE, HUGE_MESH = (64, 64, 64, 64), (1, 8, 1, 1)
+LONG_T = (2, 2, 2, 72)
 
 # One H100 SXM, NVIDIA's data sheet: HBM bandwidth and f32 rate outside the
 # tensor cores.  Integer operations run on their own pipe: 64 32-bit integer
@@ -403,13 +415,14 @@ def frame_and_spills(line):
 
 
 def needs_no_frame(name):
-    """The K1 (stage_*, with K1a and K1c) and K3 (plane_sums_kernel and
-    plane_sums_tile_kernel, with K3c and K5a) instantiations keep
-    everything in registers: no stack frame, no spills.  A ranlux stream's
-    24-word lag window is indexed by its run-time pointer and lives in a
-    frame by design (streams.cuh); it must not spill."""
+    """The K1 (stage_*, with K1a and K1c), K3 (plane_sums_kernel and
+    plane_sums_tile_kernel, with K3c and K5a) and K4 (polyakov_sums_kernel,
+    with K4c, K5b and K5bc) instantiations keep everything in registers:
+    no stack frame, no spills.  A ranlux stream's 24-word lag window is
+    indexed by its run-time pointer and lives in a frame by design
+    (streams.cuh); it must not spill."""
     return name.startswith(("stage_", "plane_sums_kernel",
-                            "plane_sums_tile_kernel"))
+                            "plane_sums_tile_kernel", "polyakov_sums_kernel"))
 
 
 # SASS opcode classes (by mnemonic prefix), for the static instruction mix
@@ -661,20 +674,49 @@ def profile_window(sim, n_sweeps):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_prof = window()
+    by_name = device_events(prof)
+    if not by_name:
+        return wall, wall_prof, None, {}
+    busy = sum(ms for ms, _ in by_name.values())
+    return wall, wall_prof, busy, by_name
+
+
+def device_events(prof):
+    """{name: (device ms, calls)} of a finished torch.profiler trace's
+    device events (kernels, copies, memsets)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    dev_events = [e for e in events if e.get("cat") in DEVICE_CATS]
-    if not dev_events:
-        return wall, wall_prof, None, {}
     by_name = {}
-    for e in dev_events:
-        ms, calls = by_name.get(e["name"], (0.0, 0))
-        by_name[e["name"]] = (ms + e["dur"] / 1e3, calls + 1)
-    busy = sum(ms for ms, _ in by_name.values())
-    return wall, wall_prof, busy, by_name
+    for e in events:
+        if e.get("cat") in DEVICE_CATS:
+            ms, calls = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e["dur"] / 1e3, calls + 1)
+    return by_name
+
+
+def device_ms(fn, reps, match):
+    """Device ms per call of fn, over reps calls under torch.profiler after
+    one warm-up call: (the kernels whose name holds match, all the calls'
+    device work), or (None, None) when the trace holds no device event.
+    Unlike CUDA events around back-to-back calls it does not count the
+    host's launch path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    by_name = device_events(prof)
+    if not by_name:
+        return None, None
+    return (sum(ms for k, (ms, _) in by_name.items() if match in k) / reps,
+            sum(ms for ms, _ in by_name.values()) / reps)
 
 
 def multicard(n_cards):
@@ -856,7 +898,7 @@ def main():
             "replaces": ("qcdgpu_tpu/ops/" if "prng" in replaces else tpu)
             + replaces, "launches": 0, "max_abs_err": 0.0,
             "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
-            "library_ms": None}
+            "library_ms": None, "device_ms": None}
     require(set(record) == {k for c in counters for k in c},
             "launch counters and kernel record disagree")
 
@@ -1259,6 +1301,38 @@ def main():
                 require(k2 < REUNIT_TOL and d3 < PLANE_TOL and d4 < POLY_TOL,
                         msg)
         mark("K2-K4")
+        # K4 and K5b at the T/2 of phase 5's other paths (STREAM_SMALL_RUN:
+        # 4, GATE_DIMS: 8, HUGE: 32, unsharded and on each shard of
+        # HUGE_MESH) and at T/2 = 36 (LONG_T: two slot pairs a lane)
+        for n, dims, mesh in [(n, d, None) for n in GROUPS for d in (
+                STREAM_SMALL_RUN, GATE_DIMS, LONG_T)] + [
+                (3, HUGE, None), (3, HUGE, HUGE_MESH)]:
+            u_ = hot(dims, n)
+            if mesh is None:
+                name, where = f"polyakov_sums_su{n}", ""
+                d4 = float((cmeasure.polyakov_sums(u_, dims)
+                            - cmeasure.polyakov_sums_ref(u_, dims)
+                            ).abs().max()) / (n * np.prod(dims[:3]))
+            else:
+                name, where = f"polyakov_sums_local_su{n}", f" mesh {mesh}"
+                grid = ShardGrid(dims, mesh, [dev])
+                d4 = 0.0
+                for g, us in zip(grid.shards,
+                                 sharded.shard_links(u_, grid)):
+                    d4 = max(d4, float(
+                        (cmeasure.polyakov_sums_local(us, g)
+                         - cmeasure.polyakov_sums_local_ref(us, g)
+                         ).abs().max()) / (n * np.prod(g.interior[:3])))
+                del us
+            note_err(name, d4)
+            msg = (f"SU({n}) {dims}{where} (T/2 = {dims[3] // 2}, lanes a "
+                   f"column {cmeasure.poly_lanes(dims[3] // 2)[2]}): "
+                   f"{'K5b per shard' if mesh else 'K4'} max |d sum|/(N "
+                   f"spatial vol) {d4:.3e} (< {POLY_TOL})")
+            print(msg)
+            require(d4 < POLY_TOL, msg)
+        hots.pop((HUGE, 3))
+        mark("K4, K5b at T/2 = 4, 8, 32, 36")
         # K1a: every instantiation on the shards of SHARD_SMALL on MESH
         # (partly filled blocks), again at the shape, mesh and generator of
         # its own phase-5 run (the overrelaxation ones: of the runs whose
@@ -1498,6 +1572,20 @@ def main():
                   f"ms ({rec['bound_by']}), -fmad=false f32 floor "
                   f"{f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  [{smi}]")
 
+    def k4_device(name, fn, where):
+        """A K4-family call's device time by the profiler (its kernel, and
+        with the finish kernel: device_ms of the record), beside phase 4's
+        CUDA-event time, which below ~0.05 ms is the host's launch path."""
+        kern, total = device_ms(fn, 50, "polyakov_sums_kernel")
+        rec = record[name]
+        rec["device_ms"] = total
+        print(f"{name} {where}: on the device " + (
+            "not measured (the profiler saw no device event)"
+            if kern is None else f"{kern:.4f} ms polyakov_sums_kernel, "
+            f"{total:.4f} ms with the finish kernel (profiler, 50 calls)")
+            + f"; CUDA events {rec['ms']:.4f} ms; bound "
+            f"{rec['bound_ms']:.4f} ms  [{smi}]")
+
     with Phase("4 kernel timing at 32^4 and 24^3 x 6"):
         key = rng.stage_key(rng.make_base_key(1), 0, 0)
         v2 = int(np.prod(BIG)) // 2
@@ -1561,6 +1649,8 @@ def main():
                 lambda: cmeasure.polyakov_sums_ref(w, BIG),
                 lambda: cmeasure.polyakov_sums(w, BIG), 3, 100, 1, 0)
             time_pairs(pairs, BIG)
+            k4_device(f"polyakov_sums_su{n}",
+                      lambda: cmeasure.polyakov_sums(w, BIG), f"{BIG}")
             # K1a, K5a and K5b on shard 0 of BIG on MESH; the halo refresh
             grid = ShardGrid(BIG, MESH, [dev])
             shards = sharded.shard_links(w, grid)
@@ -1611,6 +1701,9 @@ def main():
                 lambda: cmeasure.polyakov_sums_local_ref(s0, g0),
                 lambda: cmeasure.polyakov_sums_local(s0, g0), 2, 50, 1, 0)
             time_pairs(spairs, g0.interior, g0)
+            k4_device(f"polyakov_sums_local_su{n}",
+                      lambda: cmeasure.polyakov_sums_local(s0, g0),
+                      f"{BIG} mesh {MESH} shard 0")
             # the halo refresh of one array (after each stage): each shard
             # copies 2 Y rows over its interior X and 2 Y-padded X slabs
             (lx, ly), (hx, hy) = g0.local, g0.halo
@@ -1706,6 +1799,9 @@ def main():
                       f"({rec['bound_by']}), -fmad=false f32 floor "
                       f"{nc * f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  "
                       f"[{smi}]")
+            k4_device(f"polyakov_sums_chains_su{n}",
+                      lambda: cmeasure.polyakov_sums_chains(us, SCAN_DIMS),
+                      f"{SCAN_DIMS} x {nc} chains")
             del us, views, cpairs
 
         # K1ac, K5ac, K5bc on shard 0 of SCAN_DIMS on MESH over the scan's
@@ -1779,6 +1875,10 @@ def main():
                       f"-fmad=false f32 floor "
                       f"{nc * f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  "
                       f"[{smi}]")
+            k4_device(f"polyakov_sums_local_chains_su{n}",
+                      lambda: cmeasure.polyakov_sums_chains(s0, SCAN_DIMS,
+                                                            g0),
+                      f"{SCAN_DIMS} mesh {MESH} shard 0 x {nc} chains")
             del s0, views, cpairs
 
     with Phase("5 main paths"):

@@ -13,29 +13,53 @@
 // (D = ShardDims instead of Dims): they replace measure.py:
 // _plq_sharded_kernel (call :316, plane_sums_local) and _poly_sharded_kernel
 // (call :422, polyakov_sums_local).  K5a reads the +1 neighbours from the
-// shard's halos; K5b walks the interior columns (T is never split) with the
-// global parity.  The caller adds the shards' sums in a fixed order.  Plain
-// twins: ops/cuda/measure.py:plane_sums_local_ref, polyakov_sums_local_ref.
+// shard's halos; K5b runs K4's lanes over the interior columns (T is never
+// split) with the global parity.  The caller adds the shards' sums in a
+// fixed order.  Plain twins: ops/cuda/measure.py:plane_sums_local_ref,
+// polyakov_sums_local_ref.
 //
 // K3, per site x (one thread for each site of either parity): for the six
 // planes (0,1), (0,2), (0,3), (1,2), (1,3), (2,3), Re tr[(U_mu(x)
 // U_nu(x+mu)) (U_nu(x) U_mu(x+nu))^+] in f32, summed over sites in f64.
-// K4, per spatial column (x, y, z): the ordered product U_t(t=0) ... U_t(T-1)
-// walked in t, taking slot t/2 of us[6 + (x+y+z+t) % 2]; tr re/im summed in
-// f64.  Walking t in a thread replaces the TPU kernel's lane-roll ladder and
-// is valid for any T, including T/2 odd.
+// K4, per spatial column (x, y, z): tr of the ordered product U_t(t=0) ...
+// U_t(T-1), U_t(t) in slot t/2 of us[6 + (x+y+z+t) % 2]; tr re/im summed in
+// f64.  A column's T/2 slots are contiguous, so K4 runs a group of lanes
+// per column, lane k on slot k (the TPU kernel's lanes are slots too, and
+// pltpu.roll becomes __shfl_down_sync): neighbouring lanes load
+// neighbouring words, and a column's T - 1 products run as a log-depth
+// ladder instead of a chain in one thread.  The association, a function
+// of T alone and the same in K4, K4c, K5b and K5bc (and in the plain twin,
+// ops/cuda/measure.py:polyakov_columns_ref):
+//   pairs:  V_s = U_{2s} U_{2s+1}, s < T/2 (the reference's level 0);
+//   units:  W = ceil(T/2 / 32) slots a lane, m = ceil(T/2 / W) units,
+//           unit k = ((V_{kW} V_{kW+1}) ...) V_{min(kW+W, T/2)-1}, left to
+//           right (W = 1, unit k = V_k, for every T/2 <= 32);
+//   ladder: lad_0 = unit, lad_j(k) = lad_{j-1}(k) lad_{j-1}(k + 2^(j-1)),
+//           the product of units [k, k + 2^j) (the reference's lad[j]);
+//   chunks: for each set bit j of m, low to high, the chunk lad_j(pos_j),
+//           pos_j = m with bits 0..j cleared, multiplies the product of
+//           the lower chunks from the left: P = C_hi (... (C_mid C_lo)).
+// The reference (qcdgpu_tpu/ops/pallas/measure.py:196-203) folds the same
+// chunks from the left, ((C_hi C_mid) C_lo); the two agree wherever m has
+// at most two set bits (every T/2 <= 6 and every power of two among them).
+// Folding from the right keeps one ladder level live, not all of them.
+// Valid for any even T.
 //
 // What bounds them on an H100: K3 reads each link 4 times per parity pass
 // (~0.2 GB at SU(3) 32^4, mostly L2 hits) for 3.3k f32 operations per site
 // at -fmad=false, so it is bound by instruction slots and gather latency
 // like the stage kernel (0.10 ms of f32 instructions at 32^4, above its
-// 0.06 ms HBM bound); K4 touches only the temporal links (1/4 of the
-// state) with one thread per column, so it is bound by bandwidth and by
-// its small thread count (X*Y*Z).  K3's design: the slot deltas of
-// common.cuh (no division, no frame), each distinct link loaded and
-// decoded once per site (16, not 24), 128 registers at 2 blocks of 256 an
-// SM, and the block's six sums by shuffles with one barrier (block_sums)
-// in place of six shared-memory trees.  Where Z*T/2 is a multiple of 128
+// 0.06 ms HBM bound); K4 reads only the temporal links (1/4 of the state)
+// once, coalesced, but its ladder does about 2.5x the products of a walk in
+// t (each lane multiplies at every level: m (1 + log2 m) products a column
+// at W = 1, not T - 1), and at -fmad=false those alone take longer than
+// the HBM bound (SU(3) 32^4: 0.017 ms of f32 instructions against 0.015),
+// plus 2N^2 shuffles a level (PERF.md, tools/port_kernel_ab.py).
+//
+// K3's design: the slot deltas of common.cuh (no division, no frame), each
+// distinct link loaded and decoded once per site (16, not 24), 128
+// registers at 2 blocks of 256 an SM, and the block's six sums by shuffles
+// with one barrier (block_sums) in place of six shared-memory trees.  Where Z*T/2 is a multiple of 128
 // (16^4, 32^4, 64^4) a block covers 128 slots of both parities, whole
 // (z, t) lines of one (x, y) row, and shares its links through shared
 // memory (plane_sums_tile_kernel): each thread decodes its own four links
@@ -64,7 +88,7 @@
 //
 // Reduction: the TPU kernels carry f32 Kahan sums across a sequential grid;
 // blocks here run in no order, so each block reduces its threads' f64
-// values in a fixed order (K3: block_sums; K4: a shared-memory tree) into a
+// values in a fixed order (block_sums: shuffles, one barrier) into a
 // [n_blocks, n_out] scratch, and a second one-block kernel sums the
 // partials in a fixed order.  No atomics: a run's measurement series is
 // reproducible bit for bit.
@@ -282,56 +306,129 @@ cudaError_t launch_plane_tile(const Links& L, const Dims& d, dim3 grid,
   return cudaGetLastError();
 }
 
+// K4's lanes for a column of T/2 slots (a function of T alone): W slots a
+// lane, m = ceil(T/2 / W) lanes holding a unit each, groups of L = 2^lg
+// lanes (the smallest power of two >= m), so that a group never straddles
+// a warp
+struct PolyLanes {
+  int w, m, lg;
+};
+
+__host__ inline PolyLanes poly_lanes(int t2) {
+  PolyLanes pl;
+  pl.w = (t2 + 31) / 32;
+  pl.m = (t2 + pl.w - 1) / pl.w;
+  pl.lg = 0;
+  while ((1 << pl.lg) < pl.m) ++pl.lg;
+  return pl;
+}
+
 // a spatial column (x, y, z) of the lattice or of a shard's interior: the
 // parity of (x, y, z, t = 0) and the slot of its t = 0, 1 pair
 __device__ __forceinline__ void poly_column(int col, const Dims& d, int& sig,
                                             int& base) {
-  sig = (col % d.z + (col / d.z) % d.y + col / (d.z * d.y)) & 1;
+  const int r = div_by(col, d.fz), z = col - r * d.z;  // r = x*Y + y
+  const int x = div_by(r, d.fy), y = r - x * d.y;
+  sig = (x + y + z) & 1;
   base = col * d.t2;
 }
 
 __device__ __forceinline__ void poly_column(int col, const ShardDims& d,
                                             int& sig, int& base) {
-  const int z = col % d.z, y = (col / d.z) % d.y, x = col / (d.z * d.y);
+  const int r = div_by(col, d.fz), z = col - r * d.z;
+  const int x = div_by(r, d.fy), y = r - x * d.y;
   sig = (d.x0 + x + d.y0 + y + z) & 1;
   base = (((x + d.hx) * d.py + y + d.hy) * d.z + z) * d.t2;
 }
 
+// the matrix of the lane delta above in the warp (a lane past the warp's
+// end gets its own); every lane of the warp must call it
+template <int N>
+__device__ __forceinline__ Mat<N> shfl_down_mat(const Mat<N>& a, int delta) {
+  Mat<N> o;
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      o.a[r][c].re = __shfl_down_sync(0xffffffffu, a.a[r][c].re, delta);
+      o.a[r][c].im = __shfl_down_sync(0xffffffffu, a.a[r][c].im, delta);
+    }
+  return o;
+}
+
+// Lane k of column col: its unit, the ordered product V_{kW} ... V_{kW+W-1}
+// (walked left to right, cut at T/2) of the slot pairs V_s = U_{2s}
+// U_{2s+1}; zero on a lane without a unit.  Then the ladder over the
+// group: at level j every lane holds lad_j(k) = lad_{j-1}(k)
+// lad_{j-1}(k + 2^(j-1)), the product of units [k, k + 2^j) wherever that
+// span lies in the column (elsewhere values no valid product reads), and
+// where bit j of m is set, the chunk lad_j at pos_j = m with bits 0..j
+// cleared is folded into lane 0's acc from the left.  -> (tr re, tr im) of
+// the column's loop on lane 0 of its group, 0 on the other lanes.  Every
+// lane of the warp must call it, those past the last column (col < 0)
+// too: they hold no unit.
+template <int N, class D>
+__device__ __forceinline__ void poly_lane(const float* __restrict__ u6,
+                                          const float* __restrict__ u7,
+                                          const D& d, const PolyLanes& pl,
+                                          int col, int k, float& tr_re,
+                                          float& tr_im) {
+  Mat<N> v = {};
+  if (col >= 0 && k < pl.m) {
+    int sig, base;
+    poly_column(col, d, sig, base);
+    const float* first = sig ? u7 : u6;  // t = 2s has the column's parity
+    const float* second = sig ? u6 : u7;
+    int s = base + k * pl.w;
+    const int end = min(s + pl.w, base + d.t2);
+    v = mmul(load_mat<N>(first, s, d.v2), load_mat<N>(second, s, d.v2));
+    for (++s; s < end; ++s)
+      v = mmul(v, mmul(load_mat<N>(first, s, d.v2),
+                       load_mat<N>(second, s, d.v2)));
+  }
+  Mat<N> acc;
+  bool have = false;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {  // m <= 32: levels 0..5
+    if ((1 << j) > pl.m) break;
+    if (j > 0) v = mmul(v, shfl_down_mat(v, 1 << (j - 1)));
+    if (pl.m & (1 << j)) {
+      const int pos = (pl.m >> (j + 1)) << (j + 1);
+      const Mat<N> term = pos ? shfl_down_mat(v, pos) : v;
+      if (have)
+        acc = mmul(term, acc);
+      else
+        acc = term;
+      have = true;
+    }
+  }
+  tr_re = tr_im = 0.f;
+  if (col >= 0 && k == 0) {
+    tr_re = acc.a[0][0].re;
+    tr_im = acc.a[0][0].im;
+#pragma unroll
+    for (int r = 1; r < N; ++r) {
+      tr_re = tr_re + acc.a[r][r].re;
+      tr_im = tr_im + acc.a[r][r].im;
+    }
+  }
+}
+
+// one thread per (column, lane), the columns' groups in column order; chain
+// blockIdx.y as plane_sums_kernel.  The block's two sums by block_sums.
 template <int N, class D>
 __global__ void polyakov_sums_kernel(const float* __restrict__ u6,
                                      const float* __restrict__ u7, D d,
-                                     long long chain_stride,
+                                     PolyLanes pl, long long chain_stride,
                                      double* __restrict__ partials) {
-  extern __shared__ double sh[];
   const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
-  u6 += off;
-  u7 += off;
-  partials += (size_t)blockIdx.y * gridDim.x * 2;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_col = d.x * d.y * d.z;
-  float tr_re = 0.f, tr_im = 0.f;
-  if (col < n_col) {
-    int sig, base;
-    poly_column(col, d, sig, base);
-    Mat<N> prod = load_mat<N>(sig ? u7 : u6, base, d.v2);
-    for (int t = 1; t < d.t; ++t) {
-      const float* arr = ((sig + t) & 1) ? u7 : u6;
-      prod = mmul(prod, load_mat<N>(arr, base + t / 2, d.v2));
-    }
-    tr_re = prod.a[0][0].re;
-    tr_im = prod.a[0][0].im;
-#pragma unroll
-    for (int r = 1; r < N; ++r) {
-      tr_re = tr_re + prod.a[r][r].re;
-      tr_im = tr_im + prod.a[r][r].im;
-    }
-  }
-  sh[threadIdx.x] = (double)tr_re;
-  block_tree_sum(sh);
-  if (threadIdx.x == 0) partials[blockIdx.x * 2 + 0] = sh[0];
-  sh[threadIdx.x] = (double)tr_im;
-  block_tree_sum(sh);
-  if (threadIdx.x == 0) partials[blockIdx.x * 2 + 1] = sh[0];
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int col = g >> pl.lg;
+  float tr_re, tr_im;
+  poly_lane<N>(u6 + off, u7 + off, d, pl, col < d.x * d.y * d.z ? col : -1,
+               g & ((1 << pl.lg) - 1), tr_re, tr_im);
+  const double v[2] = {(double)tr_re, (double)tr_im};
+  block_sums(v, partials);
 }
 
 // out[o] = sum_b partials[b * n_out + o], in a fixed order (one block per
@@ -396,26 +493,28 @@ int plane_sums(const Links& L, int n, const D& d, double* partials,
   return (int)cudaGetLastError();
 }
 
-// partials [n_chains, n_blocks, 2], out [n_chains, 2]
+// partials [n_chains, n_blocks, 2] with n_blocks = ceil(columns * L /
+// block), out [n_chains, 2]
 template <class D>
 int polyakov_sums(const float* u6, const float* u7, int n, const D& d,
                   int block, double* partials, double* out, cudaStream_t s,
                   int n_chains = 1, long long chain_stride = 0) {
   if (!pow2_block(block) || (n != 2 && n != 3) || !chain_count_ok(n_chains))
     return (int)cudaErrorInvalidValue;
-  const int n_blocks = (d.x * d.y * d.z + block - 1) / block;
-  const size_t smem = block * sizeof(double);
+  const PolyLanes pl = poly_lanes(d.t2);
+  const long long threads = (long long)d.x * d.y * d.z << pl.lg;
+  const int n_blocks = (int)((threads + block - 1) / block);
   const dim3 grid(n_blocks, n_chains);
   if (n == 3)
-    polyakov_sums_kernel<3><<<grid, block, smem, s>>>(u6, u7, d, chain_stride,
-                                                      partials);
+    polyakov_sums_kernel<3><<<grid, block, 0, s>>>(u6, u7, d, pl,
+                                                   chain_stride, partials);
   else
-    polyakov_sums_kernel<2><<<grid, block, smem, s>>>(u6, u7, d, chain_stride,
-                                                      partials);
+    polyakov_sums_kernel<2><<<grid, block, 0, s>>>(u6, u7, d, pl,
+                                                   chain_stride, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  finish_sums_kernel<<<n_chains, block, smem, s>>>(partials, n_blocks, 2,
-                                                   out);
+  finish_sums_kernel<<<n_chains, block, block * sizeof(double), s>>>(
+      partials, n_blocks, 2, out);
   return (int)cudaGetLastError();
 }
 
@@ -449,7 +548,8 @@ extern "C" int qg_plane_sums_local(void* u0, void* u1, void* u2, void* u3,
 }
 
 // n: 2 or 3; partials: f64 [n_blocks * 2] with
-// n_blocks = ceil(X*Y*Z / block); out: f64 [2] = (sum re tr, sum im tr)
+// n_blocks = ceil(X*Y*Z * L / block) (L: poly_lanes(T / 2)); out: f64 [2] =
+// (sum re tr, sum im tr)
 extern "C" int qg_polyakov_sums(void* u6, void* u7, int n, int X, int Y,
                                 int Z, int T, int block, void* partials,
                                 void* out, void* stream) {
@@ -460,7 +560,7 @@ extern "C" int qg_polyakov_sums(void* u6, void* u7, int n, int X, int Y,
 
 // K5b: qg_polyakov_sums over one shard's interior columns (u6, u7 its padded
 // temporal arrays; T is never split, so no halo is read); n_blocks =
-// ceil(lx*ly*Z / block).
+// ceil(lx*ly*Z * L / block).
 extern "C" int qg_polyakov_sums_local(void* u6, void* u7, int n, int lx,
                                       int ly, int Z, int T, int hx, int hy,
                                       int x0, int y0, int gy, int block,

@@ -34,10 +34,11 @@ import torch
 from . import build, core
 
 PLANES = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
-# threads per block of the Polyakov kernels (power of two), and the block
-# K3 is built for (csrc/measure.cu kPlaneThreads); the f64 partials scratch
-# holds one row per block
-REDUCE_BLOCK = 256
+# threads per block of the Polyakov kernels (a power of two from 32 to
+# 1024; tools/port_kernel_ab.py times 256 and 512, PERF.md), and the block
+# K3 is built for (csrc/measure.cu kPlaneThreads); the f64 partials
+# scratch holds one row per block
+POLY_BLOCK = 256
 PLANE_BLOCK = 256
 
 LAUNCHES = {f"{k}_su{n}": 0
@@ -85,13 +86,39 @@ def plane_sums_ref(us, dims, shard=None):
     return sums
 
 
-def polyakov_sums_ref(us, dims, shard=None):
-    """f64 [2]: (sum re, sum im) over spatial sites of tr prod_t U_t, the
-    product walked in t as the kernel walks it (over a shard's interior
-    columns with ``shard``)."""
+def poly_lanes(t2):
+    """(W, m, L) for a column of t2 slot pairs, a function of T alone
+    (csrc/measure.cu poly_lanes): slots a lane, lanes holding a unit, and
+    lanes a column's group takes (the smallest power of two >= m, so that
+    a group never straddles a warp)."""
+    w = -(-t2 // 32)
+    m = -(-t2 // w)
+    return w, m, 1 << (m - 1).bit_length()
+
+
+def _mmap(fn, m):
+    """fn applied to every component tensor of a matrix tuple."""
+    return tuple(tuple((fn(c[0]), fn(c[1])) for c in row) for row in m)
+
+
+def polyakov_columns_ref(us, dims, shard=None):
+    """f32 [2, columns]: (re, im) of tr prod_t U_t for each spatial column,
+    in (x, y, z) order (a shard's interior columns with ``shard``).
+
+    The product is K4's association (csrc/measure.cu, header), a function
+    of T alone: slot pairs V_s = U_2s U_2s+1, units of W pairs walked left
+    to right (W = 1 for T/2 <= 32), the doubling ladder over the units,
+    lad_j(k) = lad_{j-1}(k) lad_{j-1}(k + 2^(j-1)), and for each set bit j
+    of the unit count m, low to high, the chunk lad_j(pos_j) multiplying
+    the lower chunks' product from the left.  The kernel runs a column's
+    slots on neighbouring lanes, because a column's slots are contiguous
+    (one coalesced load a component) and a ladder is log-depth where a
+    walk in t is T - 1 dependent products; here the lanes are the slot
+    axis of [columns, T/2] tensors, each level one vectorised product."""
     n, _ = _check(us, dims, shard)
     g = shard or core.whole(dims)
     x_dim, y_dim, z_dim, t_dim = g.interior
+    t2 = t_dim // 2
     dev = us[0].device
     v2 = us[6].numel() // (4 * n)
     both = torch.cat([us[6].reshape(4 * n, v2), us[7].reshape(4 * n, v2)],
@@ -102,23 +129,49 @@ def polyakov_sums_ref(us, dims, shard=None):
     x = col // (z_dim * y_dim)
     sig = (x + g.offset[0] + y + g.offset[1] + z) % 2
     base = core.packed_slot(x, y, z, 0, g.interior, g.halo)
+    slot = (base[:, None] + torch.arange(t2, device=dev)).reshape(-1)
+    par = sig[:, None].expand(-1, t2).reshape(-1)  # t = 2s has parity sig
 
-    def link(t):
-        idx = ((sig + t) % 2) * v2 + base + t // 2
-        return core.load_mat(both, n, idx)
+    def pair_half(p):
+        return _mmap(lambda c: c.reshape(-1, t2),
+                     core.load_mat(both, n, p * v2 + slot))
 
-    prod = link(0)
-    for t in range(1, t_dim):
-        prod = core.mmul(prod, link(t))
-    tr_re, tr_im = prod[0][0]
+    v = core.mmul(pair_half(par), pair_half(1 - par))  # V_s [columns, T/2]
+    w, m, _ = poly_lanes(t2)
+    unit = _mmap(lambda c: c[:, ::w], v)
+    for i in range(1, w):
+        k = -(-(t2 - i) // w)  # the units that hold slot k W + i
+        step = core.mmul(_mmap(lambda c: c[:, :k], unit),
+                         _mmap(lambda c: c[:, i::w], v))
+        unit = tuple(tuple((torch.cat([a[0], b[0][:, k:]], 1),
+                            torch.cat([a[1], b[1][:, k:]], 1))
+                           for a, b in zip(ra, rb))
+                     for ra, rb in zip(step, unit))
+    lad, acc = unit, None
+    for j in range(m.bit_length()):
+        if j:
+            h, span = 1 << (j - 1), m - (1 << j) + 1
+            lad = core.mmul(_mmap(lambda c: c[:, :span], lad),
+                            _mmap(lambda c: c[:, h:h + span], lad))
+        if m >> j & 1:
+            pos = m >> (j + 1) << (j + 1)
+            term = _mmap(lambda c: c[:, pos], lad)
+            acc = term if acc is None else core.mmul(term, acc)
+    tr_re, tr_im = acc[0][0]
     for r in range(1, n):
-        tr_re = tr_re + prod[r][r][0]
-        tr_im = tr_im + prod[r][r][1]
-    return torch.stack([tr_re.to(torch.float64).sum(),
-                        tr_im.to(torch.float64).sum()])
+        tr_re = tr_re + acc[r][r][0]
+        tr_im = tr_im + acc[r][r][1]
+    return torch.stack([tr_re, tr_im])
 
 
-def _scratch(n_threads, n_out, device, n_chains=None, block=REDUCE_BLOCK):
+def polyakov_sums_ref(us, dims, shard=None):
+    """f64 [2]: (sum re, sum im) over spatial sites of tr prod_t U_t, each
+    column's loop in K4's association (polyakov_columns_ref; over a shard's
+    interior columns with ``shard``)."""
+    return polyakov_columns_ref(us, dims, shard).to(torch.float64).sum(1)
+
+
+def _scratch(n_threads, n_out, device, n_chains=None, block=PLANE_BLOCK):
     """(partials, out): one partials row per block (per chain), and the
     sums, [n_out] (or [n_chains, n_out])."""
     n_blocks = -(-n_threads // block)
@@ -151,7 +204,12 @@ def plane_sums(us, dims):
 
 def polyakov_sums(us, dims):
     """f64 [2] (sum re, sum im) of tr prod_t U_t over spatial sites.  CPU
-    tensors take the plain version, CUDA tensors the kernel."""
+    tensors take the plain version, CUDA tensors the kernel: a group of
+    poly_lanes(T/2)[2] lanes per column, lane k on the column's slot k,
+    the product in polyakov_columns_ref's association.  The lanes run over
+    slots because a column's slots are contiguous: a warp loads
+    neighbouring words, and a column's T - 1 products take log2(T/2) + 1
+    levels of shuffles, not a chain in one thread."""
     n, dev_type = _check(us, dims)
     if dev_type == "cpu":
         return polyakov_sums_ref(us, dims)
@@ -159,10 +217,11 @@ def polyakov_sums(us, dims):
     lib = build.library()
     x, y, z, t = (int(d) for d in dims)
     dev = us[0].device
-    partials, out = _scratch(x * y * z, 2, dev)
+    partials, out = _scratch(x * y * z * poly_lanes(t // 2)[2], 2, dev,
+                             block=POLY_BLOCK)
     with torch.cuda.device(dev):
         err = lib.qg_polyakov_sums(
-            us[6].data_ptr(), us[7].data_ptr(), n, x, y, z, t, REDUCE_BLOCK,
+            us[6].data_ptr(), us[7].data_ptr(), n, x, y, z, t, POLY_BLOCK,
             partials.data_ptr(), out.data_ptr(), build.stream_handle(dev),
         )
     build.check(err, name)
@@ -216,12 +275,13 @@ def polyakov_sums_local(us, shard):
     name = f"polyakov_sums_local_su{n}"
     lib = build.library()
     dev = us[0].device
-    lx, ly, z, _ = shard.interior
-    partials, out = _scratch(lx * ly * z, 2, dev)
+    lx, ly, z, t = shard.interior
+    partials, out = _scratch(lx * ly * z * poly_lanes(t // 2)[2], 2, dev,
+                             block=POLY_BLOCK)
     with torch.cuda.device(dev):
         err = lib.qg_polyakov_sums_local(
             us[6].data_ptr(), us[7].data_ptr(), n, *shard.kernel_args(),
-            REDUCE_BLOCK, partials.data_ptr(), out.data_ptr(),
+            POLY_BLOCK, partials.data_ptr(), out.data_ptr(),
             build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
@@ -260,7 +320,7 @@ def _chains_call(kind, us, dims, shard, c, n, n_out, threads, block):
              else [us[6].data_ptr(), us[7].data_ptr()])
     geom = (tuple(int(d) for d in dims) if shard is None
             else shard.kernel_args())
-    tail = () if kind == "plane_sums" else (REDUCE_BLOCK,)
+    tail = () if kind == "plane_sums" else (POLY_BLOCK,)
     with torch.cuda.device(dev):
         err = getattr(lib, f"qg_{kind}{local}_chains")(
             *links, us[0][0].numel(), c, n, *geom, *tail,
@@ -293,6 +353,6 @@ def polyakov_sums_chains(us, dims, shard=None):
     c, n, dev_type = core.check_chains(us, dims, shard=shard)
     if dev_type == "cpu":
         return polyakov_sums_chains_ref(us, dims, shard)
-    x, y, z, _ = (shard or core.whole(dims)).interior
+    x, y, z, t = (shard or core.whole(dims)).interior
     return _chains_call("polyakov_sums", us, dims, shard, c, n, 2,
-                        x * y * z, REDUCE_BLOCK)
+                        x * y * z * poly_lanes(t // 2)[2], POLY_BLOCK)

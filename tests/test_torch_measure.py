@@ -14,7 +14,9 @@ from qcdgpu_tpu.sim import hot_start
 from qcdgpu_tpu_torch.ops import sun as tsun
 from qcdgpu_tpu_torch.ops.cuda import engine as teng
 from qcdgpu_tpu_torch.ops.cuda import measure as tmeas
+from qcdgpu_tpu_torch.ops.cuda import sharded as tsh
 from qcdgpu_tpu_torch.ops.cuda.reunit import reunitarize_dir
+from qcdgpu_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
 
@@ -56,16 +58,60 @@ def test_measure_all_split(u0):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("t_ext", [2, 6, 8])
-def test_polyakov_any_t(t_ext):
-    dims = (4, 4, 2, t_ext)
-    u = _numpy_su3(dims, seed=t_ext)
+def _check_polyakov(dims, seed):
+    """The port's Polyakov sums (K4's association: pairs, ladder, chunks)
+    against the reference's dense-field loop, 2e-6 per spatial site."""
+    u = _numpy_su3(dims, seed=seed)
     us = teng.from_reference(u, "cpu")
     sre, sim_ = tmeas.polyakov_sums(us, dims).tolist()
     ref_re, ref_im = polyakov_from_ut(jnp.asarray(u[3]))
     n_spatial = 3 * dims[0] * dims[1] * dims[2]
     assert abs(sre / n_spatial - float(ref_re)) < 2e-6
     assert abs(sim_ / n_spatial - float(ref_im)) < 2e-6
+
+
+# T/2 = 1 ... 6: one unit, powers of two, and two chunks (3, 5, 6)
+@pytest.mark.parametrize("t_ext", [2, 4, 6, 8, 10, 12])
+def test_polyakov_any_t(t_ext):
+    _check_polyakov((4, 4, 2, t_ext), seed=t_ext)
+
+
+def test_polyakov_long_t():
+    """T/2 = 36 > 32: each lane walks 2 slot pairs, 18 units, chunks 16 + 2."""
+    assert tmeas.poly_lanes(36) == (2, 18, 32)
+    _check_polyakov((2, 2, 2, 72), seed=72)
+
+
+def test_polyakov_shards_and_chains_match_unsharded():
+    """The shard twin's columns are the unsharded twin's bit for bit, and
+    the chain twin's rows (K4c, K5bc) are the single-chain twin's (K4,
+    K5b) bit for bit: the same f32 products and the same f64 order.  The
+    shards' sums, added in shard order, are the unsharded sum to f64
+    rounding only (another order of the same f64 terms)."""
+    dims, mesh = (8, 4, 2, 6), (2, 2, 1, 1)
+    chains = [teng.from_reference(_numpy_su3(dims, seed=40 + c), "cpu")
+              for c in range(3)]
+    stacked = tuple(torch.stack([ch[i] for ch in chains]) for i in range(8))
+    rows = tmeas.polyakov_sums_chains(stacked, dims)
+    grid = tmesh.ShardGrid(dims, mesh, [torch.device("cpu")])
+    x_dim, y_dim, z_dim, _ = dims
+    for c, us in enumerate(chains):
+        assert torch.equal(rows[c], tmeas.polyakov_sums(us, dims))
+        whole = tmeas.polyakov_columns_ref(us, dims).reshape(
+            2, x_dim, y_dim, z_dim)
+        total = torch.zeros(2, dtype=torch.float64)
+        for g, sh in zip(grid.shards, tsh.shard_links(us, grid)):
+            (x0, y0), (lx, ly) = g.offset, g.local
+            assert torch.equal(
+                tmeas.polyakov_columns_ref(sh, dims, g),
+                whole[:, x0:x0 + lx, y0:y0 + ly].reshape(2, -1))
+            total += tmeas.polyakov_sums_local(sh, g)
+        torch.testing.assert_close(total, rows[c], rtol=1e-12, atol=1e-12)
+    for g, sh in zip(grid.shards, tsh.shard_links(stacked, grid)):
+        got = tmeas.polyakov_sums_chains(sh, dims, g)
+        for c in range(3):
+            assert torch.equal(got[c], tmeas.polyakov_sums_local(
+                tuple(a[c] for a in sh), g))
 
 
 def test_reunitarize_dir(u0):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""K1 / K1a (the Philox heat-bath stage, unsharded and on a shard) and K3 /
-K5a (the plane sums) of the PyTorch port, built from two or more CUDA
-source trees and timed in one process on one card, to compare kernel
-versions within one chip call.
+"""K1 / K1a (the Philox heat-bath stage, unsharded and on a shard), K3 /
+K5a (the plane sums) and K4 / K5b / K4c (the Polyakov sums, unsharded, on
+a shard and over a scan's chains) of the PyTorch port, built from two or
+more CUDA source trees and timed in one process on one card, to compare
+kernel versions within one chip call.
 
     python3 tools/port_kernel_ab.py OLD_CSRC NEW_CSRC [MORE_CSRC ...]
 
@@ -15,17 +16,25 @@ are called with the argument types of that tree's own ops/cuda/build.py.
 The script prints each tree's ptxas lines for the kernels it times (from
 chip_smoke.ptxas_summary), checks that every tree gives the first tree's
 links and tracked count bit for bit (the stages) and the same sums within
-1e-7 per site (the plane sums), then times the four calls in rounds over
-the trees in order and then in reverse (old, new, new, old for two), CUDA
-events over 50 calls, each line with the card's nvidia-smi name and power
-limit.  Stages are (mu=1, parity 0) at beta 6.0 (SU(3)) or 2.4 (SU(2)).
+1e-7 per site (the plane sums), and every tree's Polyakov sums against
+this checkout's plain twin (2e-6 per spatial site, chip_smoke.py's bar),
+then times the calls in rounds over the trees in order and then in
+reverse (old, new, new, old for two), CUDA events over 50 calls, each
+line with the card's nvidia-smi name and power limit.  The Polyakov calls
+run at 256 and at 512 threads a block ("/512"), and again under
+torch.profiler for their device time (kernel and finish kernel), which
+CUDA events around back-to-back calls do not give below ~0.05 ms.
+Stages are (mu=1, parity 0) at beta 6.0 (SU(3)) or 2.4 (SU(2)).
 
 Inputs, 32^4, SU(3) and SU(2): a hot start, and this checkout's own
 Simulation chain (cold start, reunit_every=10, rng_mode "hw"; SU(3): the
 bench's configuration) after 50 sweeps, where most heat-bath trials
 accept at once.  The shard is shard 0 of mesh (2,2,1,1), its halos cut
-from the same links.  Last, the bounds chip_smoke.py records for each call
-and its f32 floor at -fmad=false.
+from the same links.  K4c runs on 11 hot starts at 24^3 x 6 (BASELINE
+config 3's scan).  Last, the bounds chip_smoke.py records for each call
+and its f32 floor at -fmad=false, and for the Polyakov calls the f32
+floor of the ladder's own products (every lane of a column's group
+multiplies at every level).
 """
 
 import ctypes
@@ -46,12 +55,17 @@ THERM = 50
 PLANE_TOL = 1e-7  # |d sum| / (N * volume), chip_smoke.py's bar
 SOURCES = ("stage_philox.cu", "measure.cu")
 ENTRIES = ("qg_stage_philox", "qg_stage_philox_shard", "qg_plane_sums",
-           "qg_plane_sums_local")
+           "qg_plane_sums_local", "qg_polyakov_sums", "qg_polyakov_sums_local",
+           "qg_polyakov_sums_chains")
 # the kernels timed, by chip_smoke.kernel_label, for the ptxas lines
 TIMED = tuple(f"stage_heatbath_su{n}_philox{s}" for n in (3, 2)
               for s in ("", "_shard")) + tuple(
-    f"plane_sums_kernel<{n}>{s}" for n in (3, 2) for s in ("", "_shard")
+    f"{k}<{n}>{s}" for k in ("plane_sums_kernel", "polyakov_sums_kernel")
+    for n in (3, 2) for s in ("", "_shard")
 ) + ("plane_sums_tile_kernel<3>", "plane_sums_tile_kernel<2>")
+SCAN = (24, 24, 24, 6)
+CHAINS = 11
+POLY_TOL = 2e-6  # |d sum| / (N * spatial volume), chip_smoke.py's bar
 
 
 def build_tree(csrc, out_dir, nvcc, flags):
@@ -99,6 +113,7 @@ def main():
     from qcdgpu_tpu_torch import SimConfig, Simulation
     from qcdgpu_tpu_torch.ops import rng
     from qcdgpu_tpu_torch.ops.cuda import build, engine, sharded
+    from qcdgpu_tpu_torch.ops.cuda import measure as cmeasure
     from qcdgpu_tpu_torch.ops.cuda import update as cupdate
     from qcdgpu_tpu_torch.parallel.mesh import ShardGrid
 
@@ -139,6 +154,7 @@ def main():
     partials = torch.empty(-(-v // 32) * 6, dtype=torch.float64,
                            device=dev)
     out = torch.empty(6, dtype=torch.float64, device=dev)
+    p_out = torch.empty(CHAINS, 2, dtype=torch.float64, device=dev)
 
     def stage(lib, us, n, sh, count=None):
         fn, geom = ((lib.qg_stage_philox, DIMS) if sh is None else
@@ -160,6 +176,32 @@ def main():
         if err:
             raise RuntimeError(f"plane sums: CUDA error {err}")
         return out.clone()
+
+    def poly(lib_block, us, n, sh, block=256, chains=0):
+        """K4 (K5b on shard sh; K4c over the chains of chain-stacked
+        arrays at SCAN when chains > 0) -> f64 [2] (or [chains, 2])"""
+        lib = lib_block[0]
+        u67 = (us[6].data_ptr(), us[7].data_ptr())
+        if chains:
+            err = lib.qg_polyakov_sums_chains(
+                *u67, us[0][0].numel(), chains, n, *SCAN, block,
+                partials.data_ptr(), p_out.data_ptr(), stream)
+        elif sh is None:
+            err = lib.qg_polyakov_sums(*u67, n, *DIMS, block,
+                                       partials.data_ptr(), p_out.data_ptr(),
+                                       stream)
+        else:
+            err = lib.qg_polyakov_sums_local(*u67, n, *sh.kernel_args(),
+                                             block, partials.data_ptr(),
+                                             p_out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"Polyakov sums: CUDA error {err}")
+        return (p_out if chains else p_out[0]).clone()
+
+    def device_line(fn):
+        kern, total = chip_smoke.device_ms(fn, REPS, "polyakov_sums_kernel")
+        return ("not measured" if kern is None
+                else f"{kern:.4f} / {total:.4f} ms")
 
     def event_ms(fn):
         fn()
@@ -183,8 +225,11 @@ def main():
         yield f"hw chain after {THERM} sweeps", tuple(
             a.clone() for a in chain.us)
 
-    # (call, on the shard)
-    calls = (("K1", False), ("K1a", True), ("K3", False), ("K5a", True))
+    # (call, on the shard); "/512": 512 threads a block
+    calls = (("K1", False), ("K1a", True), ("K3", False), ("K5a", True),
+             ("K4", False), ("K4/512", False), ("K5b", True),
+             ("K5b/512", True))
+    poly_calls = [c for c, _ in calls if c.startswith(("K4", "K5b"))]
     for n in (3, 2):
         for what, us_full in inputs(n):
             what = f"SU({n}) {what}"
@@ -195,9 +240,12 @@ def main():
                     us_shard if on_shard else us_full))
 
             def call(name, lb, us, count=None):
-                sh = shard if name in ("K1a", "K5a") else None
+                sh = shard if name[:3] in ("K1a", "K5a", "K5b") else None
                 if name.startswith("K1"):
                     return stage(lb[0], us, n, sh, count)
+                if name in poly_calls:
+                    return poly(lb, us, n, sh, 512 if "/512" in name
+                                else 256)
                 return planes(lb, us, n, sh)
 
             # every tree against the first: links and count, then the sums
@@ -224,6 +272,22 @@ def main():
                         raise SystemExit(f"{label} disagrees with "
                                          f"{labels[0]}")
 
+            # every tree's Polyakov sums against this checkout's twin
+            twin = {False: cmeasure.polyakov_sums_ref(us_full, DIMS),
+                    True: cmeasure.polyakov_sums_local_ref(us_shard, shard)}
+            for label, lb in zip(labels, libs):
+                for name, on_shard in calls:
+                    if name not in poly_calls:
+                        continue
+                    lx, ly = shard.local if on_shard else DIMS[:2]
+                    d = (call(name, lb, arrays(on_shard)) - twin[on_shard]
+                         ).abs().max().item() / (n * lx * ly * DIMS[2])
+                    print(f"{what}: {name}: {label}: |d sum| / (N spatial "
+                          f"vol) against the twin {d:.3e}")
+                    if d >= POLY_TOL:
+                        raise SystemExit(f"{label}: {name} disagrees with "
+                                         "the twin")
+
             arrs = (arrays(False), arrays(True))
             order = list(range(len(libs))) + list(
                 reversed(range(len(libs))))
@@ -239,7 +303,41 @@ def main():
                 print(f"{what}: {label}: mean " + ", ".join(
                     f"{c} {sum(t) / len(t):.4f}"
                     for c, t in times[i].items()) + f" ms  [{smi}]")
+            for i in order:
+                print(f"{what}: {labels[i]}: on the device (profiler; "
+                      "kernel / with the finish kernel): " + ", ".join(
+                          "{} {}".format(c, device_line(
+                              lambda c=c, s=on_shard: call(c, libs[i],
+                                                           arrs[s])))
+                          for c, on_shard in calls if c in poly_calls)
+                      + f"  [{smi}]", flush=True)
             del arrs
+        # K4c over CHAINS hot starts at SCAN
+        us_c = tuple(torch.stack(a) for a in zip(*[
+            engine.packed_hot_start(SimConfig(group=n, dims=SCAN,
+                                              seed=1 + c),
+                                    rng.make_base_key(1 + c), dev)
+            for c in range(CHAINS)]))
+        twin = cmeasure.polyakov_sums_chains_ref(us_c, SCAN)
+        vol = n * SCAN[0] * SCAN[1] * SCAN[2]
+        for label, lb in zip(labels, libs):
+            d = (poly(lb, us_c, n, None, chains=CHAINS) - twin
+                 ).abs().max().item() / vol
+            print(f"SU({n}) {SCAN} x {CHAINS} chains: K4c: {label}: |d sum| "
+                  f"/ (N spatial vol) against the twin {d:.3e}")
+            if d >= POLY_TOL:
+                raise SystemExit(f"{label}: K4c disagrees with the twin")
+        for i in list(range(len(libs))) + list(reversed(range(len(libs)))):
+            line = []
+            for block in (256, 512):
+                def fn(block=block, i=i):
+                    return poly(libs[i], us_c, n, None, block, CHAINS)
+                line.append(f"K4c{'/512' if block == 512 else ''} "
+                            f"{event_ms(fn):.4f} ms, on the device "
+                            f"{device_line(fn)}")
+            print(f"SU({n}) {SCAN} x {CHAINS} chains: {labels[i]}: "
+                  + "; ".join(line) + f"  [{smi}]", flush=True)
+        del us_c
     # the bounds chip_smoke.py records, and the f32 floor at -fmad=false
     for n in (3, 2):
         for label, name, sh in (
@@ -253,7 +351,34 @@ def main():
             print(f"{label} {name}: bound {ms:.4f} ms ({by}), -fmad=false "
                   f"f32 floor "
                   f"{f32_ops / chip_smoke.F32_INSTR_PER_S * 1e3:.4f} ms")
+        for label, name, dims, sh, c in (
+                ("K4", f"polyakov_sums_su{n}", DIMS, None, 1),
+                ("K5b", f"polyakov_sums_local_su{n}", shard.interior, shard,
+                 1),
+                ("K4c", f"polyakov_sums_su{n}", SCAN, None, CHAINS)):
+            nbytes, f32_ops, int_ops = chip_smoke.work(name, dims, shard=sh)
+            ms, by = chip_smoke.bound(c * nbytes, c * f32_ops, c * int_ops)
+            floor, ladder = (c * ops / chip_smoke.F32_INSTR_PER_S * 1e3
+                             for ops in (f32_ops, ladder_f32_ops(n, dims)))
+            print(f"{label} {name} {dims} x {c}: bound {ms:.4f} ms ({by}), "
+                  f"-fmad=false f32 floor {floor:.4f} ms; the ladder's "
+                  f"{ladder:.4f} ms")
     return 0
+
+
+def ladder_f32_ops(n, dims):
+    """f32 operations K4's lanes execute at dims (every lane of a column's
+    group: the pair and unit products, one product a ladder level, one a
+    further chunk, and the two decodes of each loaded link), from
+    csrc/measure.cu's association."""
+    import chip_smoke
+    from qcdgpu_tpu_torch.ops.cuda import measure as cmeasure
+
+    w, m, lanes = cmeasure.poly_lanes(dims[3] // 2)
+    products = 2 * w - 1 + (m.bit_length() - 1) + (bin(m).count("1") - 1)
+    per_lane = (products * chip_smoke.mmul_ops(n)
+                + 2 * w * chip_smoke.codec_ops(n))
+    return dims[0] * dims[1] * dims[2] * lanes * per_lane
 
 
 if __name__ == "__main__":

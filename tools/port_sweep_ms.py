@@ -9,8 +9,8 @@ timed; its kernels build into ROOT/build/ at first use.  To compare two
 commits, unpack one into a gitignored directory (git archive) and run
 parent, change, change, parent.
 
-Each configuration (32^4, cold start, reunit_every=10, seed 0, threefry)
-runs through Simulation(cfg) on the card: warmup(), then three times
+Each configuration (32^4, cold start, reunit_every=10, seed 0, threefry
+unless it says hw) runs through Simulation(cfg) on the card: warmup(), then three times
 thermalize(50) and run(50, 1), each timed on the host clock between
 synchronisations.  The SU(2) stages are the shortest (about 0.1 ms), so
 those rows show first when the host loop cannot keep the card busy.  One
@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 
 CONFIGS = (
+    # bench.py's own configuration (rng_mode "hw": Philox on the card)
+    ("bench SU(3) heat-bath, hw", dict(group=3, beta=6.0, rng_mode="hw")),
     ("bench SU(3) heat-bath", dict(group=3, beta=6.0)),
     ("SU(3) Metropolis", dict(group=3, beta=6.0, algorithm="metropolis")),
     ("SU(2) heat-bath + 1 OR", dict(group=2, beta=2.4, n_or=1)),
