@@ -7,8 +7,9 @@
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and nvcc.  With ``--cards N`` it builds the kernels and runs only phase 7:
 the bench configuration on an XY mesh, SU(3) heat-bath + 1 OR with
-track_kp_exhaust on an X mesh and prngcl:ranlux3 on an XY mesh, each with
-its shards spread over N cards, against the unsharded chain on card 0
+track_kp_exhaust on an X mesh, and on an XY mesh prngcl:ranlux3, ranmar
+with 8 KP trials and SU(2) Metropolis with 25 hits on ranlux3 (stages past
+48 KB of shared memory), each with its shards spread over N cards, against the unsharded chain on card 0
 (links, series and streams bit-identical); then a scan of 2N chains on
 (2,2,1,1) with its N chain blocks on the N cards against one block on
 card 0 (links and series bit-identical).  With no argument, phases 1-6,
@@ -22,8 +23,8 @@ each timed:
                   over a chain axis (K1c: "_chains") and both (K1ac:
                   "_shard_chains"; K5a/K5b and K5ac/K5bc share their
                   kernels, as K3/K4 and K3c/K4c do), every K1, K3 and
-                  K4 instantiation with no stack frame and no spills (a
-                  ranlux window's frame excepted); the static SASS
+                  K4 instantiation with no stack frame and no spills
+                  (the stream ones included); the static SASS
                   instruction mix of K1 Philox SU(3) heat-bath and K3
                   SU(3) where the toolkit has cuobjdump;
   3. kernels    — every kernel instantiation against its plain PyTorch
@@ -36,9 +37,18 @@ each timed:
                   every stream instantiation again at 8^4 with the
                   generator of its own phase-5 run, and ranlux3, ranmar,
                   xor128, mrg32k3a at 32^4 (SU(3) heat-bath and tracked
-                  Metropolis); K1 Philox (rng_mode "hw", K9's port) for
-                  each drawing kind x group x tracking at (4,4,2,4) and at
-                  its own phase-5 run's 8^4 shape, SU(3) heat-bath (and
+                  Metropolis); K8's index schedule: one heat-bath stage
+                  at (4,4,2,4) for every ranlux pointer 0..23 x luxury
+                  counter in {0, 1, 23, 24} x level 0-4 (SU(3), SU(2))
+                  and every ranmar pointer 0..96 (SU(3)), unsharded and
+                  on shard 0 of (2,2,1,1), and a few with 8 KP trials
+                  or 25 Metropolis hits (longer subgroups, past 48 KB of
+                  shared memory), words bit-identical to
+                  prng_streams.draw_words, and those long stages against
+                  the stage twin (links and counts); K1 Philox (rng_mode "hw",
+                  K9's port) for each drawing kind x group x tracking
+                  at (4,4,2,4) and at its own phase-5 run's 8^4 shape,
+                  SU(3) heat-bath (and
                   tracked) at 32^4, all bit-identical with equal counts;
                   K2-K4 for SU(3) and SU(2) at
                   (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4; K4 again at
@@ -271,6 +281,14 @@ FAMILY_RUN_GENS = {"ranlux": ("ranlux0", "ranlux1", "ranlux2", "ranlux4"),
                    "constant": ("constant",), "ranmar": ("ranmar",),
                    "philox": ("hw",)}
 DRAWING = ("heatbath", "metropolis")
+# the ranlux luxury counters of phase 3's sweep of K8's schedule: fresh,
+# one draw in, and a skip one draw or no draw away
+K8_NB0 = (0, 1, 23, 24)
+# and its longer stages: KP trials (a ranlux subgroup of 34 draws; ranmar's
+# 102 draws pass its 97 slots and ask more than 48 KB of shared memory),
+# Metropolis hits (a ranlux subgroup of 100 draws: past 48 KB too)
+K8_TRIALS = 8
+K8_HITS = 25
 
 # A random source ("src" below) is None (threefry), "hw" (Philox) or a
 # PRNGCL generator name.
@@ -415,12 +433,11 @@ def frame_and_spills(line):
 
 
 def needs_no_frame(name):
-    """The K1 (stage_*, with K1a and K1c), K3 (plane_sums_kernel and
-    plane_sums_tile_kernel, with K3c and K5a) and K4 (polyakov_sums_kernel,
-    with K4c, K5b and K5bc) instantiations keep everything in registers:
-    no stack frame, no spills.  A ranlux stream's 24-word lag window is
-    indexed by its run-time pointer and lives in a frame by design
-    (streams.cuh); it must not spill."""
+    """The K1 (stage_*, with K1a and K1c, every random source), K3
+    (plane_sums_kernel and plane_sums_tile_kernel, with K3c and K5a) and
+    K4 (polyakov_sums_kernel, with K4c, K5b and K5bc) instantiations keep
+    everything in registers and shared memory: no stack frame, no
+    spills."""
     return name.startswith(("stage_", "plane_sums_kernel",
                             "plane_sums_tile_kernel", "polyakov_sums_kernel"))
 
@@ -490,16 +507,33 @@ METRO_HIT = 134
 # (one funnel shift: the rotations are constants) and xor, 5 key
 # injections of 3 adds, 2 xors for the parity key; Philox-4x32-10, 10
 # rounds of two 32x32->64 multiplies (one wide multiply-add each) and 4
-# xors, 9 key bumps of 2 adds.  A stream generator's steps are not
-# counted.
+# xors, 9 key bumps of 2 adds.
 THREEFRY_CALL_OPS = 20 * 3 + 2 + 5 * 3 + 2
 PHILOX_CALL_OPS = 10 * (2 + 4) + 9 * 2
+# Integer operations of one draw of a stream generator (csrc/streams.cuh),
+# its recurrence's own: xor128 3 shifts and 3 xors; xor7 7 shifts and 7
+# xors; mrg32k3a 4 mulmods of a wide multiply, two wide multiply-add folds,
+# a 64-bit compare (2) and a subtract-select (2), 3 submods of 3 and the
+# zero test (2); parkmiller Schrage's step, a multiply-high division (2),
+# 3 multiply-adds and the wrap (2); ranmar its carry's subtract, compare and
+# select (its ~6 f32 operations a draw are not counted); constant none.
+# Ranlux costs SWB_STEP_OPS a subtract-with-borrow step (a three-input add,
+# the borrow by a shift, the 24-bit mask), one step a draw and skip_len
+# more a luxury skip.
+STREAM_DRAW_OPS = {"xor128": 6, "xor7": 14, "mrg32k3a": 4 * 7 + 3 * 3 + 2,
+                   "parkmiller": 7, "ranmar": 3, "constant": 0}
+SWB_STEP_OPS = 3
 
 
-def rng_ops_per_site(n, kind, k_trials, n_hit, fam):
-    """Integer operations of a site's draws: one threefry call per slot, or
+def rng_ops_per_site(n, kind, k_trials, n_hit, fam, gen=None):
+    """Integer operations of a site's draws: one threefry call per slot,
     one Philox call per block of two slots (the kernel keeps the last
-    block, and the slots are drawn in ascending order)."""
+    block, and the slots are drawn in ascending order), or a stream
+    generator's steps for the stage's draws (gen: the generator, for the
+    ranlux level; FAMILY_GEN's by default).  A ranlux luxury skip fires
+    every 24 draws, so draws / 24 of them a stage over consecutive
+    stages."""
+    from qcdgpu_tpu_torch.ops import prng_streams as ps
     from qcdgpu_tpu_torch.ops.cuda import update as cupdate
 
     per = cupdate.uniforms_per_subgroup(kind, k_trials, n_hit)
@@ -508,7 +542,11 @@ def rng_ops_per_site(n, kind, k_trials, n_hit, fam):
         return THREEFRY_CALL_OPS * slots
     if fam == "philox":
         return PHILOX_CALL_OPS * ((slots + 1) // 2)
-    return 0
+    draws = cupdate.stream_draw_count(kind, k_trials, n_hit, n)
+    if fam == "ranlux":
+        skip = ps.ranlux_skip_len(gen or FAMILY_GEN[fam])
+        return SWB_STEP_OPS * draws * (1 + skip / 24)
+    return STREAM_DRAW_OPS[fam] * draws
 
 
 def stage_ops_per_site(n, kind, k_trials, n_hit):
@@ -746,7 +784,15 @@ def multicard(n_cards):
              bench.replace(n_or=1, track_kp_exhaust=True, start="hot"),
              x_only),
             ("SU(3) heat-bath, prngcl:ranlux3", bench.replace(
-                rng_mode="prngcl:ranlux3"), xy))
+                rng_mode="prngcl:ranlux3"), xy),
+            # stages asking more than 48 KB of shared memory (a kernel
+            # attribute each card must be given)
+            (f"SU(3) heat-bath, {K8_TRIALS} KP trials, prngcl:ranmar",
+             bench.replace(kp_trials=K8_TRIALS, rng_mode="prngcl:ranmar"),
+             xy),
+            (f"SU(2) Metropolis, {K8_HITS} hits, prngcl:ranlux3",
+             bench.replace(group=2, beta=2.4, algorithm="metropolis",
+                           n_hit=K8_HITS, rng_mode="prngcl:ranlux3"), xy))
     with Phase(f"7 shards on {n_cards} cards"):
         for label, cfg, mesh in runs:
             out = []
@@ -920,8 +966,7 @@ def main():
         for name, line, _ in rows:
             print(f"  ptxas {name}: {line}")
         framed = [name for name, line, _ in rows if needs_no_frame(name)
-                  and (frame_and_spills(line)[1] or (
-                      frame_and_spills(line)[0] and "_ranlux" not in name))]
+                  and any(frame_and_spills(line))]
         require(not framed, f"stack frame or spills in {framed}")
         # the static SASS mix of the two kernels the main path spends most
         # in: K1 Philox SU(3) heat-bath and K3 SU(3)
@@ -961,7 +1006,7 @@ def main():
             SimConfig(group=n, dims=dims, seed=3, rng_mode=f"prngcl:{gen}"),
             dev)
 
-    def k1_compare(n, kind, track, dims, k_trials, gen=None):
+    def k1_compare(n, kind, track, dims, k_trials, gen=None, n_hit=3):
         """The 8 stages of a sweep, in sweep order, on one hot start (and,
         with a stream generator gen, one set of streams, so each parity's
         words, pointer and luxury counter carry over its 4 stages; gen "hw":
@@ -990,9 +1035,11 @@ def main():
                      for _ in range(2)) if track else (None, None))
                 uk = clone(us)
                 cupdate.stage_update(uk, mu, p, BETA_HOT[n], key, dims,
-                                     k_trials, kind=kind, count=ck, **kw_k)
+                                     k_trials, kind=kind, n_hit=n_hit,
+                                     count=ck, **kw_k)
                 cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key, dims,
-                                         k_trials, kind=kind, count=cp, **kw_p)
+                                         k_trials, kind=kind, n_hit=n_hit,
+                                         count=cp, **kw_p)
                 if stream:
                     require(torch.equal(kw_k["words"], kw_p["words"])
                             and kw_k["scalars"] == kw_p["scalars"],
@@ -1196,6 +1243,73 @@ def main():
                             lst.append(x.tolist())
         return {t: tuple(o) for t, o in out.items()}
 
+    def k8_schedule():
+        """K8's index schedule: one SU(3) and one SU(2) heat-bath stage
+        (54 and 18 draws) at SMALL for every ranlux level, pointer and
+        luxury counter in K8_NB0, and one SU(3) heat-bath stage for every
+        ranmar pointer; then longer stages: K8_TRIALS KP trials (SU(3),
+        subgroups of 34 draws) for every ranlux level at a few pointers and
+        counters and for every ranmar pointer, and K8_HITS Metropolis hits
+        (subgroups of 100 draws) for both groups at a few; unsharded and
+        on shard 0 of MESH, each from the same words: the words and
+        scalars must come out bit-identical to prng_streams.draw_words (the
+        generator's twin, on the CPU, over the whole lattice's words; the
+        shard's are its interior)."""
+        grid = ShardGrid(SMALL, MESH, [dev])
+        g0 = grid.shards[0]
+        (x0, y0), (lx, ly) = g0.offset, g0.local
+        hb, m = "heatbath", "metropolis"
+        few = [(nb0, p0) for nb0 in (0, 24) for p0 in (0, 11, 23)]
+        cases = [(f"ranlux{lv}", n, nb0, p0, hb, 4, 3) for lv in range(5)
+                 for n in GROUPS for nb0 in K8_NB0 for p0 in range(24)]
+        cases += [("ranmar", 3, None, p0, hb, 4, 3) for p0 in range(97)]
+        cases += [(f"ranlux{lv}", 3, nb0, p0, hb, K8_TRIALS, 3)
+                  for lv in range(5) for nb0, p0 in few]
+        cases += [("ranmar", 3, None, p0, hb, K8_TRIALS, 3)
+                  for p0 in range(97)]
+        cases += [(f"ranlux{lv}", n, nb0, p0, m, 4, K8_HITS)
+                  for lv in range(5) for n in GROUPS for nb0, p0 in few]
+        cases += [("ranmar", n, None, p0, m, 4, K8_HITS) for n in GROUPS
+                  for p0 in (0, 48, 96)]
+        states, shard_links = {}, {}
+        for gen, n, nb0, p0, kind, k_trials, n_hit in cases:
+            if (gen, n) not in states:
+                states[gen, n] = stream_state(gen, n, SMALL)
+            if n not in shard_links:
+                shard_links[n] = sharded.shard_links(hot(SMALL, n), grid)[0]
+            rst = states[gen, n]
+            words = rst["words_e"]
+            scal = ({"nb": nb0, "ptr": p0} if nb0 is not None
+                    else {"c": rst["c_e"], "ptr": p0})
+            ndraw = cupdate.stream_draw_count(kind, k_trials, n_hit, n)
+            twin = words.to("cpu", copy=True)
+            ps.draw_words(gen, twin.reshape(twin.shape[0], -1), ndraw,
+                          dict(scal))
+            want = ps.advance_kernel_scalars(gen, scal, ndraw)
+            for name, got, links, kw, ref in (
+                    (instance(kind, n, False, gen), words.clone(),
+                     clone(hot(SMALL, n)), {}, twin),
+                    (instance(kind, n, False, gen, True),
+                     words.narrow(1, x0, lx).narrow(2, y0, ly).contiguous(),
+                     clone(shard_links[n]), dict(shard=g0),
+                     twin.narrow(1, x0, lx).narrow(2, y0, ly))):
+                sk = dict(scal)
+                cupdate.stage_update(links, 0, 0, BETA_HOT[n], None, SMALL,
+                                     k_trials, kind=kind, n_hit=n_hit,
+                                     gen=gen, words=got, scalars=sk, **kw)
+                require(torch.equal(got.cpu(), ref) and sk == want,
+                        f"K8 schedule {name} {gen} {scal} K={k_trials} "
+                        f"hits={n_hit} {SMALL}: words differ from "
+                        "draw_words")
+        print(f"K8 schedule: {len(cases)} stages x (unsharded, shard 0 of "
+              f"{MESH}) at {SMALL}: ranlux0-4 x SU(3), SU(2) heat-bath x "
+              f"pointer 0..23 x luxury counter {K8_NB0}, ranmar SU(3) "
+              f"heat-bath x pointer 0..96; with {K8_TRIALS} KP trials "
+              "ranlux0-4 SU(3) at 3 pointers x 2 counters and ranmar at "
+              f"every pointer; Metropolis with {K8_HITS} hits, SU(3) and "
+              "SU(2), ranlux0-4 at 3 pointers x 2 counters and ranmar at "
+              "3 pointers; words bit-identical to draw_words")
+
     def source_note(gen):
         return (f" ({gen}; words bit-identical)" if is_stream(gen)
                 else " (hw: Philox; bit-identical)" if gen else "")
@@ -1269,7 +1383,24 @@ def main():
                 msg += f"; count kernel {ck} plain {cp} (K={k_trials})"
             print(msg)
             require_stage(msg, dims, n, kind, worst, bad, links, ck, cp, gen)
+        # K8's stages that ask more than 48 KB of shared memory: ranlux
+        # Metropolis with K8_HITS hits, ranmar heat-bath with K8_TRIALS
+        for gen, n, kind, k_trials, n_hit in (
+                ("ranlux3", 2, "metropolis", 4, K8_HITS),
+                ("ranlux3", 3, "metropolis", 4, K8_HITS),
+                ("ranmar", 3, "heatbath", K8_TRIALS, 3)):
+            name = instance(kind, n, True, gen)
+            worst, bad, links, ck, cp = k1_compare(n, kind, True, SMALL,
+                                                   k_trials, gen, n_hit)
+            note_err(name, worst)
+            msg = (f"K1 {name}" + source_note(gen) + f" {SMALL} K={k_trials}"
+                   f" hits={n_hit}: max |d| {worst:.3e}, {bad} of {links} "
+                   f"links beyond {STAGE_TOL}; count kernel {ck} plain {cp}")
+            print(msg)
+            require_stage(msg, SMALL, n, kind, worst, bad, links, ck, cp, gen)
         mark("K1 threefry, streams, Philox")
+        k8_schedule()
+        mark("K8 schedule: every pointer, luxury counter and level")
         for n in GROUPS:
             for dims in (SMALL, ODD_T2, BIG):
                 u_ = hot(dims, n)
@@ -1570,7 +1701,8 @@ def main():
             print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
                   f"{p1:.4f} ms, bound {rec['bound_ms']:.4f} "
                   f"ms ({rec['bound_by']}), -fmad=false f32 floor "
-                  f"{f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  [{smi}]")
+                  f"{f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms, integer "
+                  f"floor {int_ops / INT32_OPS_PER_S * 1e3:.4f} ms  [{smi}]")
 
     def k4_device(name, fn, where):
         """A K4-family call's device time by the profiler (its kernel, and

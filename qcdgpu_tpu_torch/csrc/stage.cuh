@@ -288,6 +288,17 @@ __device__ __forceinline__ Quat metropolis_flip(const Quat& q_w, float tbn,
   return acc_u;
 }
 
+// Random slots (pairs of draws) one subgroup of a stage takes: the
+// sampler's uniforms (ops/cuda/update.py uniforms_per_subgroup: 4 k_trials
+// + 2 for heat-bath, 4 n_hit for Metropolis) in whole pairs; a stream
+// source's launcher sizes its buffers from it too (streams.cuh Stream).
+__host__ __device__ __forceinline__ unsigned stage_per_slots(int kind,
+                                                             int k_trials,
+                                                             int n_hit) {
+  return kind == HEATBATH ? 2u * k_trials + 1u
+         : kind == METROPOLIS ? 2u * n_hit : 0u;
+}
+
 // One site's stage; returns its tracked count (0 unless TRACK).  slot: the
 // thread's site index (over the interior of a shard, D = ShardDims; over the
 // whole lattice, D = Dims, where it is also the site's array slot).
@@ -330,8 +341,7 @@ __device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
   Mat<N> w = mmul(u, acc);
 
   typename R::Src src = rng.open(slot, x);
-  const uint32_t per_slots = KIND == HEATBATH ? 2u * k_trials + 1u
-                             : KIND == METROPOLIS ? 2u * n_hit : 0u;
+  const uint32_t per_slots = stage_per_slots(KIND, k_trials, n_hit);
   constexpr int n_sg = N == 3 ? 3 : 1;
   const int sg[3][2] = {{0, 1}, {0, 2}, {1, 2}};
   unsigned count = 0;
@@ -364,6 +374,15 @@ __device__ __forceinline__ unsigned stage_site(const Links& L, int slot, int mu,
 // with no spill (a cap of 96, 5 blocks, spills and measured slower).
 constexpr int kStageThreads = 128;
 constexpr int kStageMinBlocks = 4;
+// A random source that keeps state in dynamic shared memory names the most
+// a block may ask (kDynSmem, bytes) and carries what a launch asks
+// (dyn_smem): the lag-window streams (streams.cuh Ranlux, Ranmar)
+template <class R, class = void>
+struct DynSmemOf { static constexpr int value = 0; };
+template <class R>
+struct DynSmemOf<R, std::void_t<decltype(R::kDynSmem)>> {
+  static constexpr int value = R::kDynSmem;
+};
 template <int N, int KIND, bool TRACK, class R, class D>
 __global__ void __launch_bounds__(kStageThreads, kStageMinBlocks)
 stage_kernel(Links L, int mu, int parity, D d, R rng, float tbn,
@@ -388,7 +407,19 @@ int launch_stage(const Links& L, int mu, int parity, const D& d,
                  const R& rng, float tbn, int k_trials, int n_hit, float delta,
                  unsigned long long* count, cudaStream_t s) {
   const int blocks = (n_sites(d) + kStageThreads - 1) / kStageThreads;
-  stage_kernel<N, KIND, TRACK, R, D><<<blocks, kStageThreads, 0, s>>>(
+  int smem = 0;
+  if constexpr (DynSmemOf<R>::value > 0) {
+    smem = rng.dyn_smem;
+    // past 48 KB the kernel must be let ask for it; the attribute is the
+    // function's on the current card only, so it is set at every such launch
+    if (smem > 48 * 1024) {
+      const cudaError_t set = cudaFuncSetAttribute(
+          stage_kernel<N, KIND, TRACK, R, D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (set != cudaSuccess) return (int)set;
+    }
+  }
+  stage_kernel<N, KIND, TRACK, R, D><<<blocks, kStageThreads, smem, s>>>(
       L, mu, parity, d, rng, tbn, k_trials, n_hit, delta, count);
   return (int)cudaGetLastError();
 }

@@ -10,19 +10,17 @@
 // Each thread owns one site's words, word k of slot i at ws[k * stride + i]
 // ([W, X, Y, Z*T/2], so a warp's loads of one word are coalesced), and no
 // other thread touches them: the state is updated in place.  A generator G
-// has load(ws, slot, stride, s0, ptr0, skip), next() -> the raw f32 draw on
-// [0, 1], and store().  Draws are consumed one at a time in the samplers'
-// order, so:
-//  - the counter-free generators keep their words in registers and write
-//    them back once; xor7 rotates its 8 words after each step, so its
+// has load(ws, slot, stride, s0, ptr0, skip, per, draws) (per: the draws a
+// subgroup takes, draws: the stage's), next() -> the raw f32 draw on [0, 1]
+// and store(); it may have subgroup(), called as each subgroup starts.
+// Draws are consumed one at a time in the samplers' order, so:
+//  - the counter-free generators (K7) keep their words in registers and
+//    write them back once; xor7 rotates its 8 words after each step, so its
 //    walking index stays at slot 0 (the reference's canonical k = 0);
-//  - ranlux walks a pointer down its 24-word window, which lives in a local
-//    array (in L1) because the pointer is a run-time value; the luxury skip
-//    of skip_len subtract-with-borrow steps fires before the draw that
-//    finds 24 draws since the last one (the reference's
-//    (nb0 + t) % 24 == 0 and nb0 + t > 0);
-//  - ranmar's 97-word window stays in device memory, read and written in
-//    place at the pointer; its carry is kept on the 2^-24 integer grid.
+//  - ranlux and ranmar (K8) keep their lag windows in shared memory, each
+//    thread in its own column (word k at k * kStageThreads: a warp's
+//    accesses of one word fall in 32 banks whatever the word), because the
+//    pointer into them is a run-time value; see Ranlux and Ranmar.
 // u32 -> f32 is the correctly rounded __uint2float_rn (the reference's
 // _f32_from_u32 reaches the same value through two exact halves: a TPU
 // workaround, not ported).  mrg32k3a forms its products in 64 bits and folds
@@ -30,10 +28,19 @@
 // same.
 //
 // What bounds it: a few integer operations per draw for the counter-free
-// generators; ranlux3 adds about 2.25 x 199 SWB steps per site per SU(3)
-// heat-bath stage (each two L1 loads and a store); ranmar's window is 388 B
-// per site, of which a stage touches its 54 or so slots at 8 B to 12 B each.
+// generators.  Ranlux3 adds about 2.25 luxury skips of 199 subtract-with-
+// borrow steps per site per SU(3) heat-bath stage (54 draws), 3 integer
+// operations a step at the least; with the window in a local array (a
+// stack frame, its pointer a run-time index) each step was two loads and a
+// store, one dependent step at a time, and ranlux3's stage took 6.5x the
+// Philox one.  Ranmar reads the n + 33 slots below ptr0 + 33 that a stage
+// of n draws needs and writes n (of 388 B of window a site); read and
+// written in place in device memory, each draw's two loads waited behind
+// the previous draw's store, which might alias them.
 #pragma once
+
+#include <cstring>
+#include <utility>
 
 #include "stage.cuh"
 
@@ -48,7 +55,7 @@ struct Xor128 {
   int stride;
   uint32_t x, y, z, w;
   __device__ __forceinline__ void load(void* ws, int slot, int stride_,
-                                       uint32_t, int, int) {
+                                       uint32_t, int, int, int, int) {
     p = (uint32_t*)ws + slot;
     stride = stride_;
     x = p[0];
@@ -78,7 +85,7 @@ struct Xor7 {
   int stride;
   uint32_t x[8];  // walking index at slot 0
   __device__ __forceinline__ void load(void* ws, int slot, int stride_,
-                                       uint32_t, int, int) {
+                                       uint32_t, int, int, int, int) {
     p = (uint32_t*)ws + slot;
     stride = stride_;
 #pragma unroll
@@ -131,7 +138,7 @@ struct Mrg32k3a {
   int stride;
   uint32_t s10, s11, s12, s20, s21, s22;
   __device__ __forceinline__ void load(void* ws, int slot, int stride_,
-                                       uint32_t, int, int) {
+                                       uint32_t, int, int, int, int) {
     p = (uint32_t*)ws + slot;
     stride = stride_;
     s10 = p[0];
@@ -170,7 +177,7 @@ struct ParkMiller {
   int* p;
   int s;
   __device__ __forceinline__ void load(void* ws, int slot, int, uint32_t, int,
-                                       int) {
+                                       int, int, int) {
     p = (int*)ws + slot;
     s = p[0];
   }
@@ -187,93 +194,284 @@ struct ParkMiller {
 struct Constant {
   float v;
   __device__ __forceinline__ void load(void* ws, int slot, int, uint32_t, int,
-                                       int) {
+                                       int, int, int) {
     v = ((const float*)ws)[slot];
   }
   __device__ __forceinline__ float next() { return v; }
   __device__ __forceinline__ void store() {}
 };
 
+// (i - k) mod 24 for a pointer i in [0, 24) and 0 <= k < 24: the slot k
+// steps below i in ranlux's lag window
+__device__ __forceinline__ int lag24(int i, int k) {
+  const int s = i - k;
+  return s < 0 ? s + 24 : s;
+}
+
+// M subtract-with-borrow steps on a window in registers held in the
+// canonical rotation (r[k] is the slot k steps below the pointer): step t
+// writes r[t] from r[t + 14] (j = i - 14), the pointer walking down one slot
+// a step.  All slots are compile-time indices.  M = 24 is a whole lag cycle:
+// the pointer comes back to r[0] and the rotation is unchanged.  A borrow
+// adds 2^24: for d in [-2^24, 2^24), d & (2^24 - 1) is exactly that.
+template <int M>
+__device__ __forceinline__ void swb_steps(int (&r)[24], int& carry) {
+#pragma unroll
+  for (int t = 0; t < M; ++t) {
+    const int d = r[(t + 14) % 24] - r[t] - carry;
+    carry = (int)((unsigned)d >> 31);
+    r[t] = d & 0xFFFFFF;
+  }
+}
+
+// A 4-byte copy from device to shared memory that holds no register
+// (cp.async): a thread's copies have landed once it calls wait_copies(), so
+// a window's words are all in flight at once.
+__device__ __forceinline__ void copy_async4(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+#else
+  memcpy(smem, gmem, 4);
+#endif
+}
+
+__device__ __forceinline__ void wait_copies() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// ranlux0-4: x_n = x_{n-10} - x_{n-24} - carry on 24-bit words, the skip_len
+// luxury values discarded before the draw that finds 24 draws since the
+// last skip (the reference's (nb0 + t) % 24 == 0 and nb0 + t > 0).
+//
+// The window, its carry, pointer i and luxury counter nb live in the
+// thread's column of dynamic shared memory (27 words, filled by cp.async),
+// and as each subgroup starts, all the draws it will take (per) are made
+// into the column's next per words, which the sampler then reads one by
+// one.  So the generator's registers are live only while it runs, before
+// each subgroup's trials, where K1 holds few values of its own: no frame
+// and no spill at K1's 128 registers.  Its draws step the window in shared
+// memory one at a time (j = i - 14, the pointer walking down); a luxury
+// skip loads the window into registers in the canonical rotation (word k
+// from slot (i - k) mod 24), runs skip / 24 whole 24-step blocks on static
+// slots, then the remainder skip % 24 (0, 0, 1, 7, 5 for levels 0-4) on
+// static slots too, and stores it back under the pointer it was loaded at,
+// which moves down by the remainder.  A skip costs 3 integer operations a
+// step.  Dynamic shared memory: (27 + per) words a thread, so per may not
+// pass kMaxPer = (kDynSmem / 512) - 27 = 413 (k_trials or n_hit about 100;
+// ops/cuda/update.py RANLUX_MAX_PER refuses more up front), and the skip
+// length must be one whose remainder luxury_skip knows (launchable).
+// Measured and dropped (PERF.md): the whole window in registers for
+// the whole sampler (ptxas, sm_90a, crashed on it at 3 and at 4 blocks an
+// SM), the window in shared memory stepped one draw at a time (1.5x slower
+// at SU(3) heat-bath), the same with the skip in registers inside the
+// sampler (spills), and a 24-draw buffer refilled inside the sampler.
 struct Ranlux {
+  static constexpr int kDynSmem = 220 * 1024;
+  static constexpr int kMaxPer = kDynSmem / (kStageThreads * 4) - 27;
+  static int dyn_smem_bytes(int per, int) {
+    return (27 + per) * kStageThreads * 4;
+  }
+  static bool launchable(int skip, int per) {
+    const int rem = skip % 24;
+    return skip >= 0 && per <= kMaxPer &&
+           (rem == 0 || rem == 1 || rem == 5 || rem == 7);
+  }
   int* p;
-  int stride;
-  int w[24];  // the lag window in absolute slots (local memory)
-  int carry, i, nb, skip;
+  int* w;  // slot k at w[k * T]; carry, i, nb at 24-26; draw c at 27 + c
+  int stride, skip, per, q;
   __device__ __forceinline__ void load(void* ws, int slot, int stride_,
-                                       uint32_t s0, int ptr0, int skip_) {
+                                       uint32_t s0, int ptr0, int skip_,
+                                       int per_, int) {
+    extern __shared__ int lux_cols[];
+    w = lux_cols + fresh_tid_x();
     p = (int*)ws + slot;
     stride = stride_;
-    for (int k = 0; k < 24; ++k) w[k] = p[k * stride];
-    carry = p[24 * stride];
-    i = ptr0;
-    nb = (int)s0;
     skip = skip_;
+    per = per_;
+#pragma unroll
+    for (int k = 0; k < 25; ++k)
+      copy_async4(w + k * kStageThreads, p + k * stride);
+    wait_copies();
+    w[25 * kStageThreads] = ptr0;
+    w[26 * kStageThreads] = (int)s0;
+    q = 0;
   }
-  // one subtract-with-borrow step at the pointer i (j = i - 14 mod 24)
-  __device__ __forceinline__ int swb() {
+  // one step at the pointer i, in shared memory
+  __device__ __forceinline__ int swb(int& i, int& carry) {
     const int j = i >= 14 ? i - 14 : i + 10;
-    int d = w[j] - w[i] - carry;
-    carry = d < 0 ? 1 : 0;
-    if (carry) d += 1 << 24;
-    w[i] = d;
+    const int d = w[j * kStageThreads] - w[i * kStageThreads] - carry;
+    carry = (int)((unsigned)d >> 31);
+    w[i * kStageThreads] = d & 0xFFFFFF;
     i = i == 0 ? 23 : i - 1;
-    return d;
+    return d & 0xFFFFFF;
+  }
+  __device__ __forceinline__ void luxury_skip(int& i, int& carry) {
+    int r[24];
+    const int i0 = i;
+#pragma unroll
+    for (int k = 0; k < 24; ++k) r[k] = w[lag24(i0, k) * kStageThreads];
+    for (int b = skip / 24; b > 0; --b) swb_steps<24>(r, carry);
+    // ranlux0-4: 0, 24, 73, 199, 365 = 24 b + 0, 0, 1, 7, 5 (launchable
+    // refuses any other remainder)
+    const int rem = skip % 24;
+    switch (rem) {
+      case 1: swb_steps<1>(r, carry); break;
+      case 5: swb_steps<5>(r, carry); break;
+      case 7: swb_steps<7>(r, carry); break;
+      case 0: break;
+    }
+    // r[k] is slot (i0 - k) whatever the steps: stored where it was loaded
+#pragma unroll
+    for (int k = 0; k < 24; ++k) w[lag24(i0, k) * kStageThreads] = r[k];
+    i = lag24(i0, rem);
+  }
+  __device__ __forceinline__ void subgroup() {
+    int carry = w[24 * kStageThreads], i = w[25 * kStageThreads];
+    int nb = w[26 * kStageThreads];
+    for (int c = 0; c < per; ++c) {
+      if (nb == 24) {
+        luxury_skip(i, carry);
+        nb = 0;
+      }
+      w[(27 + c) * kStageThreads] = swb(i, carry);
+      ++nb;
+    }
+    w[24 * kStageThreads] = carry;
+    w[25 * kStageThreads] = i;
+    w[26 * kStageThreads] = nb;
+    q = 0;
   }
   __device__ __forceinline__ float next() {
-    if (nb == 24) {  // luxury skip: discard skip values
-      for (int k = 0; k < skip; ++k) swb();
-      nb = 0;
-    }
-    const int d = swb();
-    ++nb;
+    const int d = w[(27 + q) * kStageThreads];
+    ++q;
     return __int2float_rn(d) * 0x1p-24f;
   }
   __device__ __forceinline__ void store() {
-    for (int k = 0; k < 24; ++k) p[k * stride] = w[k];
-    p[24 * stride] = carry;
+#pragma unroll
+    for (int k = 0; k < 25; ++k) p[k * stride] = w[k * kStageThreads];
   }
 };
 
+// ranmar: u_i <- u_i - u_j (+1 if negative), j = i - 64 (mod 97), the
+// pointer walking down; the output subtracts the carry, kept on the 2^-24
+// integer grid (exact: both on the grid).
+//
+// A stage of n draws reads the n + 33 slots from ptr0 + 33 down (all 97
+// once n > 64): they are staged at load by cp.async, all in flight at once,
+// into the thread's column of dynamic shared memory at the relative index
+// o = (ptr0 + 33 - slot) mod 97, so draw t reads o = t + 33 (its i) and
+// o = t (its j, which draw t - 33 wrote) and writes o = t + 33; the slots
+// written are stored back once.  Dynamic shared memory: min(n + 33, 97)
+// words a thread.  Measured and dropped (PERF.md): the whole window
+// staged by plain loads (slower at SU(2), which reads 51 of the 97 words),
+// the staged slots by plain loads (a round trip per few loads), and a ring
+// of the last 33 outputs with the other reads through the read-only path
+// (no faster than reading and writing the window in place).
 struct Ranmar {
+  static constexpr int kDynSmem = 97 * kStageThreads * 4;
   static constexpr int CD = 7654321, CM = 16777213;  // in 2^-24 grid units
+  static int dyn_smem_bytes(int, int draws) {
+    return (draws + 33 < 97 ? draws + 33 : 97) * kStageThreads * 4;
+  }
   float* p;
+  float* b;  // relative index o at b[o * kStageThreads]
   int stride;
-  int i, ci;
+  int ptr, ci, t, oi, oj;
   __device__ __forceinline__ void load(void* ws, int slot, int stride_,
-                                       uint32_t s0, int ptr0, int) {
+                                       uint32_t s0, int ptr0, int, int,
+                                       int draws) {
+    extern __shared__ float mar_cols[];
+    b = mar_cols + fresh_tid_x();
     p = (float*)ws + slot;
     stride = stride_;
-    i = ptr0;
+    const int m = draws + 33 < 97 ? draws + 33 : 97;
+    int s = ptr0 + 33 >= 97 ? ptr0 + 33 - 97 : ptr0 + 33;
+    for (int o = 0; o < m; ++o) {
+      copy_async4(b + o * kStageThreads, p + s * stride);
+      s = s == 0 ? 96 : s - 1;
+    }
+    wait_copies();
+    ptr = ptr0;
     ci = (int)s0;
+    t = 0;
+    oi = 33;
+    oj = 0;
   }
   __device__ __forceinline__ float next() {
-    const int j = i >= 64 ? i - 64 : i + 33;
-    float uni = p[i * stride] - p[j * stride];
+    float uni = b[oi * kStageThreads] - b[oj * kStageThreads];
     uni = uni + (uni < 0.0f ? 1.0f : 0.0f);
-    p[i * stride] = uni;
-    i = i == 0 ? 96 : i - 1;
+    b[oi * kStageThreads] = uni;
+    oi = oi == 96 ? 0 : oi + 1;
+    oj = oj == 96 ? 0 : oj + 1;
+    ++t;
     ci -= CD;
     if (ci < 0) ci += CM;
-    float out = uni - __int2float_rn(ci) * 0x1p-24f;  // exact: both on the grid
+    const float out = uni - __int2float_rn(ci) * 0x1p-24f;
     return out + (out < 0.0f ? 1.0f : 0.0f);
   }
-  __device__ __forceinline__ void store() {}
+  __device__ __forceinline__ void store() {
+    int s = ptr, o = 33;
+    for (int k = t < 97 ? t : 97; k > 0; --k) {
+      p[s * stride] = b[o * kStageThreads];
+      s = s == 0 ? 96 : s - 1;
+      o = o == 96 ? 0 : o + 1;
+    }
+  }
 };
 
+// whether generator G makes its draws as each subgroup starts (Ranlux)
+template <class G, class = void>
+struct HasSubgroup : std::false_type {};
+template <class G>
+struct HasSubgroup<G, std::void_t<decltype(std::declval<G&>().subgroup())>>
+    : std::true_type {};
+// whether generator G bounds what a launch may ask (Ranlux::launchable)
+template <class G, class = void>
+struct HasLaunchable : std::false_type {};
+template <class G>
+struct HasLaunchable<G, std::void_t<decltype(G::launchable(0, 0))>>
+    : std::true_type {};
+
 // The random source of a stream instantiation: a pair is the next two
-// draws, each clamped into (0, 1) by open01.
+// draws, each clamped into (0, 1) by open01.  The launcher fills in the
+// draws a subgroup and the stage take (stage.cuh stage_per_slots pairs,
+// times the subgroups) and the dynamic shared memory its generator asks
+// for them (kDynSmem: the most); it refuses a launch the generator cannot
+// run (launchable).
 template <class G>
 struct Stream {
+  static constexpr int kDynSmem = DynSmemOf<G>::value;
   void* ws;
   int stride;
   uint32_t s0;
   int ptr0, skip;
+  int per, draws;
+  int dyn_smem;
+
+  static Stream make(void* ws, int stride, uint32_t s0, int ptr0, int skip,
+                     int n, int kind, int k_trials, int n_hit) {
+    const int per = 2 * (int)stage_per_slots(kind, k_trials, n_hit);
+    const int draws = per * (n == 3 ? 3 : 1);
+    int smem = 0;
+    if constexpr (kDynSmem > 0) smem = G::dyn_smem_bytes(per, draws);
+    return {ws, stride, s0, ptr0, skip, per, draws, smem};
+  }
+  bool launchable() const {
+    if constexpr (HasLaunchable<G>::value) return G::launchable(skip, per);
+    return true;
+  }
 
   struct Src {
     // each draw steps the generator: every draw is made, used or not
     static constexpr bool kCounter = false;
     G g;
-    __device__ __forceinline__ void subgroup(uint32_t) {}
+    __device__ __forceinline__ void subgroup(uint32_t) {
+      if constexpr (HasSubgroup<G>::value) g.subgroup();
+    }
     __device__ __forceinline__ void pair(uint32_t, float& a, float& b) {
       a = open01(g.next());
       b = open01(g.next());
@@ -285,7 +483,7 @@ struct Stream {
   // shard's words are unpadded: [W, x, y, Z*T/2] of its interior)
   __device__ __forceinline__ Src open(int slot, const SiteAddr&) const {
     Src src;
-    src.g.load(ws, slot, stride, s0, ptr0, skip);
+    src.g.load(ws, slot, stride, s0, ptr0, skip, per, draws);
     return src;
   }
 };
@@ -297,12 +495,16 @@ struct Stream {
 #define QG_DEFINE_STREAM_LAUNCHER(fam, Gen)                                   \
   namespace qg {                                                              \
   QG_STREAM_LAUNCHER(fam, Dims) {                                             \
-    const Stream<Gen> rng = {ws, stride, s0, ptr0, skip};                     \
+    const auto rng = Stream<Gen>::make(ws, stride, s0, ptr0, skip, n, kind,   \
+                                       k_trials, n_hit);                      \
+    if (!rng.launchable()) return (int)cudaErrorInvalidValue;                 \
     return launch_drawing(L, n, kind, track, mu, parity, d, rng, tbn,         \
                           k_trials, n_hit, delta, cnt, s);                    \
   }                                                                           \
   QG_STREAM_LAUNCHER(fam, ShardDims) {                                        \
-    const Stream<Gen> rng = {ws, stride, s0, ptr0, skip};                     \
+    const auto rng = Stream<Gen>::make(ws, stride, s0, ptr0, skip, n, kind,   \
+                                       k_trials, n_hit);                      \
+    if (!rng.launchable()) return (int)cudaErrorInvalidValue;                 \
     return launch_drawing(L, n, kind, track, mu, parity, d, rng, tbn,         \
                           k_trials, n_hit, delta, cnt, s);                    \
   }                                                                           \

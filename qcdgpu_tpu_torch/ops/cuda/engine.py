@@ -505,6 +505,10 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
     grid = shard_grid(cfg, dev, None if devices is None
                       else [resolve_device(d) for d in devices])
     gen = streams.stream_mode_name(cfg.rng_mode)
+    if gen and grid.devices[0].type == "cuda":
+        # refused here, not at the first sweep's launch
+        cupdate.check_stream_kernel(gen, cfg.algorithm, cfg.kp_trials,
+                                    cfg.n_hit)
     dims = tuple(cfg.dims)
 
     def meas(shards):

@@ -10,11 +10,12 @@ commits, unpack one into a gitignored directory (git archive) and run
 parent, change, change, parent.
 
 Each configuration (32^4, cold start, reunit_every=10, seed 0, threefry
-unless it says hw) runs through Simulation(cfg) on the card: warmup(), then three times
-thermalize(50) and run(50, 1), each timed on the host clock between
-synchronisations.  The SU(2) stages are the shortest (about 0.1 ms), so
-those rows show first when the host loop cannot keep the card busy.  One
-line per configuration, with the card's nvidia-smi name and power limit.
+unless it says hw or prngcl) runs through Simulation(cfg) on the card:
+warmup(), then three times thermalize(50) and run(50, 1), each timed on
+the host clock between synchronisations.  The SU(2) stages are the
+shortest (about 0.1 ms), so those rows show first when the host loop
+cannot keep the card busy.  One line per configuration, with the card's
+nvidia-smi name and power limit.
 """
 
 import subprocess
@@ -29,6 +30,12 @@ CONFIGS = (
     ("SU(3) Metropolis", dict(group=3, beta=6.0, algorithm="metropolis")),
     ("SU(2) heat-bath + 1 OR", dict(group=2, beta=2.4, n_or=1)),
     ("SU(2) Metropolis", dict(group=2, beta=2.4, algorithm="metropolis")),
+    # the bench's configuration drawing from the lag-window PRNGCL streams
+    # (K8): QCDGPU's default generator, and ranmar
+    ("SU(3) heat-bath, prngcl:ranlux3",
+     dict(group=3, beta=6.0, rng_mode="prngcl:ranlux3")),
+    ("SU(3) heat-bath, prngcl:ranmar",
+     dict(group=3, beta=6.0, rng_mode="prngcl:ranmar")),
 )
 SWEEPS = 50
 
