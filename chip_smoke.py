@@ -25,8 +25,9 @@ each timed:
                   kernels, as K3/K4 and K3c/K4c do), every K1, K3 and
                   K4 instantiation with no stack frame and no spills
                   (the stream ones included); the static SASS
-                  instruction mix of K1 Philox SU(3) heat-bath and K3
-                  SU(3) where the toolkit has cuobjdump;
+                  instruction mix of K1 Philox SU(3) heat-bath, K3 SU(3)
+                  and K1 SU(3) heat-bath of every stream family, beside
+                  the constant stream's, where the toolkit has cuobjdump;
   3. kernels    — every kernel instantiation against its plain PyTorch
                   version on the card (hot starts, seed 1): K1 threefry for
                   each kind x group x tracking, every (mu, parity), at
@@ -43,9 +44,13 @@ each timed:
                   and every ranmar pointer 0..96 (SU(3)), unsharded and
                   on shard 0 of (2,2,1,1), and a few with 8 KP trials
                   or 25 Metropolis hits (longer subgroups, past 48 KB of
-                  shared memory), words bit-identical to
-                  prng_streams.draw_words, and those long stages against
-                  the stage twin (links and counts); K1 Philox (rng_mode "hw",
+                  shared memory) and ranlux0-4 subgroups past a column's
+                  413 draws (SU(3) Metropolis with 110 hits, SU(2)
+                  heat-bath with 210 KP trials), words bit-identical to
+                  prng_streams.draw_words, the 48 KB ones against the
+                  stage twin (links and counts) and the long ranlux ones
+                  through Simulation at 8^4 (a few sites' words against
+                  draw_words); K1 Philox (rng_mode "hw",
                   K9's port) for each drawing kind x group x tracking
                   at (4,4,2,4) and at its own phase-5 run's 8^4 shape,
                   SU(3) heat-bath (and
@@ -100,9 +105,10 @@ each timed:
                   the single chain's; every K1ac instantiation, K5ac and
                   K5bc on shard 0 of 24^3 x 6 on (2,2,1,1) with 11 chains,
                   beside the loop of 11 K1a (K5a, K5b) launches; K4, K5b,
-                  K4c and K5bc also on the device by torch.profiler
-                  (the record's device_ms), which CUDA events around
-                  back-to-back calls cannot give below ~0.05 ms;
+                  K4c and K5bc and every stream stage (K1, K1a) also on
+                  the device by torch.profiler (the record's device_ms),
+                  which CUDA events around back-to-back calls cannot
+                  give below ~0.05 ms;
   5. main paths — first small hot starts through the library API, CUDA
                   against the CPU path (threefry slices, and ranlux3).
                   Then Simulation(cfg) with no device argument at 32^4
@@ -238,6 +244,9 @@ LONG_T = (2, 2, 2, 72)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# f64 outside the tensor cores: 33.5 TFLOP/s on the data sheet, an FMA
+# counted as two, so 1.675e13 f64 instructions a second (64 a clock an SM)
+F64_OPS_PER_S = 33.5e12 / 2
 # The f32 floor of a kernel built with -fmad=false (ops/cuda/build.py): no
 # multiply-add contraction, so each f32 multiply and add is an instruction
 # of its own, at one per lane per clock: 128 lanes x 132 SMs x 1.98 GHz,
@@ -289,6 +298,13 @@ K8_NB0 = (0, 1, 23, 24)
 # Metropolis hits (a ranlux subgroup of 100 draws: past 48 KB too)
 K8_TRIALS = 8
 K8_HITS = 25
+# and subgroups past a chunk of Ranlux::kMaxPer = 413 draws, which the kernel
+# makes in chunks: (kind, KP trials, hits, group): SU(3) Metropolis with
+# 110 hits (440 draws a subgroup, two chunks), SU(2) heat-bath with 210 KP
+# trials (842 draws, three chunks); each also through Simulation at 8^4
+K8_LONG = (("metropolis", 4, 110, 3), ("heatbath", 210, 3, 2))
+# the generator of each K8_LONG case where it runs alone (phases 3 and 4)
+K8_LONG_GENS = ("ranlux3", "ranlux4")
 
 # A random source ("src" below) is None (threefry), "hw" (Philox) or a
 # PRNGCL generator name.
@@ -396,8 +412,11 @@ def kernel_label(mangled, kinds):
         n, kind, track = int(m[2]), kinds[int(m[3])], m[4] == "1"
         fam = ("_philox" if m[5] else "" if m[6] is None
                else "_" + m[7][:int(m[6])].lower())
+        # Ranlux<true>: the instantiation of subgroups past a column's draws
+        chunked = m[6] is not None and m[7][int(m[6]):].startswith("ILb1E")
         return (f"stage_{kind}_su{n}{fam}" + ("_track" if track else "")
-                + shard + ("_chains" if m[1] else ""))
+                + shard + ("_chains" if m[1] else "")
+                + ("_chunked" if chunked else ""))
     m = re.match(r"_ZN2qg(\d+)", mangled)  # qg::<length-prefixed name>
     if not m:
         return mangled
@@ -510,23 +529,26 @@ METRO_HIT = 134
 # xors, 9 key bumps of 2 adds.
 THREEFRY_CALL_OPS = 20 * 3 + 2 + 5 * 3 + 2
 PHILOX_CALL_OPS = 10 * (2 + 4) + 9 * 2
-# Integer operations of one draw of a stream generator (csrc/streams.cuh),
-# its recurrence's own: xor128 3 shifts and 3 xors; xor7 7 shifts and 7
-# xors; mrg32k3a 4 mulmods of a wide multiply, two wide multiply-add folds,
-# a 64-bit compare (2) and a subtract-select (2), 3 submods of 3 and the
-# zero test (2); parkmiller Schrage's step, a multiply-high division (2),
-# 3 multiply-adds and the wrap (2); ranmar its carry's subtract, compare and
-# select (its ~6 f32 operations a draw are not counted); constant none.
-# Ranlux costs SWB_STEP_OPS a subtract-with-borrow step (a three-input add,
-# the borrow by a shift, the 24-bit mask), one step a draw and skip_len
-# more a luxury skip.
-STREAM_DRAW_OPS = {"xor128": 6, "xor7": 14, "mrg32k3a": 4 * 7 + 3 * 3 + 2,
-                   "parkmiller": 7, "ranmar": 3, "constant": 0}
+# (integer, f64) operations of one draw of a stream generator
+# (csrc/streams.cuh), its recurrence's own, counted in the SASS of K1 SU(3)
+# heat-bath (phase 2 prints its mix beside the constant stream's; the
+# heat-bath's code holds 18 draws, 6 a subgroup): xor128 5 (3 shifts, 3
+# xors, two of them one three-input op), xor7 13 (7 shifts and 7 xors),
+# mrg32k3a 17 f64 (mrg_step twice: a multiply, three FMAs, an add, a
+# compare and a conditional add; the output's subtract, compare and add)
+# and no integer one; parkmiller Schrage's step, a multiply-high division
+# (2), 3 multiply-adds and the wrap (2); ranmar its carry's subtract,
+# compare and select (its ~6 f32 operations a draw are not counted);
+# constant none.  Ranlux costs SWB_STEP_OPS a subtract-with-borrow step (a
+# three-input add, the borrow by a shift, the 24-bit mask), one step a
+# draw and skip_len more a luxury skip.
+STREAM_DRAW_OPS = {"xor128": (5, 0), "xor7": (13, 0), "mrg32k3a": (0, 17),
+                   "parkmiller": (7, 0), "ranmar": (3, 0), "constant": (0, 0)}
 SWB_STEP_OPS = 3
 
 
 def rng_ops_per_site(n, kind, k_trials, n_hit, fam, gen=None):
-    """Integer operations of a site's draws: one threefry call per slot,
+    """(integer, f64) operations of a site's draws: one threefry call per slot,
     one Philox call per block of two slots (the kernel keeps the last
     block, and the slots are drawn in ascending order), or a stream
     generator's steps for the stage's draws (gen: the generator, for the
@@ -539,14 +561,15 @@ def rng_ops_per_site(n, kind, k_trials, n_hit, fam, gen=None):
     per = cupdate.uniforms_per_subgroup(kind, k_trials, n_hit)
     slots = (3 if n == 3 else 1) * ((per + 1) // 2)
     if fam is None:
-        return THREEFRY_CALL_OPS * slots
+        return THREEFRY_CALL_OPS * slots, 0
     if fam == "philox":
-        return PHILOX_CALL_OPS * ((slots + 1) // 2)
+        return PHILOX_CALL_OPS * ((slots + 1) // 2), 0
     draws = cupdate.stream_draw_count(kind, k_trials, n_hit, n)
     if fam == "ranlux":
         skip = ps.ranlux_skip_len(gen or FAMILY_GEN[fam])
-        return SWB_STEP_OPS * draws * (1 + skip / 24)
-    return STREAM_DRAW_OPS[fam] * draws
+        return SWB_STEP_OPS * draws * (1 + skip / 24), 0
+    int_ops, f64_ops = STREAM_DRAW_OPS[fam]
+    return int_ops * draws, f64_ops * draws
 
 
 def stage_ops_per_site(n, kind, k_trials, n_hit):
@@ -645,12 +668,12 @@ def plane_decodes(dims, shard):
 
 
 def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
-    """(bytes, f32 operations, integer operations) of one call of kernel
-    `name` at dims: each input read once, each output written once (a stream stage's words
-    are added by the caller: stream_word_bytes).  A stage is stage (mu,
-    parity).  With shard (a core.Shard: K1a, K5a, K5b) dims are its
-    interior extents, and of its padded arrays only the halo columns that
-    the call reads count."""
+    """(bytes, f32, integer and f64 operations) of one call of kernel
+    `name` at dims: each input read once, each output written once (a
+    stream stage's words are added by the caller: stream_word_bytes).  A
+    stage is stage (mu, parity).  With shard (a core.Shard: K1a, K5a, K5b)
+    dims are its interior extents, and of its padded arrays only the halo
+    columns that the call reads count."""
     n = int(re.search(r"_su(\d)", name)[1])
     v2 = int(np.prod(dims)) // 2
     arr = 16 * n * v2  # one packed (direction, parity) array
@@ -660,27 +683,29 @@ def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
     if name.startswith("stage_"):
         # the links the stage loads, the target written
         kind, _, _, fam = parse_instance(name)
+        int_ops, f64_ops = rng_ops_per_site(n, kind, k_trials, n_hit, fam)
         return (columns_read(stage_reads(mu, parity), local, halo) * col
                 + arr, v2 * stage_ops_per_site(n, kind, k_trials, n_hit),
-                v2 * rng_ops_per_site(n, kind, k_trials, n_hit, fam))
+                v2 * int_ops, v2 * f64_ops)
     if name.startswith("reunit_"):
-        return 2 * arr, v2 * (84 if n == 3 else 23), 0
+        return 2 * arr, v2 * (84 if n == 3 else 23), 0, 0
     if name.startswith("plane_sums"):
         per_site = (6 * (2 * mmul_ops(n) + 4 * n * n)
                     + plane_decodes(dims, shard) * codec_ops(n))
         return (columns_read(plane_reads(), local, halo) * col + 6 * 8,
-                2 * v2 * per_site, 0)
+                2 * v2 * per_site, 0, 0)
     x, y, z, t = dims  # polyakov_sums: the temporal arrays only
     per_col = (t - 1) * mmul_ops(n) + t * codec_ops(n) + 2 * (n - 1)
-    return 2 * arr + 2 * 8, x * y * z * per_col, 0
+    return 2 * arr + 2 * 8, x * y * z * per_col, 0, 0
 
 
-def bound(nbytes, f32_ops, int_ops):
-    """The least ms of a call: its bytes at the HBM rate, or its f32 and
-    its integer operations each at its own pipe's rate, whichever is
-    longest."""
+def bound(nbytes, f32_ops, int_ops, f64_ops=0):
+    """The least ms of a call: its bytes at the HBM rate, or its f32, its
+    integer and its f64 operations each at its own pipe's rate, whichever
+    is longest."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(f32_ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    t_ops = max(f32_ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S,
+                f64_ops / F64_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -740,18 +765,23 @@ def device_ms(fn, reps, match):
     one warm-up call: (the kernels whose name holds match, all the calls'
     device work), or (None, None) when the trace holds no device event.
     Unlike CUDA events around back-to-back calls it does not count the
-    host's launch path."""
+    host's launch path.  A trace now and then comes back with no device
+    event at all (once in 112 short windows on the H100): up to three
+    windows are taken."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    by_name = device_events(prof)
-    if not by_name:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        by_name = device_events(prof)
+        if by_name:
+            break
+    else:
         return None, None
     return (sum(ms for k, (ms, _) in by_name.items() if match in k) / reps,
             sum(ms for ms, _ in by_name.values()) / reps)
@@ -969,15 +999,27 @@ def main():
                   and any(frame_and_spills(line))]
         require(not framed, f"stack frame or spills in {framed}")
         # the static SASS mix of the two kernels the main path spends most
-        # in: K1 Philox SU(3) heat-bath and K3 SU(3)
+        # in, K1 Philox SU(3) heat-bath and K3 SU(3), and of K1 SU(3)
+        # heat-bath drawing from each stream family, beside the constant
+        # stream's (no generator): what each generator's code adds
+        mixes = {}
         for name, _, mangled in rows:
             if name in ("stage_heatbath_su3_philox", "plane_sums_kernel<3>",
-                        "plane_sums_tile_kernel<3>"):
-                mix = sass_mix(info["path"], mangled)
+                        "plane_sums_tile_kernel<3>") or name in {
+                            f"stage_heatbath_su3_{fam}" for fam in ps.FAMILIES}:
+                mix = mixes[name] = sass_mix(info["path"], mangled)
                 print(f"  SASS {name}: " + ("no cuobjdump" if mix is None
                       else ", ".join(f"{k} {v}" for k, v in mix.items())
                       + f"; total {sum(mix.values())} (static: a loop's "
                       "body counts once)"))
+        base = mixes.get("stage_heatbath_su3_constant")
+        for fam in ps.FAMILIES:
+            mix = mixes.get(f"stage_heatbath_su3_{fam}")
+            if base and mix and fam != "constant":
+                print(f"  SASS stage_heatbath_su3_{fam} over the constant "
+                      "stream's: " + ", ".join(
+                          f"{k} {mix[k] - base[k]:+d}" for k in mix
+                          if mix[k] != base[k]))
         build.library()
 
     hots = {}
@@ -1271,6 +1313,9 @@ def main():
                   for lv in range(5) for n in GROUPS for nb0, p0 in few]
         cases += [("ranmar", n, None, p0, m, 4, K8_HITS) for n in GROUPS
                   for p0 in (0, 48, 96)]
+        cases += [(f"ranlux{lv}", n, nb0, p0, kind, k_trials, n_hit)
+                  for lv in range(5) for kind, k_trials, n_hit, n in K8_LONG
+                  for nb0, p0 in ((23, 5),)]
         states, shard_links = {}, {}
         for gen, n, nb0, p0, kind, k_trials, n_hit in cases:
             if (gen, n) not in states:
@@ -1308,7 +1353,51 @@ def main():
               "ranlux0-4 SU(3) at 3 pointers x 2 counters and ranmar at "
               f"every pointer; Metropolis with {K8_HITS} hits, SU(3) and "
               "SU(2), ranlux0-4 at 3 pointers x 2 counters and ranmar at "
-              "3 pointers; words bit-identical to draw_words")
+              "3 pointers; past a chunk of 413 draws a subgroup, ranlux0-4 "
+              + ", ".join(f"SU({n}) {kind} K={k} hits={h}"
+                          for kind, k, h, n in K8_LONG)
+              + "; words bit-identical to draw_words")
+
+    def k8_long_runs():
+        """The long ranlux subgroups (K8_LONG) through the library:
+        Simulation(cfg) on the card at STREAM_SMALL_RUN (which a limit on
+        the subgroup's draws would refuse), one sweep from a hot start; a
+        few sites' stream words and the scalars must come out bit-identical
+        to draw_words over the sweep's draws (on the CPU: the words do not
+        depend on the links), the plaquette must lie in (0, 1)."""
+        sites = (0, 777, 2047)
+        for (kind, k_trials, n_hit, n), gen in zip(K8_LONG, K8_LONG_GENS):
+            cfg = SimConfig(group=n, beta=BETA_RUN[n], algorithm=kind,
+                            kp_trials=k_trials, n_hit=n_hit,
+                            dims=STREAM_SMALL_RUN, seed=5, start="hot",
+                            rng_mode=f"prngcl:{gen}")
+            sim = Simulation(cfg)
+            st0 = {k: np.array(v) for k, v in sim.stream_state.items()}
+            sim.thermalize(1)
+            st1 = sim.stream_state
+            plq = sim.measure()["plq"]
+            ndraw = 4 * cupdate.stream_draw_count(kind, k_trials, n_hit, n)
+            same = True
+            for sfx in ("_e", "_o"):
+                w0 = st0["words" + sfx]
+                words = torch.from_numpy(
+                    w0.reshape(w0.shape[0], -1)[:, sites].copy())
+                scal = {k: int(st0[k + sfx])
+                        for k in ps.kernel_scalar_names(gen)}
+                ps.draw_words(gen, words, ndraw, dict(scal))
+                want = ps.advance_kernel_scalars(gen, scal, ndraw)
+                w1 = st1["words" + sfx]
+                same = same and np.array_equal(
+                    w1.reshape(w1.shape[0], -1)[:, sites], words.numpy()) \
+                    and all(int(st1[k + sfx]) == v for k, v in want.items())
+            per = cupdate.uniforms_per_subgroup(kind, k_trials, n_hit)
+            msg = (f"Simulation {gen} SU({n}) {kind} K={k_trials} "
+                   f"hits={n_hit} ({per} draws a subgroup) "
+                   f"{STREAM_SMALL_RUN}, 1 sweep on the card: words of sites "
+                   f"{sites} and scalars bit-identical to draw_words {same}, "
+                   f"plaquette {plq:.6f}")
+            print(msg)
+            require(same and 0.0 < plq < 1.0, msg)
 
     def source_note(gen):
         return (f" ({gen}; words bit-identical)" if is_stream(gen)
@@ -1384,11 +1473,16 @@ def main():
             print(msg)
             require_stage(msg, dims, n, kind, worst, bad, links, ck, cp, gen)
         # K8's stages that ask more than 48 KB of shared memory: ranlux
-        # Metropolis with K8_HITS hits, ranmar heat-bath with K8_TRIALS
-        for gen, n, kind, k_trials, n_hit in (
+        # Metropolis with K8_HITS hits, ranmar heat-bath with K8_TRIALS;
+        # and the subgroups past a chunk (K8_LONG), whose refill only the
+        # links and counts would show wrong (the words come out right
+        # whichever chunk the sampler reads)
+        long_cases = [(gen, n, kind, k, h) for (kind, k, h, n), gen
+                      in zip(K8_LONG, K8_LONG_GENS)]
+        for gen, n, kind, k_trials, n_hit in [
                 ("ranlux3", 2, "metropolis", 4, K8_HITS),
                 ("ranlux3", 3, "metropolis", 4, K8_HITS),
-                ("ranmar", 3, "heatbath", K8_TRIALS, 3)):
+                ("ranmar", 3, "heatbath", K8_TRIALS, 3)] + long_cases:
             name = instance(kind, n, True, gen)
             worst, bad, links, ck, cp = k1_compare(n, kind, True, SMALL,
                                                    k_trials, gen, n_hit)
@@ -1401,6 +1495,8 @@ def main():
         mark("K1 threefry, streams, Philox")
         k8_schedule()
         mark("K8 schedule: every pointer, luxury counter and level")
+        k8_long_runs()
+        mark("K8 subgroups past a chunk through Simulation")
         for n in GROUPS:
             for dims in (SMALL, ODD_T2, BIG):
                 u_ = hot(dims, n)
@@ -1695,14 +1791,16 @@ def main():
             rec = record[name]
             rec["ms"] = (k1 + k2_) / 2
             rec["plain_ms"] = p1
-            nbytes, f32_ops, int_ops = work(name, dims, shard=shard)
+            nbytes, f32_ops, int_ops, f64_ops = work(name, dims, shard=shard)
             rec["bound_ms"], rec["bound_by"] = bound(nbytes + extra, f32_ops,
-                                                     int_ops)
+                                                     int_ops, f64_ops)
             print(f"{name}: kernel {k1:.4f} / {k2_:.4f} ms, plain "
                   f"{p1:.4f} ms, bound {rec['bound_ms']:.4f} "
                   f"ms ({rec['bound_by']}), -fmad=false f32 floor "
                   f"{f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms, integer "
-                  f"floor {int_ops / INT32_OPS_PER_S * 1e3:.4f} ms  [{smi}]")
+                  f"floor {int_ops / INT32_OPS_PER_S * 1e3:.4f} ms"
+                  + (f", f64 floor {f64_ops / F64_OPS_PER_S * 1e3:.4f} ms"
+                     if f64_ops else "") + f"  [{smi}]")
 
     def k4_device(name, fn, where):
         """A K4-family call's device time by the profiler (its kernel, and
@@ -1717,6 +1815,29 @@ def main():
             f"{total:.4f} ms with the finish kernel (profiler, 50 calls)")
             + f"; CUDA events {rec['ms']:.4f} ms; bound "
             f"{rec['bound_ms']:.4f} ms  [{smi}]")
+
+    def stream_device(n, fns):
+        """The stream stages' device times by the profiler (device_ms of
+        the record; each fn launches one stage kernel), beside phase 4's
+        CUDA-event times, which below ~0.05 ms are the host's launch
+        path."""
+        t0 = time.perf_counter()
+        got = {name: device_ms(fn, 20, "stage_kernel")[0]
+               for name, fn in fns.items()}
+        print(f"SU({n}): {len(fns)} stream stages under the profiler in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, ms in got.items():
+            rec = record[name]
+            rec["device_ms"] = ms
+            print(f"{name}: on the device " + (
+                "not measured (the profiler saw no such kernel)" if ms is None
+                else f"{ms:.4f} ms (profiler, 20 calls)")
+                + f"; CUDA events {rec['ms']:.4f} ms; bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  [{smi}]")
+        require(all(ms is not None for ms in got.values()) or not any(
+            got.values()), f"SU({n}): the profiler saw some stream stages "
+                "and not others: " + ", ".join(k for k, v in got.items()
+                                                 if v is None))
 
     with Phase("4 kernel timing at 32^4 and 24^3 x 6"):
         key = rng.stage_key(rng.make_base_key(1), 0, 0)
@@ -1833,6 +1954,41 @@ def main():
                 lambda: cmeasure.polyakov_sums_local_ref(s0, g0),
                 lambda: cmeasure.polyakov_sums_local(s0, g0), 2, 50, 1, 0)
             time_pairs(spairs, g0.interior, g0)
+            # every stream stage (K7, K8; K1 and K1a) on the device as well
+            stream_device(n, {name: kern
+                              for name, (_, kern, *_) in itertools.chain(
+                                  pairs.items(), spairs.items())
+                              if name.startswith("stage_")
+                              and parse_instance(name)[3] in FAMILY_GEN})
+            # a ranlux subgroup past a column's draws (K8_LONG: the chunked
+            # instantiation) on the device, beside its bound
+            for (kind, k_trials, n_hit, n_), gen in zip(K8_LONG,
+                                                        K8_LONG_GENS):
+                if n_ != n:
+                    continue
+                rst = stream_state(gen, n, BIG)
+                kw = dict(kind=kind, n_hit=n_hit, gen=gen,
+                          words=rst["words_e"], scalars={
+                              k: rst[k + "_e"]
+                              for k in ps.kernel_scalar_names(gen)})
+                kern, _ = device_ms(lambda kw=kw, k_trials=k_trials: (
+                    cupdate.stage_update(w, 1, 0, beta, None, BIG, k_trials,
+                                         **kw)), 10, "stage_kernel")
+                name = cupdate.instance_name(kind, n, False, gen)
+                ndraw = cupdate.stream_draw_count(kind, k_trials, n_hit, n)
+                nbytes, f32_ops, _, _ = work(name, BIG, k_trials, n_hit)
+                int_ops = v2 * rng_ops_per_site(n, kind, k_trials, n_hit,
+                                                "ranlux", gen)[0]
+                b_ms, by = bound(nbytes + stream_word_bytes(
+                    gen, v2, ndraw, kw["scalars"]), f32_ops, int_ops)
+                per = cupdate.uniforms_per_subgroup(kind, k_trials, n_hit)
+                print(f"{name} {gen} K={k_trials} hits={n_hit} ({per} draws "
+                      f"a subgroup, chunked) {BIG}: on the device "
+                      + ("not measured (the profiler saw no such kernel)"
+                         if kern is None else f"{kern:.4f} ms (profiler, 10 "
+                         "calls)") + f"; bound {b_ms:.4f} ms ({by}), integer "
+                      f"floor {int_ops / INT32_OPS_PER_S * 1e3:.4f} ms  "
+                      f"[{smi}]")
             k4_device(f"polyakov_sums_local_su{n}",
                       lambda: cmeasure.polyakov_sums_local(s0, g0),
                       f"{BIG} mesh {MESH} shard 0")
@@ -1921,7 +2077,7 @@ def main():
                 l2 = event_ms(loop, reps) / calls
                 rec = record[name]
                 rec["ms"], rec["plain_ms"] = (k1 + k2_) / 2, p1
-                nbytes, f32_ops, int_ops = work(single, SCAN_DIMS)
+                nbytes, f32_ops, int_ops, _ = work(single, SCAN_DIMS)
                 rec["bound_ms"], rec["bound_by"] = bound(
                     nc * nbytes, nc * f32_ops, nc * int_ops + extra)
                 print(f"{name} {SCAN_DIMS} x {nc} chains: kernel {k1:.4f} / "
@@ -1995,7 +2151,7 @@ def main():
                 l2 = event_ms(loop, reps)
                 rec = record[name]
                 rec["ms"], rec["plain_ms"] = (k1 + k2_) / 2, p1
-                nbytes, f32_ops, int_ops = work(single, g0.interior,
+                nbytes, f32_ops, int_ops, _ = work(single, g0.interior,
                                                 shard=g0)
                 rec["bound_ms"], rec["bound_by"] = bound(
                     nc * nbytes, nc * f32_ops, nc * int_ops + extra)

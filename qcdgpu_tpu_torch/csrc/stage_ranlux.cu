@@ -3,4 +3,4 @@
 // SU(2), tracked or not.  Kernel in stage.cuh, generator in streams.cuh.
 #include "streams.cuh"
 
-QG_DEFINE_STREAM_LAUNCHER(ranlux, Ranlux)
+QG_DEFINE_STREAM_LAUNCHER(ranlux, Ranlux<false>)

@@ -23,12 +23,14 @@
 //    pointer into them is a run-time value; see Ranlux and Ranmar.
 // u32 -> f32 is the correctly rounded __uint2float_rn (the reference's
 // _f32_from_u32 reaches the same value through two exact halves: a TPU
-// workaround, not ported).  mrg32k3a forms its products in 64 bits and folds
-// 2^32 = c (mod m) where the reference uses 16-bit limbs; the residue is the
-// same.
+// workaround, not ported).  mrg32k3a forms each step in f64 (mrg_step)
+// where the reference uses 16-bit limbs; the residue is the same.
 //
 // What bounds it: a few integer operations per draw for the counter-free
-// generators.  Ranlux3 adds about 2.25 luxury skips of 199 subtract-with-
+// generators, and 17 f64 ones for mrg32k3a, on a pipe K1 does not use
+// otherwise (its 64-bit integer form, about 54 integer instructions a draw
+// in the SASS, added 0.12 ms to a 32^4 SU(3) heat-bath stage; the f64 one
+// adds 0.04).  Ranlux3 adds about 2.25 luxury skips of 199 subtract-with-
 // borrow steps per site per SU(3) heat-bath stage (54 draws), 3 integer
 // operations a step at the least; with the window in a local array (a
 // stack frame, its pointer a run-time index) each step was two loads and a
@@ -80,6 +82,9 @@ struct Xor128 {
   }
 };
 
+// Made up front in shared memory in 8-step blocks (no rotation moves, no
+// state registers in the sampler) it measured 1.36-1.41x slower at SU(3)
+// heat-bath (PERF.md): the per-draw shared store and load cost more.
 struct Xor7 {
   uint32_t* p;
   int stride;
@@ -116,60 +121,78 @@ struct Xor7 {
   }
 };
 
-// (a * s) mod m for m = 2^32 - c, a < 2^21, s < m: the 53-bit product,
-// then 2^32 = c (mod m) folded twice and one conditional subtraction.
-__device__ __forceinline__ uint32_t mrg_mulmod(uint32_t a, uint32_t s,
-                                               uint32_t m, uint32_t c) {
-  uint64_t v = (uint64_t)a * s;                       // < 2^53
-  v = (v >> 32) * c + (v & 0xFFFFFFFFull);            // < 2^37
-  v = (v >> 32) * c + (v & 0xFFFFFFFFull);            // < 2^32 + 2^21
-  return (uint32_t)(v >= m ? v - m : v);
-}
+// MRG32k3a (L'Ecuyer): two order-3 recurrences x_n = (a x_{n-2} - b x_{n-3})
+// mod m, m = 2^32 - c, every multiplier below 2^21.  Each step is formed
+// in f64, L'Ecuyer's floating-point form (mrg_step): the H100's f64 pipe
+// is otherwise idle in K1, whose bound is its f32 instructions, while the
+// 64-bit integer form (four wide products and their folds a draw) ran on
+// the pipe the f32 work shares.  The state stays in registers as six f64
+// integers (twelve registers, no frame and no spill at K1's 128).
+// Measured and dropped (PERF.md): a 32-bit integer form with one
+// reduction a component, the draws made up front in shared memory (both
+// forms; slower), and a jump over the heat-bath trials after the first
+// accepted one (no faster than the integer form it jumps in).
+constexpr double kMrgM1 = 4294967087.0, kMrgM2 = 4294944443.0;
+constexpr double kMrgA12 = 1403580.0, kMrgA13 = 810728.0;
+constexpr double kMrgA21 = 527612.0, kMrgA23 = 1370589.0;
 
-__device__ __forceinline__ uint32_t mrg_submod(uint32_t a, uint32_t b,
-                                               uint32_t m) {
-  return a >= b ? a - b : a + (m - b);
+// (a x - b y) mod m for a, b < 2^21 and x, y < m < 2^32, the same residue
+// as exact integer arithmetic: p = a x - b y is an integer below 2^53 in
+// magnitude, so the product a x and the FMA that subtracts b y are exact;
+// k = p / m rounded to an integer by the 1.5 x 2^52 shifter, from p times
+// the rounded reciprocal inv_m (whose error moves the quotient by less
+// than 2^-32, so |p / m - k| <= 1/2 + 2^-32); r = p - k m is exact (k m <
+// 2^53) and |r| < m / 2 + 1, so one conditional + m gives the residue in
+// [0, m).
+__device__ __forceinline__ double mrg_step(double a, double x, double b,
+                                           double y, double m,
+                                           double inv_m) {
+  constexpr double kShift = 6755399441055744.0;  // 1.5 x 2^52
+  const double p = __fma_rn(-b, y, __dmul_rn(a, x));
+  const double k = __dadd_rn(__fma_rn(p, inv_m, kShift), -kShift);
+  const double r = __fma_rn(-k, m, p);
+  return r < 0.0 ? __dadd_rn(r, m) : r;
 }
 
 struct Mrg32k3a {
-  static constexpr uint32_t M1 = 4294967087u, C1 = 209u;
-  static constexpr uint32_t M2 = 4294944443u, C2 = 22853u;
   uint32_t* p;
   int stride;
-  uint32_t s10, s11, s12, s20, s21, s22;
+  double s10, s11, s12, s20, s21, s22;
   __device__ __forceinline__ void load(void* ws, int slot, int stride_,
                                        uint32_t, int, int, int, int) {
     p = (uint32_t*)ws + slot;
     stride = stride_;
-    s10 = p[0];
-    s11 = p[stride];
-    s12 = p[2 * stride];
-    s20 = p[3 * stride];
-    s21 = p[4 * stride];
-    s22 = p[5 * stride];
+    s10 = __uint2double_rn(p[0]);
+    s11 = __uint2double_rn(p[stride]);
+    s12 = __uint2double_rn(p[2 * stride]);
+    s20 = __uint2double_rn(p[3 * stride]);
+    s21 = __uint2double_rn(p[4 * stride]);
+    s22 = __uint2double_rn(p[5 * stride]);
   }
   __device__ __forceinline__ float next() {
-    const uint32_t p1 = mrg_submod(mrg_mulmod(1403580u, s11, M1, C1),
-                                   mrg_mulmod(810728u, s10, M1, C1), M1);
-    const uint32_t p2 = mrg_submod(mrg_mulmod(527612u, s22, M2, C2),
-                                   mrg_mulmod(1370589u, s20, M2, C2), M2);
+    const double p1 = mrg_step(kMrgA12, s11, kMrgA13, s10, kMrgM1,
+                               1.0 / kMrgM1);
+    const double p2 = mrg_step(kMrgA21, s22, kMrgA23, s20, kMrgM2,
+                               1.0 / kMrgM2);
     s10 = s11;
     s11 = s12;
     s12 = p1;
     s20 = s21;
     s21 = s22;
     s22 = p2;
-    uint32_t z = mrg_submod(p1, p2, M1);
-    if (z == 0) z = M1;
-    return __uint2float_rn(z) * (float)2.328306549295728e-10;
+    // (p1 - p2) mod m1, and m1 for 0 (p2 < m2 < m1); an integer below 2^32,
+    // rounded to f32 as __uint2float_rn rounds it
+    double z = __dadd_rn(p1, -p2);
+    if (z <= 0.0) z = __dadd_rn(z, kMrgM1);
+    return __double2float_rn(z) * (float)2.328306549295728e-10;
   }
   __device__ __forceinline__ void store() {
-    p[0] = s10;
-    p[stride] = s11;
-    p[2 * stride] = s12;
-    p[3 * stride] = s20;
-    p[4 * stride] = s21;
-    p[5 * stride] = s22;
+    p[0] = __double2uint_rn(s10);
+    p[stride] = __double2uint_rn(s11);
+    p[2 * stride] = __double2uint_rn(s12);
+    p[3 * stride] = __double2uint_rn(s20);
+    p[4 * stride] = __double2uint_rn(s21);
+    p[5 * stride] = __double2uint_rn(s22);
   }
 };
 
@@ -248,40 +271,57 @@ __device__ __forceinline__ void wait_copies() {
 // last skip (the reference's (nb0 + t) % 24 == 0 and nb0 + t > 0).
 //
 // The window, its carry, pointer i and luxury counter nb live in the
-// thread's column of dynamic shared memory (27 words, filled by cp.async),
-// and as each subgroup starts, all the draws it will take (per) are made
-// into the column's next per words, which the sampler then reads one by
-// one.  So the generator's registers are live only while it runs, before
-// each subgroup's trials, where K1 holds few values of its own: no frame
-// and no spill at K1's 128 registers.  Its draws step the window in shared
-// memory one at a time (j = i - 14, the pointer walking down); a luxury
-// skip loads the window into registers in the canonical rotation (word k
-// from slot (i - k) mod 24), runs skip / 24 whole 24-step blocks on static
+// thread's column of dynamic shared memory (the first 25 words filled by
+// cp.async), and as each subgroup starts, its draws are made into the
+// column's next words, which the sampler then reads one by one.  So the
+// generator's registers are live only while it runs, before each
+// subgroup's trials, where K1 holds few values of its own: no frame and no
+// spill at K1's 128 registers.  Its draws step the window in shared memory
+// one at a time (j = i - 14, the pointer walking down); a luxury skip
+// loads the window into registers in the canonical rotation (word k from
+// slot (i - k) mod 24), runs skip / 24 whole 24-step blocks on static
 // slots, then the remainder skip % 24 (0, 0, 1, 7, 5 for levels 0-4) on
 // static slots too, and stores it back under the pointer it was loaded at,
 // which moves down by the remainder.  A skip costs 3 integer operations a
-// step.  Dynamic shared memory: (27 + per) words a thread, so per may not
-// pass kMaxPer = (kDynSmem / 512) - 27 = 413 (k_trials or n_hit about 100;
-// ops/cuda/update.py RANLUX_MAX_PER refuses more up front), and the skip
-// length must be one whose remainder luxury_skip knows (launchable).
-// Measured and dropped (PERF.md): the whole window in registers for
-// the whole sampler (ptxas, sm_90a, crashed on it at 3 and at 4 blocks an
-// SM), the window in shared memory stepped one draw at a time (1.5x slower
-// at SU(3) heat-bath), the same with the skip in registers inside the
+// step.  The skip length must be one whose remainder luxury_skip knows
+// (launchable).
+//
+// A column holds at most kMaxPer draws.  A subgroup of more (k_trials or
+// n_hit past about 100) runs the kChunked instantiation, which the
+// launcher picks from the draw count: it makes them a chunk of kMaxPer at a
+// time, the next chunk when the sampler has read the last one, from the
+// same pointer, carry and counter, so the words are the same for any
+// length.  That refill runs inside the sampler, where K1 holds the most
+// values, so it steps its luxury skips in shared memory (a few registers)
+// and keeps the count of draws still to make in the column (word 27).
+// Only that instantiation carries the refill: in the one every shorter
+// subgroup runs, its check cost SU(3) heat-bath 45 % inlined, and 4 %
+// (Metropolis 2 %, 25 hits 6 %) as a __noinline__ function with no frame
+// (measured, PERF.md).
+// Dynamic shared memory: (kHead + min(per, kMaxPer)) words a thread.
+// Measured and dropped (PERF.md): the whole window in registers for the
+// whole sampler (ptxas, sm_90a, crashed on it at 3 and at 4 blocks an SM),
+// the window in shared memory stepped one draw at a time (1.5x slower at
+// SU(3) heat-bath), the same with the skip in registers inside the
 // sampler (spills), and a 24-draw buffer refilled inside the sampler.
+template <bool kChunked>
 struct Ranlux {
-  static constexpr int kDynSmem = 220 * 1024;
-  static constexpr int kMaxPer = kDynSmem / (kStageThreads * 4) - 27;
+  // column words: window slot k at k, carry 24, i 25, nb 26, (kChunked)
+  // the subgroup's draws still to make 27, then the draws from kHead
+  static constexpr int kHead = kChunked ? 28 : 27;
+  static constexpr int kMaxPer = 413;  // draws a column holds
+  static constexpr int kDynSmem = (kHead + kMaxPer) * kStageThreads * 4;
+  using Chunked = Ranlux<true>;  // the instantiation of longer subgroups
   static int dyn_smem_bytes(int per, int) {
-    return (27 + per) * kStageThreads * 4;
+    return (kHead + (per < kMaxPer ? per : kMaxPer)) * kStageThreads * 4;
   }
   static bool launchable(int skip, int per) {
     const int rem = skip % 24;
-    return skip >= 0 && per <= kMaxPer &&
+    return skip >= 0 && (kChunked ? per > kMaxPer : per <= kMaxPer) &&
            (rem == 0 || rem == 1 || rem == 5 || rem == 7);
   }
   int* p;
-  int* w;  // slot k at w[k * T]; carry, i, nb at 24-26; draw c at 27 + c
+  int* w;  // column word k at w[k * T]
   int stride, skip, per, q;
   __device__ __forceinline__ void load(void* ws, int slot, int stride_,
                                        uint32_t s0, int ptr0, int skip_,
@@ -329,15 +369,22 @@ struct Ranlux {
     for (int k = 0; k < 24; ++k) w[lag24(i0, k) * kStageThreads] = r[k];
     i = lag24(i0, rem);
   }
-  __device__ __forceinline__ void subgroup() {
+  // the next n draws into the column from kHead: the skips in registers
+  // as a subgroup starts, stepped in shared memory for a refill
+  template <bool kSkipInRegisters>
+  __device__ __forceinline__ void make(int n) {
     int carry = w[24 * kStageThreads], i = w[25 * kStageThreads];
     int nb = w[26 * kStageThreads];
-    for (int c = 0; c < per; ++c) {
+    for (int c = 0; c < n; ++c) {
       if (nb == 24) {
-        luxury_skip(i, carry);
+        if constexpr (kSkipInRegisters) {
+          luxury_skip(i, carry);
+        } else {
+          for (int k = 0; k < skip; ++k) swb(i, carry);
+        }
         nb = 0;
       }
-      w[(27 + c) * kStageThreads] = swb(i, carry);
+      w[(kHead + c) * kStageThreads] = swb(i, carry);
       ++nb;
     }
     w[24 * kStageThreads] = carry;
@@ -345,8 +392,24 @@ struct Ranlux {
     w[26 * kStageThreads] = nb;
     q = 0;
   }
+  __device__ __forceinline__ void subgroup() {
+    if constexpr (kChunked) {
+      w[27 * kStageThreads] = per - kMaxPer;
+      make<true>(kMaxPer);
+    } else {
+      make<true>(per);
+    }
+  }
   __device__ __forceinline__ float next() {
-    const int d = w[(27 + q) * kStageThreads];
+    if constexpr (kChunked) {
+      if (q == kMaxPer) {
+        const int left = w[27 * kStageThreads];
+        const int n = left < kMaxPer ? left : kMaxPer;
+        w[27 * kStageThreads] = left - n;
+        make<false>(n);
+      }
+    }
+    const int d = w[(kHead + q) * kStageThreads];
     ++q;
     return __int2float_rn(d) * 0x1p-24f;
   }
@@ -355,7 +418,6 @@ struct Ranlux {
     for (int k = 0; k < 25; ++k) p[k * stride] = w[k * kStageThreads];
   }
 };
-
 // ranmar: u_i <- u_i - u_j (+1 if negative), j = i - 64 (mod 97), the
 // pointer walking down; the output subtracts the carry, kept on the 2^-24
 // integer grid (exact: both on the grid).
@@ -429,7 +491,7 @@ struct HasSubgroup : std::false_type {};
 template <class G>
 struct HasSubgroup<G, std::void_t<decltype(std::declval<G&>().subgroup())>>
     : std::true_type {};
-// whether generator G bounds what a launch may ask (Ranlux::launchable)
+// whether generator G refuses some launches (Ranlux::launchable)
 template <class G, class = void>
 struct HasLaunchable : std::false_type {};
 template <class G>
@@ -488,24 +550,52 @@ struct Stream {
   }
 };
 
+// the instantiation that runs generator G's longer subgroups (G::Chunked:
+// Ranlux), or G itself
+template <class G, class = void>
+struct ChunkedOf { using type = G; };
+template <class G>
+struct ChunkedOf<G, std::void_t<typename G::Chunked>> {
+  using type = typename G::Chunked;
+};
+
+// A stage of generator G on geometry D: its instantiation for the launch's
+// draw count (G, or its chunked one past G::kMaxPer draws a subgroup),
+// refused if the generator cannot run it.
+template <class G, class D>
+int launch_stream(const Links& L, int n, int kind, bool track, int mu,
+                  int parity, const D& d, void* ws, int stride, uint32_t s0,
+                  int ptr0, int skip, float tbn, int k_trials, int n_hit,
+                  float delta, unsigned long long* cnt, cudaStream_t s) {
+  const auto rng = Stream<G>::make(ws, stride, s0, ptr0, skip, n, kind,
+                                   k_trials, n_hit);
+  using GC = typename ChunkedOf<G>::type;
+  if constexpr (!std::is_same_v<GC, G>) {
+    if (rng.per > G::kMaxPer)
+      return launch_stream<GC>(
+          L, n, kind, track, mu, parity, d, ws, stride, s0, ptr0, skip, tbn,
+          k_trials, n_hit, delta, cnt, s);
+  }
+  if (!rng.launchable()) return (int)cudaErrorInvalidValue;
+  return launch_drawing(L, n, kind, track, mu, parity, d, rng, tbn, k_trials,
+                        n_hit, delta, cnt, s);
+}
+
 }  // namespace qg
 
 // The body of stage_<family>.cu: the launchers of family `fam` (generator
-// struct `Gen`), unsharded and on a shard, 8 instantiations each.
+// struct `Gen`), unsharded and on a shard, 8 instantiations each (16 for
+// ranlux: its chunked one too).
 #define QG_DEFINE_STREAM_LAUNCHER(fam, Gen)                                   \
   namespace qg {                                                              \
   QG_STREAM_LAUNCHER(fam, Dims) {                                             \
-    const auto rng = Stream<Gen>::make(ws, stride, s0, ptr0, skip, n, kind,   \
-                                       k_trials, n_hit);                      \
-    if (!rng.launchable()) return (int)cudaErrorInvalidValue;                 \
-    return launch_drawing(L, n, kind, track, mu, parity, d, rng, tbn,         \
-                          k_trials, n_hit, delta, cnt, s);                    \
+    return launch_stream<Gen>(L, n, kind, track, mu, parity, d, ws, stride,   \
+                              s0, ptr0, skip, tbn, k_trials, n_hit, delta,    \
+                              cnt, s);                                        \
   }                                                                           \
   QG_STREAM_LAUNCHER(fam, ShardDims) {                                        \
-    const auto rng = Stream<Gen>::make(ws, stride, s0, ptr0, skip, n, kind,   \
-                                       k_trials, n_hit);                      \
-    if (!rng.launchable()) return (int)cudaErrorInvalidValue;                 \
-    return launch_drawing(L, n, kind, track, mu, parity, d, rng, tbn,         \
-                          k_trials, n_hit, delta, cnt, s);                    \
+    return launch_stream<Gen>(L, n, kind, track, mu, parity, d, ws, stride,   \
+                              s0, ptr0, skip, tbn, k_trials, n_hit, delta,    \
+                              cnt, s);                                        \
   }                                                                           \
   }

@@ -504,11 +504,6 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
     dev = resolve_device(device)
     grid = shard_grid(cfg, dev, None if devices is None
                       else [resolve_device(d) for d in devices])
-    gen = streams.stream_mode_name(cfg.rng_mode)
-    if gen and grid.devices[0].type == "cuda":
-        # refused here, not at the first sweep's launch
-        cupdate.check_stream_kernel(gen, cfg.algorithm, cfg.kp_trials,
-                                    cfg.n_hit)
     dims = tuple(cfg.dims)
 
     def meas(shards):
@@ -533,7 +528,7 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
     run.measure_packed = meas
     run.make_stream_state0 = lambda: sharded.shard_streams(
         make_stream_state0(cfg, dev), grid)
-    if gen:
+    if streams.stream_mode_name(cfg.rng_mode):
         run.packed_stream_hot_start = lambda: sharded.shard_state(
             packed_stream_hot_start(cfg, dev), grid)
     return run

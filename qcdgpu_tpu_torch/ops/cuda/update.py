@@ -156,25 +156,6 @@ def uniforms_per_subgroup(kind, k_trials, n_hit):
     return 0
 
 
-# The most draws a subgroup may take from a ranlux stream on the card: the
-# kernel keeps each thread's window, carry, pointer, luxury counter and its
-# subgroup's draws in shared memory, (27 + per) words a thread of 128, and
-# a block may ask 220 KiB (csrc/streams.cuh Ranlux::kMaxPer).
-RANLUX_MAX_PER = 220 * 1024 // (4 * 128) - 27
-
-
-def check_stream_kernel(gen, kind, k_trials, n_hit):
-    """Raise ValueError for a stream stage the kernel cannot run: a ranlux
-    subgroup of more than RANLUX_MAX_PER draws (the plain version runs
-    any)."""
-    per = uniforms_per_subgroup(kind, k_trials, n_hit)
-    if streams.family(gen) == "ranlux" and per > RANLUX_MAX_PER:
-        raise ValueError(
-            f"{gen} {kind} with k_trials={k_trials}, n_hit={n_hit} draws "
-            f"{per} uniforms a subgroup; the CUDA stage takes at most "
-            f"{RANLUX_MAX_PER} from a ranlux stream")
-
-
 # ---------------------------------------------------------------------------
 # quaternions as 4-tuples of f32 tensors (ops.sun conventions)
 # ---------------------------------------------------------------------------
@@ -491,8 +472,6 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
                                 kind, n_hit, metro_delta, count, gen=gen,
                                 words=words, scalars=scalars, shard=shard,
                                 rng_mode=rng_mode)
-    if fam is not None:
-        check_stream_kernel(gen, kind, k_trials, n_hit)
     track = count is not None
     philox = rng_mode == "hw" and kind != "overrelax"
     name = instance_name(kind, n, track, gen, shard is not None, philox)

@@ -44,6 +44,11 @@ PER = {4: 4, 18: 18, 54: 18, 100: 100}
 KERNEL_REMAINDERS = (0, 1, 5, 7)
 STREAMS_CUH = (Path(__file__).resolve().parents[1] / "qcdgpu_tpu_torch"
                / "csrc" / "streams.cuh")
+# Ranlux's chunk: the most draws of a subgroup its column holds at once
+MAX_PER = int(re.search(r"kMaxPer = (\d+);", STREAMS_CUH.read_text())[1])
+# subgroups past one chunk: SU(3) Metropolis with 110 hits (440 draws, two
+# chunks) and SU(2) heat-bath with 210 KP trials (842 draws, three)
+LONG = ((2 * 440, 440), (842, 842))
 
 
 def lag24(i, k):
@@ -59,7 +64,7 @@ class RanluxKernel:
         self.w = list(words[:24])  # absolute slots
         self.carry = words[24]
         self.i, self.nb, self.skip, self.per = ptr0, nb0, skip, per
-        self.drawn, self.q = [], 0
+        self.drawn, self.q, self.left = [], 0, 0
 
     def swb(self):
         """One step at the pointer i, j = i - 14 (mod 24)."""
@@ -94,17 +99,32 @@ class RanluxKernel:
             self.w[lag24(i0, k)] = r[k]
         self.i = lag24(i0, rem)
 
-    def subgroup(self):
-        """The subgroup's draws, made as it starts."""
+    def make_chunk(self, skip_in_registers):
+        """The next chunk of at most MAX_PER of the subgroup's draws: the
+        skip in registers as a subgroup starts, stepped one slot at a time
+        for a refill inside the sampler."""
+        n = min(self.left, MAX_PER)
         self.drawn, self.q = [], 0
-        for _ in range(self.per):
+        for _ in range(n):
             if self.nb == 24:
-                self.luxury_skip()
+                if skip_in_registers:
+                    self.luxury_skip()
+                else:
+                    for _ in range(self.skip):
+                        self.swb()
                 self.nb = 0
             self.drawn.append(self.swb())
             self.nb += 1
+        self.left -= n
+
+    def subgroup(self):
+        """The subgroup's draws (its first chunk), made as it starts."""
+        self.left = self.per
+        self.make_chunk(True)
 
     def next(self):
+        if self.q == MAX_PER:  # a subgroup past MAX_PER draws
+            self.make_chunk(False)
         d = self.drawn[self.q]
         self.q += 1
         return d
@@ -176,6 +196,28 @@ def test_ranlux_schedule(level, n):
             assert [int(v[s]) for v in twin_words] == words, case
 
 
+@pytest.mark.parametrize("n,per", LONG)
+@pytest.mark.parametrize("level", range(5))
+def test_ranlux_chunked_schedule(level, n, per):
+    """Subgroups of more draws than a chunk: the kernel makes them MAX_PER
+    at a time, the refill stepping its luxury skips one slot at a time, and
+    the words are draw_words' (the plain twin's) whatever the length."""
+    gen = f"ranlux{level}"
+    skip = ps.ranlux_skip_len(gen)
+    rng = np.random.default_rng(1000 * level + per)
+    for nb0, ptr0 in ((23, 5), (24, 14)):
+        w = rng.integers(0, 1 << 24, size=(25, 1), dtype=np.int64)
+        w[24] = rng.integers(0, 2, size=1)
+        twin_out, twin_words = ps._ranlux(
+            [torch.from_numpy(r.copy()) for r in w], n, nb0, ptr0, skip)
+        got, words = ranlux_draws([int(v) for v in w[:, 0]], n, nb0, ptr0,
+                                  skip, per)
+        case = (gen, n, per, nb0, ptr0)
+        assert [float(u[0]) for u in twin_out] == [
+            d * 2.0 ** -24 for d in got], case
+        assert [int(v[0]) for v in twin_words] == words, case
+
+
 @pytest.mark.parametrize("n", NS)
 def test_ranmar_schedule(n):
     rng = np.random.default_rng(n)
@@ -196,19 +238,27 @@ def test_ranmar_schedule(n):
 
 def test_ranlux_kernel_limits():
     """What the kernel can run: every level's skip remainder is one that
-    luxury_skip knows, and RANLUX_MAX_PER is the subgroup that fills
-    Ranlux::kDynSmem; check_stream_kernel refuses a longer one for ranlux
-    only."""
+    luxury_skip knows, a column still holds 413 draws (a chunk) and fits a
+    block's dynamic shared memory with its head words, and the stages past
+    it (103 KP trials, 104 Metropolis hits: 414 and 416 draws a subgroup)
+    are no longer refused: the CUDA wrapper has no such check, and the
+    chunked instantiation makes their draws in two chunks."""
     assert {ps.ranlux_skip_len(f"ranlux{lv}") % 24
             for lv in range(5)} <= set(KERNEL_REMAINDERS)
     src = STREAMS_CUH.read_text()
-    kb = int(re.search(r"kDynSmem = (\d+) \* 1024;", src)[1])
-    assert cupdate.RANLUX_MAX_PER == kb * 1024 // (4 * 128) - 27 == 413
-    ok = (("heatbath", 102, 1), ("metropolis", 1, 103))
-    too_long = (("heatbath", 103, 1), ("metropolis", 1, 104))
-    for kind, k_trials, n_hit in ok:
-        cupdate.check_stream_kernel("ranlux3", kind, k_trials, n_hit)
-    for kind, k_trials, n_hit in too_long:
-        cupdate.check_stream_kernel("ranmar", kind, k_trials, n_hit)
-        with pytest.raises(ValueError, match="at most 413"):
-            cupdate.check_stream_kernel("ranlux3", kind, k_trials, n_hit)
+    head = max(int(h) for h in re.search(
+        r"kHead = kChunked \? (\d+) : (\d+);", src).groups())
+    assert MAX_PER == 413
+    assert (head + MAX_PER) * 128 * 4 <= 227 * 1024
+    assert not hasattr(cupdate, "check_stream_kernel")
+    for kind, k_trials, n_hit in (("heatbath", 103, 1),
+                                  ("metropolis", 1, 104)):
+        per = cupdate.uniforms_per_subgroup(kind, k_trials, n_hit)
+        assert per > MAX_PER
+        words = [(7 * k + 3) & 0xFFFFFF for k in range(24)] + [1]
+        twin_out, twin_words = ps._ranlux(
+            [torch.tensor([v]) for v in words], per, 5, 11, 199)
+        got, new = ranlux_draws(words, per, 5, 11, 199, per)
+        assert [float(u[0]) for u in twin_out] == [
+            d * 2.0 ** -24 for d in got]
+        assert [int(v[0]) for v in twin_words] == new

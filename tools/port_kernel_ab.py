@@ -42,18 +42,21 @@ stage_<family>.cu of each tree (one nvcc per source, as many at once as
 the host has cores; a tree that fails to build is reported and left
 out), prints every tree's ranlux / ranmar ptxas lines and its K1
 instantiations with a frame or spills, and runs K1 and K1a (shard 0)
-drawing from ranlux3 and ranmar (K8), xor128 and mrg32k3a (K7) and, as
-controls, threefry and Philox, heat-bath and Metropolis, and K8's stages
-past 48 KB of shared memory (ranlux3 with 25 Metropolis hits, ranmar
-with 8 KP trials), on the same inputs: every tree must give the first tree's links, stream words,
-scalars and tracked count bit for bit; then the same rounds of CUDA
-events, each call's device time under torch.profiler, and the bounds
-with each stream row's integer floor (chip_smoke.rng_ops_per_site).
+drawing from ranlux3 and ranmar (K8), xor128, mrg32k3a, xor7 and the
+constant stream (K7) and, as controls, threefry and Philox, heat-bath
+and Metropolis, and K8's stages past 48 KB of shared memory (ranlux3
+with 25 Metropolis hits, ranmar with 8 KP trials) and past a column's
+413 draws a subgroup (ranlux3 with 110 hits), on the same inputs:
+every tree must give the first tree's links, stream words, scalars and
+tracked count bit for bit; then the same rounds of CUDA events, each
+call's device time under torch.profiler, and the bounds with each stream
+row's integer floor (chip_smoke.rng_ops_per_site).
 """
 
 import ctypes
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -86,8 +89,9 @@ STREAM_SOURCES = ("stage.cu", "stage_philox.cu") + tuple(
 STREAM_ENTRIES = ("qg_stage", "qg_stage_shard", "qg_stage_philox",
                   "qg_stage_philox_shard", "qg_stage_stream",
                   "qg_stage_stream_shard")
-# K8's two generators, then K7's two timed in the perf matrix (controls)
-STREAM_GENS = ("ranlux3", "ranmar", "xor128", "mrg32k3a")
+# K8's two generators, then K7's: the two of the perf matrix, xor7, and the
+# constant stream, which draws without a generator (K1's own cost)
+STREAM_GENS = ("ranlux3", "ranmar", "xor128", "mrg32k3a", "xor7", "constant")
 SCAN = (24, 24, 24, 6)
 CHAINS = 11
 POLY_TOL = 2e-6  # |d sum| / (N * spatial volume), chip_smoke.py's bar
@@ -178,6 +182,10 @@ def load_trees(trees, sources, entries, shown):
         for name, line, _ in rows:
             if shown(name):
                 print(f"{label}: ptxas {name}: {line}")
+        # device functions kept out of line (no entry of their own)
+        for m in re.finditer(r"Function properties for (\w+)\n\s*(.*)", log):
+            if "_kernel" not in m[1]:
+                print(f"{label}: ptxas out-of-line {m[1]}: {m[2]}")
         framed = [name for name, line, _ in rows if name.startswith("stage_")
                   and any(chip_smoke.frame_and_spills(line))]
         print(f"{label}: K1 instantiations with a stack frame or spills: "
@@ -411,7 +419,7 @@ def main():
                 ("K1a", f"stage_heatbath_su{n}_philox_shard", shard),
                 ("K3", f"plane_sums_su{n}", None),
                 ("K5a", f"plane_sums_local_su{n}", shard)):
-            nbytes, f32_ops, int_ops = chip_smoke.work(
+            nbytes, f32_ops, int_ops, _ = chip_smoke.work(
                 name, DIMS if sh is None else sh.interior, shard=sh)
             ms, by = chip_smoke.bound(nbytes, f32_ops, int_ops)
             print(f"{label} {name}: bound {ms:.4f} ms ({by}), -fmad=false "
@@ -422,7 +430,8 @@ def main():
                 ("K5b", f"polyakov_sums_local_su{n}", shard.interior, shard,
                  1),
                 ("K4c", f"polyakov_sums_su{n}", SCAN, None, CHAINS)):
-            nbytes, f32_ops, int_ops = chip_smoke.work(name, dims, shard=sh)
+            nbytes, f32_ops, int_ops, _ = chip_smoke.work(name, dims,
+                                                          shard=sh)
             ms, by = chip_smoke.bound(c * nbytes, c * f32_ops, c * int_ops)
             floor, ladder = (c * ops / chip_smoke.F32_INSTR_PER_S * 1e3
                              for ops in (f32_ops, ladder_f32_ops(n, dims)))
@@ -432,10 +441,14 @@ def main():
     return 0
 
 
+class Refused(Exception):
+    """A tree's launcher refused a stage (cudaErrorInvalidValue)."""
+
+
 def streams_main(trees):
     """--streams: K1 and K1a drawing from the PRNGCL streams (K8: ranlux3,
-    ranmar; K7's xor128 and mrg32k3a and the threefry and Philox stages as
-    controls, whose code the trees share), heat-bath and Metropolis."""
+    ranmar; K7: xor128, mrg32k3a, xor7, constant) and the threefry and
+    Philox stages as controls, heat-bath and Metropolis."""
     import torch
 
     import chip_smoke
@@ -487,6 +500,8 @@ def streams_main(trees):
             scal.update(ps.advance_kernel_scalars(
                 src, scal, cupdate.stream_draw_count(kind, k_trials, n_hit,
                                                      n)))
+        if err == 1:  # cudaErrorInvalidValue: the launcher refused it
+            raise Refused
         if err:
             raise RuntimeError(f"stage {src} {kind}: CUDA error {err}")
 
@@ -503,6 +518,10 @@ def streams_main(trees):
               for g, k, kt in (("ranlux3", "metropolis", (4, 25)),
                                ("ranmar", "heatbath", (8, 3)))
               for s in (False, True)]
+    # a ranlux subgroup past a column's 413 draws (110 hits: 440 draws, two
+    # chunks)
+    calls += [("ranlux3 M110", "ranlux3", "metropolis", False, (4, 110))]
+    refused = set()  # (tree, call) pairs the tree's launcher refused
     for n in (3, 2):
         states = {}
         for g in STREAM_GENS:
@@ -527,14 +546,21 @@ def streams_main(trees):
                 return tuple(a.clone() for a in (
                     us_shard if on_shard else us_full))
 
-            # every tree against the first: links, words, scalars, count
+            # every tree against the first that runs the call: links,
+            # words, scalars, count (an older tree may refuse a call: a
+            # ranlux subgroup past 413 draws before they were chunked)
             for name, src, kind, on_shard, kt in calls:
                 first = None
-                for label, lib in zip(labels, libs):
+                for i, (label, lib) in enumerate(zip(labels, libs)):
                     us, st = arrays(on_shard), state_copy(src, on_shard)
                     cnt = torch.zeros(1, dtype=torch.int64, device=dev)
-                    call(lib, us, n, kind, src, st,
-                         shard if on_shard else None, cnt, *kt)
+                    try:
+                        call(lib, us, n, kind, src, st,
+                             shard if on_shard else None, cnt, *kt)
+                    except Refused:
+                        print(f"{what}: {name}: {label}: refused")
+                        refused.add((i, name))
+                        continue
                     torch.cuda.synchronize()
                     got = (us, st, cnt)
                     if first is None:
@@ -547,11 +573,11 @@ def streams_main(trees):
                                 torch.equal(st[0], first[1][0])
                                 and st[1] == first[1][1])))
                     print(f"{what}: {name}: {label}: links, words and count "
-                          f"bit-identical to [0]: {same} (count "
+                          f"bit-identical to the first: {same} (count "
                           f"{cnt.item()})")
                     if not same:
-                        raise SystemExit(f"{label} disagrees with "
-                                         f"{labels[0]}")
+                        raise SystemExit(f"{label} disagrees with the "
+                                         "first tree that ran the call")
 
             arrs = (arrays(False), arrays(True))
             sts = [{(src, s): state_copy(src, s)
@@ -567,18 +593,21 @@ def streams_main(trees):
 
             for i in order:
                 for name, *spec in calls:
-                    times[i][name].append(chip_smoke.event_ms(
-                        fn_of(i, *spec), REPS))
+                    if (i, name) not in refused:
+                        times[i][name].append(chip_smoke.event_ms(
+                            fn_of(i, *spec), REPS))
                 print(f"{what}: {labels[i]}: " + ", ".join(
-                    f"{c} {times[i][c][-1]:.4f}" for c, *_ in calls)
-                    + f" ms  [{smi}]", flush=True)
+                    f"{c} {times[i][c][-1]:.4f}" for c, *_ in calls
+                    if times[i][c]) + f" ms  [{smi}]", flush=True)
             for i, label in enumerate(labels):
                 print(f"{what}: {label}: mean " + ", ".join(
                     f"{c} {sum(t) / len(t):.4f}"
-                    for c, t in times[i].items()) + f" ms  [{smi}]")
+                    for c, t in times[i].items() if t) + f" ms  [{smi}]")
             for i in order:
                 line = []
                 for name, *spec in calls:
+                    if (i, name) in refused:
+                        continue
                     kern, _ = chip_smoke.device_ms(
                         fn_of(i, *spec), 10, "stage_kernel")
                     line.append(f"{name} " + ("not measured" if kern is None
@@ -601,15 +630,17 @@ def streams_main(trees):
             dims = DIMS if sh is None else sh.interior
             sites = v2 if sh is None else v2 // len(grid)
             name = cupdate.instance_name(kind, n, False, src, on_shard)
-            nbytes, f32_ops, int_ops = chip_smoke.work(
+            nbytes, f32_ops, int_ops, f64_ops = chip_smoke.work(
                 name, dims, k_trials, n_hit, shard=sh)
             ndraw = cupdate.stream_draw_count(kind, k_trials, n_hit, n)
             nbytes += chip_smoke.stream_word_bytes(src, sites, ndraw,
                                                    {"ptr": 0})
-            ms, by = chip_smoke.bound(nbytes, f32_ops, int_ops)
-            print(f"{name} {dims} K={k_trials} hits={n_hit}: bound {ms:.4f} ms ({by}); its integer "
-                  f"floor {int_ops / chip_smoke.INT32_OPS_PER_S * 1e3:.4f} "
-                  f"ms, -fmad=false f32 floor "
+            ms, by = chip_smoke.bound(nbytes, f32_ops, int_ops, f64_ops)
+            print(f"{name} {dims} K={k_trials} hits={n_hit}: bound "
+                  f"{ms:.4f} ms ({by}); its integer floor "
+                  f"{int_ops / chip_smoke.INT32_OPS_PER_S * 1e3:.4f} ms, f64 "
+                  f"floor {f64_ops / chip_smoke.F64_OPS_PER_S * 1e3:.4f} ms,"
+                  f" -fmad=false f32 floor "
                   f"{f32_ops / chip_smoke.F32_INSTR_PER_S * 1e3:.4f} ms")
     return 0
 

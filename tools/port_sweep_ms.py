@@ -36,6 +36,11 @@ CONFIGS = (
      dict(group=3, beta=6.0, rng_mode="prngcl:ranlux3")),
     ("SU(3) heat-bath, prngcl:ranmar",
      dict(group=3, beta=6.0, rng_mode="prngcl:ranmar")),
+    # and from the counter-free ones (K7) of the reference's perf matrix
+    ("SU(3) heat-bath, prngcl:mrg32k3a",
+     dict(group=3, beta=6.0, rng_mode="prngcl:mrg32k3a")),
+    ("SU(3) heat-bath, prngcl:xor128",
+     dict(group=3, beta=6.0, rng_mode="prngcl:xor128")),
 )
 SWEEPS = 50
 
