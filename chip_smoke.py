@@ -12,8 +12,9 @@ with 8 KP trials and SU(2) Metropolis with 25 hits on ranlux3 (stages past
 48 KB of shared memory), each with its shards spread over N cards, against the unsharded chain on card 0
 (links, series and streams bit-identical); then a scan of 2N chains on
 (2,2,1,1) with its N chain blocks on the N cards against one block on
-card 0 (links and series bit-identical).  With no argument, phases 1-6,
-each timed:
+card 0 (links and series bit-identical), and one measured block of
+phase 8's main path (c) on the XY mesh across the cards against card 0.
+With no argument, phases 1-6 and 8, each timed:
 
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
   2. build      — nvcc builds csrc/*.cu into build/ (one process per
@@ -176,7 +177,30 @@ each timed:
                   each also on (2,2,1,1) in 2 chain blocks with the
                   unsharded <|P|> (within 1e-6);
                   `python -m qcdgpu_tpu_torch rngtest` with the native
-                  host generators built.
+                  host generators built;
+  8. extended   — the extended observables (Fmunu, Wilson loops, clover
+                  Q_L with APE smearing; PyTorch ops on the joined field)
+                  and meas_dtype="double": (a) a hot 8^4 field, SU(3) and
+                  SU(2), every option, the card against the CPU (1e-5 a
+                  column, 2e-5 a smeared link); (b) at 32^4 the cold start
+                  (|F|, |W - 1|, |Q| <= 1e-6) and the SU(3) abelian
+                  two-flux background (Q_L exact within 1e-4, and two APE
+                  steps leave it fixed: links within 2e-5, Q_L within
+                  1e-3); (c) the bench's hw configuration with every
+                  option at 32^4, thermalize(20) + run(20, 5) with exact
+                  launch counts, W(1,1) = plq_t within 1e-5, measure()
+                  the last row, the smeared field unitary within 1e-5,
+                  the ms, device time, launches and peak memory of the
+                  join, Fmunu, Wilson loops, Q_L, one APE step and the
+                  whole measurement beside their bounds, ms/sweep with
+                  and without the extras, and the same run on (2,2,1,1)
+                  bit-identical; (d) docs/validation/wilson_su3.json's
+                  run again, every <W(R,T)> and chi(2,2) within 4 sigma
+                  combined of the record; (e) meas_dtype="double"
+                  bit-identical to "same"; (f) a 3-chain 8^4 scan with
+                  extras, each chain's rows its Simulation's; (g) the CLI
+                  `run` + `resume` with extras bit-identical to an
+                  uninterrupted run, with the Creutz ratios.
 
 Any failed check raises and the script exits non-zero.  The last three
 lines are the kernels' JSON record, the card's `nvidia-smi` name/power
@@ -880,11 +904,398 @@ def multicard(n_cards):
               f"{msn:.3f} vs {ms1:.3f} ms/sweep  [{smi[0]}]")
         require(same and len(used) == n_cards,
                 f"chain blocks on {n_cards} cards differ")
+        # one measured block of phase 8's main path (c), the bench's hw
+        # configuration with every extended option, on the XY mesh across
+        # the cards against the unsharded run on card 0
+        ext = extended_cfg(bench.replace(rng_mode="hw"))
+        out = []
+        for m, devices in (((1, 1, 1, 1), None), (xy, cards)):
+            sim = Simulation(ext.replace(mesh=m), device="cuda:0",
+                             devices=devices)
+            sim.thermalize(5)
+            out.append(sim.run(5, 5))
+            del sim
+        same = np.array_equal(out[0], out[1])
+        print(f"bench hw with every extended option: one block of 5 sweeps "
+              f"and a measurement on mesh {xy} over {n_cards} cards, the "
+              f"row ({out[1].shape[1]} columns) bit-identical to the "
+              f"unsharded run on cuda:0: {same}")
+        require(same, "extended measurement across cards differs")
     print(smi[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the extended observables (Fmunu, Wilson loops, clover Q_L with
+# APE smearing) and meas_dtype="double"
+# ---------------------------------------------------------------------------
+
+# tools/wilson_study.py's 10 loops, and docs/validation/wilson_su3.json's
+# run: SU(3) 16^4 beta=6.0 heat-bath + 1 OR, seed 17, 300 + 500 sweeps
+# measured every 2
+WILSON_PAIRS = tuple((r, t) for r in range(1, 5) for t in range(1, 5)
+                     if abs(r - t) <= 1)
+WILSON_RECORD = "docs/validation/wilson_su3.json"
+EXT_TOL = 1e-5        # card against CPU: an extended column
+SMEAR_TOL = 2e-5      # card against CPU, and a fixed point: a smeared link
+EXACT_TOL = 1e-6      # cold start: |F|, |W - 1|, |Q|
+GATE_SIGMAS = 4.0
+
+
+def extended_cfg(cfg, smear=2):
+    """cfg with every extended option: the Cartan Fmunu projections,
+    WILSON_PAIRS, Q_L after ``smear`` APE steps of weight 0.5."""
+    return cfg.replace(get_fmunu=True, wilson_loops=WILSON_PAIRS,
+                       get_qtop=True, qtop_smear=smear)
+
+
+def abelian_two_flux(dims, k1=1, k2=1):
+    """SU(3) links with constant abelian flux along T_3 = diag(1, -1, 0):
+    B1 = 2 pi k1 / L in the xy plane (U_x ~ y), B2 in the zt plane (U_z ~
+    t), U_y = U_t = 1 (tests/test_qtop.py's construction, in numpy).
+    Returns (complex64 [4, 3, 3, *dims], Q_L exact = V sin B1 sin B2 /
+    2 pi^2)."""
+    x, y, z, t = dims
+    b1, b2 = 2.0 * np.pi * k1 / y, 2.0 * np.pi * k2 / t
+    u = np.zeros((4, 3, 3) + tuple(dims), np.complex64)
+    for i in range(3):
+        u[:, i, i] = 1.0
+    ph1 = np.exp(1j * b1 * np.arange(y))
+    ph2 = np.exp(1j * b2 * np.arange(t))
+    for i, s in ((0, +1), (1, -1)):
+        u[0, i, i] = (ph1 ** s)[None, :, None, None]
+        u[2, i, i] = (ph2 ** s)[None, None, None, :]
+    q = x * y * z * t * np.sin(b1) * np.sin(b2) / (2.0 * np.pi ** 2)
+    return u, q
+
+
+def wilson_line_products(pairs):
+    """Matrix products per site of ops.measure.wilson_loop_means: one per
+    memoized line beyond length 1, three per pair and spatial direction."""
+    longest = max(r for r, _ in pairs), max(t for _, t in pairs)
+    return 3 * (longest[0] - 1) + (longest[1] - 1) + 9 * len(pairs)
+
+
+def extended_ops(piece, n, vol, gen_nnz, pairs):
+    """f32 operations of one piece of the extended measurement, counted
+    from ops/measure.py and ops/smear.py (matrix products at mmul_ops, the
+    elementwise terms beside them; APE's eigendecomposition and the
+    principal root are not counted, so its bound is low).  gen_nnz: the
+    nonzero entries of the Fmunu generators together."""
+    m = mmul_ops(n)
+    if piece == "join":
+        return 4 * vol * codec_ops(n)
+    if piece == "fmunu":
+        return 6 * vol * (3 * m + 8 * gen_nnz)
+    if piece == "wilson":
+        return vol * wilson_line_products(pairs) * m
+    if piece == "qtop":
+        # 6 clovers of 4 leaves of 3 products, 3 adds, (C - C^+)/8 and the
+        # trace; 3 trace products of 4 n^2 operations
+        return vol * (6 * (12 * m + 6 * 2 * n * n + 4 * n * n) + 12 * n * n)
+    if piece == "ape_step":
+        # per direction: 6 staples of 2 products, X = a U + b S, X^+ X,
+        # V diag V^+, X (X^+ X)^(-1/2), det
+        return 4 * vol * (15 * m + 8 * n * n + 14 * 6)
+    raise ValueError(piece)
+
+
+def extended_phase(dev, smi, counters):
+    """Phase 8.  Returns the launches of its main-path run (c)."""
+    from qcdgpu_tpu_torch import SimConfig, Simulation, cli
+    from qcdgpu_tpu_torch.models import BetaScan
+    from qcdgpu_tpu_torch.ops import measure as tmeas
+    from qcdgpu_tpu_torch.ops import rng, smear
+    from qcdgpu_tpu_torch.ops import sun
+    from qcdgpu_tpu_torch.ops.cuda import engine
+    from qcdgpu_tpu_torch.ops.cuda import update as cupdate
+    from qcdgpu_tpu_torch.utils.stats import analyze_series, creutz_ratio
+
+    def maxd(a, b):
+        return float(torch.max(torch.abs(a.cpu() - b.cpu())))
+
+    last = [time.perf_counter()]
+
+    def mark(label):
+        now = time.perf_counter()
+        print(f"-- {label}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    # (a) the card against the CPU on a hot 8^4 field, every option
+    for n in GROUPS:
+        cfg = extended_cfg(SimConfig(group=n, dims=STREAM_SMALL_RUN, seed=1))
+        us = engine.packed_hot_start(cfg, rng.make_base_key(1), dev)
+        us_cpu = tuple(a.cpu() for a in us)
+        dims = tuple(cfg.dims)
+        v_gpu = engine.measure_all_split(us, dims, cfg)
+        v_cpu = engine.measure_all_split(us_cpu, dims, cfg)
+        d_ext = maxd(v_gpu[6:], v_cpu[6:])
+        s_gpu = smear.ape_smear(engine.join_links(us, dims), 0.5, 2)
+        s_cpu = smear.ape_smear(engine.join_links(us_cpu, dims), 0.5, 2)
+        d_smear = maxd(s_gpu, s_cpu)
+        msg = (f"(a) SU({n}) {dims} hot, every option (qtop_smear 2): card "
+               f"against CPU, {v_gpu.numel() - 6} extended columns |d| "
+               f"{d_ext:.2e} (<= {EXT_TOL:.0e}); smeared links |d| "
+               f"{d_smear:.2e} (<= {SMEAR_TOL:.0e})")
+        print(msg)
+        require(bool(torch.isfinite(v_gpu).all()) and d_ext <= EXT_TOL
+                and d_smear <= SMEAR_TOL, msg)
+        del us, us_cpu, s_gpu, s_cpu
+    mark("(a)")
+
+    # (b) exact backgrounds at 32^4 on the card
+    cold = extended_cfg(SimConfig(group=3, dims=BIG), smear=0).replace(
+        fmunu_index1=1, fmunu_index2=2)
+    u = engine.join_links(engine.packed_cold_start(cold, dev), BIG)
+    ext = tmeas.measure_extended(u, cold)
+    n_f = 12 * len(tmeas.cfg_fmunu_indices(cold))
+    f_max = float(ext[:n_f].abs().max())
+    w_max = float((ext[n_f:-1] - 1.0).abs().max())
+    q0 = float(ext[-1])
+    msg = (f"(b) cold SU(3) {BIG}: max |F| {f_max:.1e}, max |W - 1| "
+           f"{w_max:.1e}, |Q| {abs(q0):.1e} (<= {EXACT_TOL:.0e})")
+    print(msg)
+    require(max(f_max, w_max, abs(q0)) <= EXACT_TOL, msg)
+    flux, q_exact = abelian_two_flux(BIG)
+    u = torch.from_numpy(flux).to(dev)
+    del flux
+    q = float(tmeas.topological_charge(u))
+    us2 = smear.ape_smear(u, 0.5, 2)
+    d_fix = maxd(us2, u)
+    q2 = float(tmeas.topological_charge(us2))
+    rel, rel2 = abs(q - q_exact) / abs(q_exact), abs(q2 - q) / abs(q)
+    msg = (f"(b) SU(3) {BIG} abelian two-flux: Q_L {q:.4f}, exact "
+           f"V sin B1 sin B2 / 2 pi^2 = {q_exact:.4f}, rel |d| {rel:.1e} "
+           f"(<= 1e-4); 2 APE steps move the links by {d_fix:.1e} (<= "
+           f"{SMEAR_TOL:.0e}) and Q_L by {rel2:.1e} relative (<= 1e-3)")
+    print(msg)
+    require(rel <= 1e-4 and d_fix <= SMEAR_TOL and rel2 <= 1e-3, msg)
+    del u, us2
+    mark("(b)")
+
+    # (c) the main path at full width: the bench's hw configuration with
+    # every extended option
+    bench = SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
+                      start="cold", seed=0, rng_mode="hw")
+    cfg = extended_cfg(bench)
+
+    def main_run(c, label):
+        """Simulation(c): warmup(), then thermalize(THERM) + run(RUN, 5)
+        with the launch counters zeroed; -> (sim, series, launches)."""
+        for cnt in counters:
+            for k in cnt:
+                cnt[k] = 0
+        sim = Simulation(c)
+        sim.warmup()
+        for cnt in counters:
+            for k in cnt:
+                cnt[k] = 0
+        t0 = time.perf_counter()
+        sim.thermalize(THERM)
+        obs = sim.run(RUN, 5)
+        sim.sync()
+        wall = time.perf_counter() - t0
+        launches = {k: v for cnt in counters for k, v in cnt.items() if v}
+        # each launch once per shard on a mesh, of the shard forms
+        k = int(np.prod(c.mesh))
+        loc = "_local" if k > 1 else ""
+        expect = {cupdate.instance_name("heatbath", 3, shard=k > 1,
+                                        philox=True): 8 * (THERM + RUN) * k,
+                  "reunit_su3": 8 * (THERM + RUN) // 10 * k,
+                  f"plane_sums{loc}_su3": RUN // 5 * k,
+                  f"polyakov_sums{loc}_su3": RUN // 5 * k}
+        require(launches == expect,
+                f"{label}: launches {launches}, expected {expect}")
+        names = list(sim.obs_names)
+        w11 = obs[:, names.index("wloop_1x1")]
+        plq_t = obs[:, names.index("plq_t")]
+        d_w = float(np.abs(w11 - plq_t).max())
+        last = np.array(list(sim.measure().values()), np.float32)
+        print(f"(c) {label}: thermalize({THERM}) + run({RUN}, 5) {wall:.2f} "
+              f"s, {obs.shape[0]} rows of {obs.shape[1]}; launches "
+              f"{launches}; max |W(1,1) - plq_t| {d_w:.1e} (<= 1e-5); "
+              f"measure() == last row {np.array_equal(last, obs[-1])}; "
+              f"plq {obs[-1, 0]:.6f} q_top {obs[-1, -1]:+.4f}  [{smi}]")
+        require(np.isfinite(obs).all() and d_w <= 1e-5
+                and np.array_equal(last, obs[-1]),
+                f"{label}: series {obs}")
+        return sim, obs, launches
+
+    sim, obs, launches = main_run(cfg, "bench hw + every extended option")
+    dims = BIG
+    us = sim.us
+    indices = tmeas.cfg_fmunu_indices(cfg)
+    gen_nnz = sum(int(np.count_nonzero(tmeas.generator(3, a)))
+                  for a in indices)
+    u = engine.join_links(us, dims)
+    us2 = smear.ape_smear(u, 0.5, 2)
+    defect = max(float(sun.unitarity_defect(us2[mu])) for mu in range(4))
+    print(f"(c) the smeared field's unitarity defect {defect:.2e} (<= 1e-5)")
+    require(defect <= 1e-5, f"smeared unitarity defect {defect}")
+    del us2
+    nbytes = sum(a.numel() * a.element_size() for a in us)
+    vol = int(np.prod(dims))
+    pieces = (
+        ("join", lambda: engine.join_links(us, dims)),
+        ("fmunu", lambda: tmeas.fmunu_means(u, indices)),
+        ("wilson", lambda: tmeas.wilson_loop_means(u, WILSON_PAIRS)),
+        ("qtop", lambda: tmeas.topological_charge(u)),
+        ("ape_step", lambda: smear.ape_smear_step(u, 0.5)),
+        ("measurement", lambda: engine.measure_all_split(us, dims, cfg)))
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in pieces:
+        # the warm-up call gives the peak memory
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ms = event_ms(fn, 3, warm=False)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        ev = device_events(prof)
+        n_launch = sum(c for _, c in ev.values())
+        busy = sum(t for t, _ in ev.values())
+        if name == "measurement":
+            tail = "(the standard six by K3/K4, then the extras, 2 APE steps)"
+        else:
+            ops = extended_ops(name, 3, vol, gen_nnz, WILSON_PAIRS)
+            b_ms, b_by = bound(nbytes, ops, 0)
+            tail = (f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB "
+                    f"of packed links, {ops:.3e} f32 operations)")
+        print(f"(c) extended {name} at SU(3) {dims}: {ms:.3f} ms "
+              f"(CUDA events, mean of 3), device busy "
+              + (f"{busy:.3f} ms, {n_launch} launches" if ev else
+                 "not measured (empty trace)")
+              + f", peak {peak:.3f} GiB above the state; {tail}  [{smi}]")
+    del u
+    print(f"(c) max_memory_allocated over the phase so far "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    mark("(c) the run and the pieces' times")
+
+    # ms/sweep of the bench hw configuration with the extras measured
+    # every 5 sweeps, beside the same without extras (measured every 5)
+    for label, c in (("with every extended option", cfg),
+                     ("standard six only", bench)):
+        s = Simulation(c)
+        s.warmup()
+        s.sync()
+        t0 = time.perf_counter()
+        s.run(20, 5)
+        s.sync()
+        print(f"(c) bench hw {label}, run(20, 5): "
+              f"{(time.perf_counter() - t0) / 20 * 1e3:.3f} ms/sweep  "
+              f"[{smi}]")
+        del s
+
+    # the same run on mesh (2,2,1,1) on one card: bit-identical
+    obs_m = main_run(cfg.replace(mesh=MESH), f"mesh {MESH}")[1]
+    same = np.array_equal(obs_m, obs)
+    print(f"(c) mesh {MESH}: the series (every extended column) "
+          f"bit-identical to the unsharded run's {same}")
+    require(same, f"mesh {MESH} extended series differs")
+    mark("(c) ms/sweep and the mesh run")
+
+    # (e) meas_dtype="double": bit-identical to "same"
+    obs_d = main_run(cfg.replace(meas_dtype="double"),
+                     'meas_dtype="double"')[1]
+    same = np.array_equal(obs_d, obs)
+    print(f'(e) meas_dtype="double": the series bit-identical to "same"\'s '
+          f"{same}")
+    require(same, 'meas_dtype="double" series differs')
+    mark("(e)")
+    del sim, us
+
+    # (d) the physics gate: docs/validation/wilson_su3.json's run
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           WILSON_RECORD)) as f:
+        rec = json.load(f)
+    gcfg = SimConfig(group=3, dims=GATE_DIMS, beta=6.0, n_or=1, seed=17,
+                     wilson_loops=WILSON_PAIRS, sweeps_therm=300, sweeps=500,
+                     meas_every=2)
+    gsim = Simulation(gcfg)
+    gsim.warmup()
+    t0 = time.perf_counter()
+    gsim.thermalize()
+    gobs = gsim.run()
+    gsim.sync()
+    names = list(gsim.obs_names)
+    loops, worst = {}, 0.0
+    for r, t in WILSON_PAIRS:
+        k = f"wloop_{r}x{t}"
+        st = analyze_series(gobs[:, names.index(k)])
+        loops[k] = (st.mean, st.err)
+        m_rec, e_rec = rec["wilson_loops"][k]
+        z = abs(st.mean - m_rec) / np.hypot(st.err, e_rec)
+        worst = max(worst, z)
+        print(f"(d) {k}: {st.mean:.6f} +- {st.err:.6f}; record "
+              f"{m_rec:.6f} +- {e_rec:.6f}; {z:.2f} sigma")
+    chi, chi_err = creutz_ratio(loops, 2, 2)
+    m_rec, e_rec = rec["creutz_ratios"]["chi_2x2"]
+    z = abs(chi - m_rec) / np.hypot(chi_err, e_rec)
+    worst = max(worst, z)
+    print(f"(d) chi(2,2): {chi:.5f} +- {chi_err:.5f}; record {m_rec:.5f} "
+          f"+- {e_rec:.5f}; {z:.2f} sigma; worst {worst:.2f} sigma (<= "
+          f"{GATE_SIGMAS}); {gobs.shape[0]} measurements, "
+          f"{time.perf_counter() - t0:.1f} s  [{smi}]")
+    require(worst <= GATE_SIGMAS, f"Wilson-loop gate: {worst} sigma")
+    del gsim
+    mark("(d)")
+
+    # (f) the scan: 3 chains at 8^4, each chain's rows its Simulation's
+    scfg = SimConfig(group=3, dims=STREAM_SMALL_RUN, start="hot", seed=2,
+                     wilson_loops=((1, 1), (2, 2)), get_qtop=True)
+    scan = BetaScan(scfg, CHAIN_BETAS[3])
+    scan.thermalize(2)
+    sobs = scan.run(4, 1)
+    same = True
+    for c, beta in enumerate(scan.betas):
+        s = Simulation(scfg.replace(seed=scfg.seed + 1000 * c,
+                                    beta=float(beta)))
+        s.thermalize(2)
+        same = same and np.array_equal(sobs[c], s.run(4, 1))
+    print(f"(f) BetaScan of {len(scan.betas)} chains at {STREAM_SMALL_RUN} "
+          f"with wilson_loops and get_qtop: each chain's rows bit-identical "
+          f"to its Simulation's {same}")
+    require(same and np.isfinite(sobs).all(), "extended scan differs")
+    del scan
+    mark("(f)")
+
+    # (g) the command line: run, resume, against an uninterrupted run
+    args = ["--dims", str(STREAM_SMALL_RUN[0]), "--wilson-loops",
+            "1x1,1x2,2x1,2x2", "--get-qtop", "--qtop-smear", "1",
+            "--start", "hot", "--seed", "3", "--therm", "2",
+            "--ckpt-every", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b, c = (os.path.join(tmp, k) for k in "abc")
+        with open(os.devnull, "w") as quiet:
+            stdout, sys.stdout = sys.stdout, quiet
+            try:
+                cli.main(["run", *args, "--sweeps", "4", "--out", a])
+                cli.main(["resume", os.path.join(a, "state.npz"),
+                          "--sweeps", "4", "--out", b])
+                cli.main(["run", *args, "--sweeps", "8", "--out", c])
+            finally:
+                sys.stdout = stdout
+        with open(os.path.join(b, "results.json")) as f:
+            rec_b = json.load(f)
+        with open(os.path.join(c, "results.json")) as f:
+            rec_c = json.load(f)
+    same = rec_b["series"] == rec_c["series"]
+    chis = sorted(rec_b.get("derived", {}))
+    print(f"(g) CLI run 2 + 4 sweeps, resume 4: series bit-identical to an "
+          f"uninterrupted 2 + 8 run {same}; Creutz ratios {chis}")
+    require(same and chis == ["chi_1x1", "chi_1x2", "chi_2x1", "chi_2x2"]
+            and "q_top" in rec_b["series"], "CLI extended run + resume")
+    mark("(g)")
+    return launches
 
 
 def main():
@@ -2855,6 +3266,10 @@ def main():
                 and all(f" {g} " in proc.stdout
                         for g in ("ranlux3", "xor128", "mrg32k3a", "ranmar")),
                 f"rngtest exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+    with Phase("8 extended observables"):
+        for k, v in extended_phase(dev, smi, counters).items():
+            record[k]["launches"] += v
 
     idle = [k for k, r in record.items() if not r["launches"]]
     require(not idle, f"kernels no main path launched: {idle}")

@@ -33,9 +33,11 @@ scan is host-bound, so each block adds its launches to a sweep (PERF.md
 §5).
 
 Supported: threefry and rng_mode "hw" (Philox), SU(2) and SU(3), every
-update algorithm, the tracked statistics (one column per chain), cold and
-hot starts, X/Y meshes and chain blocks.  PRNGCL streams and Z/T meshes
-(M11) raise NotImplementedError.
+update algorithm, the tracked statistics (one column per chain), the
+extended observables without a mesh (each chain's on its own joined
+field), cold and hot starts, X/Y meshes and chain blocks.  PRNGCL streams
+and Z/T meshes (M11) raise NotImplementedError; a scan on an X/Y mesh with
+extended observables raises ValueError, as the reference's does.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ def make_ensemble_runner(cfg: SimConfig, n_chains: int, device="cuda",
         return tuple(out)
 
     def measure_state(st):
-        return torch.cat([engine.measure_chains(b[0], g.shards).to(dev)
+        return torch.cat([engine.measure_chains(b[0], g.shards, cfg).to(dev)
                           for b, g in zip(st, cgrid.grids)]).reshape(-1)
 
     def per_shard(make):

@@ -57,6 +57,7 @@ from ...config import SimConfig
 from ...parallel.mesh import shard_grid
 from .. import prng_streams as streams
 from .. import rng, sun
+from ..measure import has_extended, measure_extended
 from . import core
 from . import measure as cmeasure
 from . import sharded
@@ -84,16 +85,19 @@ def resolve_device(device="cuda") -> torch.device:
 
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for configuration values the port does not
-    run yet, naming the ROADMAP item that brings them."""
+    run yet, naming the ROADMAP item that brings them.
+
+    meas_dtype="double" runs as on the reference's packed engine, where it
+    means the wide sums that are always on: K3/K4 sum in f64 whatever it
+    says, so the measurement is bit-identical to "same", and the extended
+    observables are computed on the complex64 join."""
     todo = []
-    if cfg.get_fmunu or cfg.wilson_loops or cfg.get_qtop:
-        todo.append("get_fmunu / wilson_loops / get_qtop (M12)")
     if cfg.mesh[2] != 1 or cfg.mesh[3] != 1:
         # the reference runs Z/T meshes on its XLA engine (sim.py:273-285)
         todo.append(f"mesh={tuple(cfg.mesh)} splits Z/T (M11, dense "
                     "engine)")
-    if cfg.dtype != "complex64" or cfg.meas_dtype != "same":
-        todo.append("dtype='complex128' / meas_dtype='double' (M11)")
+    if cfg.dtype != "complex64":
+        todo.append("dtype='complex128' (M11, dense engine)")
     if cfg.engine == "xla":
         todo.append("engine='xla' (M11, dense engine)")
     if todo:
@@ -472,10 +476,23 @@ def measure_shards(shards, geoms):
                               tuple(geoms[0].dims))
 
 
-def measure_all_split(us, dims):
-    """Observable vector of one unsharded packed 8-tuple; stays on its
-    device."""
-    return measure_shards((us,), (core.whole(dims),))
+def with_extended(base, joined, cfg):
+    """``base`` (the standard six of one chain [6], or of a block [C, 6]),
+    followed by cfg's extended columns (ops.measure.measure_extended) of
+    the joined field of each row, which ``joined()`` yields one at a time;
+    ``base`` alone when cfg asks for none."""
+    if not has_extended(cfg):
+        return base
+    ext = torch.stack([measure_extended(u, cfg) for u in joined()])
+    return torch.cat([base, ext.reshape(base.shape[:-1] + (-1,))], dim=-1)
+
+
+def measure_all_split(us, dims, cfg=None):
+    """Observable vector (ops.measure.measure_obs_names(cfg)) of one
+    unsharded packed 8-tuple: the standard six from K3/K4, then cfg's
+    extended columns on the joined field; stays on its device."""
+    return with_extended(measure_shards((us,), (core.whole(dims),)),
+                         lambda: [join_links(us, dims)], cfg)
 
 
 def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
@@ -507,7 +524,13 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
     dims = tuple(cfg.dims)
 
     def meas(shards):
-        return measure_shards(shards, grid.shards)
+        # the extended columns on the global field, the shards gathered
+        # and joined on the first shard's device (the reference's
+        # ops/pallas/sharded.py:272-279)
+        return with_extended(
+            measure_shards(shards, grid.shards),
+            lambda: [join_links(sharded.gather_links(shards, grid), dims)],
+            cfg)
 
     run = build_chunk_runner(
         cfg, make_sweep(cfg, grid), lambda st: meas(st[0]),
@@ -541,7 +564,9 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
 
 def check_supported_chains(cfg: SimConfig) -> None:
     """check_supported, and the scan forms the port does not run yet, each
-    refused with NotImplementedError naming its ROADMAP item."""
+    refused with NotImplementedError naming its ROADMAP item; a scan on an
+    X/Y mesh with extended observables is refused with ValueError, in the
+    reference's words (qcdgpu_tpu/models/ensemble.py:106-112)."""
     if streams.stream_mode_name(cfg.rng_mode):
         # the reference scans streams on its dense XLA engine
         # (qcdgpu_tpu/models/ensemble.py:132-144), another provenance
@@ -549,6 +574,12 @@ def check_supported_chains(cfg: SimConfig) -> None:
             f"not ported yet (see ROADMAP.md): rng_mode={cfg.rng_mode!r} in "
             "a scan (M11, dense engine)")
     check_supported(cfg)
+    if int(np.prod(cfg.mesh)) > 1 and has_extended(cfg):
+        raise ValueError(
+            "extended observables (fmunu/wilson/qtop) are not "
+            "supported on the chain x lattice Pallas path; use "
+            "engine='xla' for such scans"
+        )
 
 
 def split_links_chains(u):
@@ -634,14 +665,16 @@ def make_chain_sweep(cfg: SimConfig, grid):
     return sweep
 
 
-def measure_chains(shards, geoms):
-    """Observable vectors [C, 6] (ops.measure.OBS_NAMES) of every chain of
-    a block whose lattice the shards cover (``geoms``: their core.Shard
+def measure_chains(shards, geoms, cfg=None):
+    """Observable vectors [C, len(measure_obs_names(cfg))] of every chain
+    of a block whose lattice the shards cover (``geoms``: their core.Shard
     geometries): K3c/K4c on a shard without halo, K5ac/K5bc on a padded
     one, each chain's f64 sums added in shard order on the first shard's
     device (as measure_shards adds a single chain's), then
     obs_base_from_sums elementwise over the chains; row c is measure_shards
-    of chain c, bit for bit."""
+    of chain c, bit for bit.  cfg's extended columns are measured on each
+    chain's own joined field, unsharded only (check_supported_chains), so
+    row c is measure_all_split of chain c."""
     dev = shards[0][0].device
     dims = tuple(geoms[0].dims)
     sums = poly = None
@@ -650,4 +683,8 @@ def measure_chains(shards, geoms):
         p = cmeasure.polyakov_sums_chains(us, dims, g).to(dev)
         sums = s if sums is None else sums + s
         poly = p if poly is None else poly + p
-    return obs_base_from_sums(sums, poly, shards[0][0].shape[2], dims)
+    us = shards[0]
+    return with_extended(
+        obs_base_from_sums(sums, poly, us[0].shape[2], dims),
+        lambda: (join_links(tuple(a[c] for a in us), dims)
+                 for c in range(us[0].shape[0])), cfg)

@@ -1,6 +1,8 @@
 """4D lattice geometry on the dense site grid [X, Y, Z, T].
 
-Port of qcdgpu_tpu/ops/lattice.py (parity masks and global site indices).
+Port of qcdgpu_tpu/ops/lattice.py: periodic shifts of a per-direction
+field ``[N, N, X, Y, Z, T]`` (site axes 2 + mu), parity masks and global
+site indices.
 """
 
 from __future__ import annotations
@@ -8,6 +10,17 @@ from __future__ import annotations
 import torch
 
 NDIM = 4
+SITE_AXIS0 = 2  # first site axis of an [N, N, X, Y, Z, T] field
+
+
+def shift(f, mu, d):
+    """f'(x) = f(x + d * mu_hat) for a [N, N, *dims] field (periodic)."""
+    return torch.roll(f, -d, dims=SITE_AXIS0 + mu)
+
+
+def shift2(f, mu, dmu, nu, dnu):
+    """Two-axis shift: f'(x) = f(x + dmu*mu_hat + dnu*nu_hat)."""
+    return torch.roll(f, (-dmu, -dnu), dims=(SITE_AXIS0 + mu, SITE_AXIS0 + nu))
 
 
 def _coords(dims, device):

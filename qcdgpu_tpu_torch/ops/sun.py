@@ -1,9 +1,9 @@
 """SU(N) algebra on complex fields with matrix indices LEADING.
 
-Port of the parts of qcdgpu_tpu/ops/sun.py that the port's hot start and
-``Simulation.unitarity_defect`` use, for SU(2) and SU(3).  A field is a
-complex tensor ``[N, N, *sites]``; products are unrolled over the matrix
-indices so that site dimensions stay contiguous.
+Port of the parts of qcdgpu_tpu/ops/sun.py that the port's hot start,
+``Simulation.unitarity_defect`` and the extended observables use, for
+SU(2) and SU(3).  A field is a complex tensor ``[N, N, *sites]``; products
+are elementwise over the sites, so that site dimensions stay contiguous.
 """
 
 from __future__ import annotations
@@ -12,23 +12,48 @@ import torch
 
 
 def mul(a, b):
-    """Matrix product over the leading matrix dims, broadcast over sites."""
-    n, kk, m = a.shape[0], a.shape[1], b.shape[1]
-    rows = []
-    for i in range(n):
-        row = []
-        for k in range(m):
-            acc = a[i, 0] * b[0, k]
-            for j in range(1, kk):
-                acc = acc + a[i, j] * b[j, k]
-            row.append(acc)
-        rows.append(torch.stack(row, dim=0))
-    return torch.stack(rows, dim=0)
+    """Matrix product over the leading matrix dims of two [N, N, *sites]
+    fields: the outer product of column j of a and row j of b for every
+    (i, k) at once, summed over j in the reference's order of terms (the
+    same elementwise products and sums as its unrolled loop, in 2N - 1
+    launches)."""
+    acc = a[:, 0, None] * b[None, 0]
+    for j in range(1, a.shape[1]):
+        acc = acc + a[:, j, None] * b[None, j]
+    return acc
 
 
 def dagger(a):
     """Hermitian conjugate."""
     return torch.conj(a.transpose(0, 1)).resolve_conj()
+
+
+def trace(a):
+    """Complex trace over the leading matrix dims (the diagonal summed in
+    order, as the reference does)."""
+    acc = a[0, 0]
+    for i in range(1, a.shape[0]):
+        acc = acc + a[i, i]
+    return acc
+
+
+def retrace(a):
+    """Re tr(a)."""
+    return torch.real(trace(a))
+
+
+def det(a):
+    """Determinant for N in {2, 3} ([N, N, *sites])."""
+    n = a.shape[0]
+    if n == 2:
+        return a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]
+    if n == 3:
+        return (
+            a[0, 0] * (a[1, 1] * a[2, 2] - a[1, 2] * a[2, 1])
+            - a[0, 1] * (a[1, 0] * a[2, 2] - a[1, 2] * a[2, 0])
+            + a[0, 2] * (a[1, 0] * a[2, 1] - a[1, 1] * a[2, 0])
+        )
+    raise NotImplementedError(f"det for N={n}")
 
 
 def identity_like(a):

@@ -237,7 +237,8 @@ class Simulation:
 
     # -- measurement ------------------------------------------------------
     def measure(self) -> dict:
-        """One measurement of the live state through the packed kernels."""
+        """One measurement of the live state: the standard six through
+        the packed kernels, then cfg's extended columns."""
         vals = self._run.measure_packed(self._us).cpu().numpy()
         return dict(zip(measure_obs_names(self.cfg), vals.tolist()))
 

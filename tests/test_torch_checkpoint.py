@@ -169,3 +169,34 @@ def test_native_prngcl_matches_reference(gen):
     assert prngcl.available() and _ref_prngcl_available()
     np.testing.assert_array_equal(prngcl.fill(gen, 17, 4096),
                                   ref_prngcl.fill(gen, 17, 4096))
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_extended_config_checkpoints_cross_packages(writer, tmp_path):
+    """A checkpoint whose config sets every extended option (obs_history
+    as wide as obs_names) written by either package loads in the other
+    with equal config, history and links; the port resumes the reference's
+    and its series keeps the width."""
+    from qcdgpu_tpu.ops.measure import obs_names as ref_obs_names
+
+    kw = dict(group=2, dims=(4, 4, 4, 4), beta=2.3, seed=4, start="hot",
+              rng_mode="hw", get_fmunu=True, wilson_loops=((1, 1), (1, 2)),
+              get_qtop=True, qtop_smear=1, meas_dtype="double")
+    sim = Simulation(SimConfig(**kw), device="cpu")
+    sim.run(1, 1)
+    width = len(ref_obs_names(RefConfig(**kw)))
+    assert np.concatenate(sim.obs_history).shape == (1, width) == (1, 21)
+    path = str(tmp_path / "ckdir")
+    if writer == "port":
+        sim.save(path)
+        cfg, got, idx, hist, _ = ref_ckpt.load_state(path)
+    else:
+        ref_ckpt.save_state(path, RefConfig(**kw), None, sim.sweep_idx,
+                            sim.obs_history,
+                            us=tuple(a.numpy() for a in sim.us))
+        cfg, got, idx, hist, _ = ckpt.load_state(path)
+    _check_loaded(sim, cfg.to_dict(), got, idx, hist, None)
+    loaded = Simulation.load(path, device="cpu")
+    tail = loaded.run(1, 1)
+    assert tail.shape == (1, width)
+    np.testing.assert_array_equal(tail, sim.run(1, 1))

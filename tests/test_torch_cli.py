@@ -102,9 +102,9 @@ def test_scan_then_resume_is_one_scan(tmp_path):
     (["scan", "--betas", "5.6,6.0", "--rng-mode", "prngcl:ranlux3"], "M11"),
     (["scan", "--betas", "5.6,6.0", "--mesh", "1,1,1,2"], "M11"),
     (["validate", "--configs", "6"], "M11"),
-    (["run", "--get-qtop"], "M12"),
-    (["run", "--wilson-loops", "1x1"], "M12"),
-    (["run", "--meas-dtype", "double"], "M11"),
+    (["run", "--get-qtop", "--dtype", "complex128"], "M11"),
+    (["run", "--wilson-loops", "1x1", "--mesh", "1,1,1,2"], "M11"),
+    (["run", "--meas-dtype", "double", "--dtype", "complex128"], "M11"),
     (["run", "--engine", "xla"], "M11"),
 ])
 def test_unported_features_name_their_item(args, item, tmp_path):
@@ -124,3 +124,38 @@ def test_rngtest_passes(capsys):
                      "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "philox (hw)" in out and "device:xor128" in out and "PASS" in out
+
+
+EXTRAS = ["--dims", "4", "--wilson-loops", "1x1,1x2,2x1,2x2", "--get-qtop",
+          "--qtop-smear", "1", "--get-fmunu"]
+
+
+def test_run_resume_with_extended_observables(tmp_path):
+    """run with Wilson loops, Fmunu and smeared Q_L, then resume: the
+    series is an uninterrupted run's bit for bit, every extended column is
+    there, and the results record has the Creutz ratios."""
+    a = _run(tmp_path, "a", "run", *RUN, *EXTRAS, "--therm", "1",
+             "--sweeps", "2")
+    b = _run(tmp_path, "b", "resume", os.path.join(a, "state.npz"),
+             "--sweeps", "2", "--device", "cpu")
+    c = _run(tmp_path, "c", "run", *RUN, *EXTRAS, "--therm", "1",
+             "--sweeps", "4")
+    rec_b, us_b, idx_b = _series_and_links(b)
+    rec_c, us_c, idx_c = _series_and_links(c)
+    assert idx_b == idx_c == 5
+    assert rec_b["series"] == rec_c["series"]
+    assert {"wloop_2x2", "q_top", "f3_zt_im"} <= set(rec_b["series"])
+    assert set(rec_b["derived"]) == {"chi_1x1", "chi_1x2", "chi_2x1",
+                                     "chi_2x2"}
+    with open(os.path.join(b, "results.txt")) as f:
+        assert "chi_2x2" in f.read()
+
+
+def test_scan_with_extended_observables(tmp_path):
+    out = _run(tmp_path, "s", "scan", *SCAN, "--wilson-loops", "1x1,2x2",
+               "--get-qtop", "--therm", "1", "--sweeps", "2")
+    with open(os.path.join(out, "scan.json")) as f:
+        rec = json.load(f)
+    assert [len(s) for s in rec["series"]["wloop_2x2"]] == [2, 2, 2]
+    assert all(np.isfinite(r["q_top"]) for r in rec["scan"])
+    assert all(abs(r["wloop_1x1"] - r["plq_t"]) < 1e-5 for r in rec["scan"])

@@ -58,15 +58,17 @@ def test_validation_matches_reference(kw):
 
 # each ported feature paired with an unported one: the pair is still refused
 @pytest.mark.parametrize("kw", [
-    dict(algorithm="metropolis", rng_mode="prngcl:ranmar", get_qtop=True),
-    dict(algorithm="metropolis", track_acceptance=True, get_qtop=True),
-    dict(track_kp_exhaust=True, meas_dtype="double"),
-    dict(get_fmunu=True),
-    dict(wilson_loops=((1, 1),)),
-    dict(get_qtop=True),
-    dict(mesh=(2, 2, 1, 1), get_qtop=True),
+    dict(algorithm="metropolis", rng_mode="prngcl:ranmar", get_qtop=True,
+         dtype="complex128"),
+    dict(algorithm="metropolis", track_acceptance=True, get_qtop=True,
+         engine="xla"),
+    dict(track_kp_exhaust=True, meas_dtype="double", dtype="complex128"),
+    dict(get_fmunu=True, engine="xla"),
+    dict(wilson_loops=((1, 1),), mesh=(1, 1, 1, 2)),
+    dict(get_qtop=True, dtype="complex128"),
+    dict(mesh=(2, 2, 1, 1), get_qtop=True, dtype="complex128"),
     dict(dtype="complex128"),
-    dict(meas_dtype="double"),
+    dict(meas_dtype="double", engine="xla"),
     dict(engine="xla"),
 ])
 def test_unported_features_raise(kw):

@@ -212,7 +212,7 @@ def test_presets():
     (dict(rng_mode="prngcl:ranlux3"), 1, "M11"),
     (dict(mesh=(1, 1, 2, 1)), 1, "M11"),
     (dict(rng_mode="prngcl:ranlux3", mesh=(2, 1, 1, 1)), 2, "M11"),
-    (dict(get_qtop=True), 1, "M12"),
+    (dict(get_qtop=True, dtype="complex128"), 1, "M11"),
 ])
 def test_refusals_name_their_item(kw, chain_mesh, item):
     cfg = SimConfig(**{**SU2, **kw})
@@ -237,3 +237,37 @@ def test_chain_wrappers_refuse_malformed_input():
         cmeasure.plane_sums_chains((us[0][:1],) + us[1:], dims)
     with pytest.raises(ValueError, match="chain-stacked"):
         creunit.reunitarize_chains(us[0][0], dims)
+
+
+@pytest.mark.parametrize("chain_mesh", [1, 2])
+def test_scan_extended_rows_are_simulations(chain_mesh):
+    """An unsharded scan (one chain block or two) with Wilson loops and
+    Q_L: each chain's rows are its Simulation's, bit for bit, each
+    chain's extras measured on its own joined field."""
+    cfg = SimConfig(**SU2, seed=6, start="hot", wilson_loops=((1, 1), (2, 1)),
+                    get_qtop=True, get_fmunu=True)
+    scan = BetaScan(cfg, BETAS[2], chain_mesh, device="cpu")
+    obs = scan.run(2, 1)
+    assert obs.shape == (2, 2, len(scan.obs_names)) == (2, 2, 21)
+    for c, beta in enumerate(scan.betas):
+        sim = Simulation(cfg.replace(seed=cfg.seed + 1000 * c,
+                                     beta=float(beta)), device="cpu")
+        np.testing.assert_array_equal(obs[c], sim.run(2, 1))
+
+
+def test_mesh_scan_with_extras_refused_as_the_reference():
+    """The chain x lattice scan has no extended observables: the port
+    raises the reference's ValueError (qcdgpu_tpu/models/ensemble.py:
+    106-112), word for word."""
+    from qcdgpu_tpu_torch.ops.cuda.engine import check_supported_chains
+
+    want = ("extended observables (fmunu/wilson/qtop) are not supported "
+            "on the chain x lattice Pallas path; use engine='xla' for such "
+            "scans")
+    for kw in (dict(get_fmunu=True), dict(wilson_loops=((1, 1),)),
+               dict(get_qtop=True, qtop_smear=1)):
+        cfg = SimConfig(**SU2, mesh=(2, 2, 1, 1), **kw)
+        with pytest.raises(ValueError) as err:
+            BetaScan(cfg, BETAS[2], 2, device="cpu")
+        assert str(err.value) == want
+        check_supported_chains(cfg.replace(mesh=(1, 1, 1, 1)))

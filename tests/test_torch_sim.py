@@ -103,3 +103,53 @@ def test_runner_canonical_field_contract(u0):
     assert obs.shape == (1, 6) and u1.shape == u0.shape
     np.testing.assert_array_equal(obs.numpy(), obs_sim)
     assert torch.equal(u1, sim.u)
+
+
+EXT = dict(group=3, dims=(4, 4, 4, 4), beta=5.5, seed=2, start="hot",
+           reunit_every=2, get_fmunu=True,
+           wilson_loops=((1, 1), (1, 2), (2, 1), (2, 2)), get_qtop=True,
+           qtop_smear=1)
+
+
+@pytest.fixture(scope="module")
+def ext_run():
+    """The unsharded Simulation with every extended option after run(2,
+    1), and its series; shared by the mesh cases."""
+    sim = Simulation(SimConfig(**EXT), device="cpu")
+    return sim, sim.run(2, 1)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, 1, 1), (2, 1, 1, 1)])
+def test_extended_observables_through_simulation(mesh, ext_run):
+    """Every extended option through Simulation: the row is
+    measure_obs_names(cfg) wide (the reference's names), W(1,1) = plq_t in
+    every row, measure() is the last row and measure_all_split of the
+    state (tests/test_torch_extended.py holds that to the reference), and
+    a mesh gives the same series bit for bit."""
+    from qcdgpu_tpu.ops.measure import obs_names
+
+    cfg = SimConfig(**EXT)
+    sim, obs = ext_run
+    names = list(sim.obs_names)
+    assert tuple(names) == obs_names(RefConfig(**EXT))
+    assert obs.shape == (2, len(names)) and np.isfinite(obs).all()
+    np.testing.assert_allclose(obs[:, names.index("wloop_1x1")],
+                               obs[:, names.index("plq_t")], atol=1e-5)
+    m = sim.measure()
+    np.testing.assert_array_equal(np.array(list(m.values()), np.float32),
+                                  obs[-1])
+    np.testing.assert_array_equal(
+        teng.measure_all_split(sim.us, cfg.dims, cfg).numpy(), obs[-1])
+    sharded = Simulation(cfg.replace(mesh=mesh), device="cpu")
+    np.testing.assert_array_equal(sharded.run(2, 1), obs)
+
+
+def test_meas_dtype_double_series_is_same():
+    """meas_dtype="double" runs and its series is "same"'s, bit for bit
+    (the f64 sums are always on), with the extras too."""
+    cfg = SimConfig(**{**KW, "start": "hot", "wilson_loops": ((1, 1),),
+                       "get_qtop": True})
+    a = Simulation(cfg.replace(meas_dtype="double"), device="cpu").run(2, 1)
+    b = Simulation(cfg, device="cpu").run(2, 1)
+    assert a.shape == (2, 8)
+    np.testing.assert_array_equal(a, b)
