@@ -14,7 +14,7 @@ with 8 KP trials and SU(2) Metropolis with 25 hits on ranlux3 (stages past
 (2,2,1,1) with its N chain blocks on the N cards against one block on
 card 0 (links and series bit-identical), and one measured block of
 phase 8's main path (c) on the XY mesh across the cards against card 0.
-With no argument, phases 1-6 and 8, each timed:
+With no argument, phases 1-6, 8 and 9, each timed:
 
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
   2. build      — nvcc builds csrc/*.cu into build/ (one process per
@@ -32,7 +32,12 @@ With no argument, phases 1-6 and 8, each timed:
   3. kernels    — every kernel instantiation against its plain PyTorch
                   version on the card (hot starts, seed 1): K1 threefry for
                   each kind x group x tracking, every (mu, parity), at
-                  (4,4,2,4) and 32^4, tracked counts included; K1 streams
+                  (4,4,2,4) and 32^4 (above (4,4,2,4) the K1, K1a, K1c
+                  and K1ac comparisons take four of a sweep's stages,
+                  each parity and direction once, the two halves in turn
+                  by a family's calls at a shape, so that together they
+                  take all 8 (checked): sweep_stages),
+                  tracked counts included; K1 streams
                   for all 11 PRNGCL generators x heat-bath/Metropolis x
                   group x tracking at (4,4,2,4), every (mu, parity) in
                   sweep order on carried streams (words bit-identical),
@@ -200,7 +205,25 @@ With no argument, phases 1-6 and 8, each timed:
                   bit-identical to "same"; (f) a 3-chain 8^4 scan with
                   extras, each chain's rows its Simulation's; (g) the CLI
                   `run` + `resume` with extras bit-identical to an
-                  uninterrupted run, with the Creutz ratios.
+                  uninterrupted run, with the Creutz ratios;
+  9. dense      — the dense engine (dense.py: PyTorch ops, no kernel of
+                  ours): (a) one stage of each kind, SU(3) and SU(2),
+                  complex64 and complex128, threefry and xor128 (words
+                  bit-identical), card against CPU at 8^4 within 2e-5 /
+                  1e-10, and the card's f32 sqrt and 1/sqrt correctly
+                  rounded (the CPU's go through f64); (b) Simulation(cfg) with no device argument at
+                  SU(3) 32^4, HB, cold, reunit_every=10, engine "xla":
+                  complex128 and complex64 with meas_dtype "double"
+                  (warmup(), thermalize(5), run(5, 1)) and prngcl:ranlux3
+                  (2 + 2): ms/sweep unmeasured and measured, one sweep's
+                  launches, device time and idle share by torch.profiler,
+                  peak memory, the bound by bytes, and none of our kernels
+                  launched; (c) validate config 6 (dense against packed:
+                  |dlinks| < 1e-2, |dobs| < 1e-4, one stage < 2e-5) and
+                  the SU(3) and SU(2) quick gates in complex128; (d) a
+                  ranlux3 complex128 run at 8^4 saved, loaded and
+                  continued bit-identical; (e) a 3-chain xor128 scan at
+                  8^4, each chain bit-identical to its Simulation.
 
 Any failed check raises and the script exits non-zero.  The last three
 lines are the kernels' JSON record, the card's `nvidia-smi` name/power
@@ -242,6 +265,35 @@ FLIP_FRACTION = 1e-5  # accept flips at a rounding boundary, per link
 ROW_TOL = (5e-5, 2e-4)
 RATE_TOL = 2e-3
 THERM, RUN = 20, 20
+# the (parity, mu) stages of phase 3's K1, K1a, K1c and K1ac comparisons
+# with their plain twins, in sweep order: all 8 at SMALL, and at every
+# larger shape one of two halves, each with each parity and direction once
+# (the host launch path of the plain twins is most of phase 3's time)
+ALL_STAGES = tuple((p, mu) for p in (0, 1) for mu in range(4))
+HALF_STAGES = (((0, 0), (0, 3), (1, 1), (1, 2)),
+               ((0, 1), (0, 2), (1, 0), (1, 3)))
+# (family, dims) -> the stages its comparisons at dims took so far
+STAGES_TAKEN = {}
+
+
+def sweep_stages(family, dims):
+    """The (parity, mu) stages a phase-3 comparison of family ("K1",
+    "K1a", "K1c", "K1ac") at dims takes: all 8 at SMALL; above it the two
+    halves in turn, so that a family's calls at a shape take every stage
+    between them (require_all_stages checks it)."""
+    dims = tuple(dims)
+    taken = STAGES_TAKEN.setdefault((family, dims), [])
+    stages = ALL_STAGES if dims == SMALL else HALF_STAGES[len(taken) % 2]
+    taken.append(stages)
+    return stages
+
+
+def require_all_stages():
+    """Every family took every (parity, mu) stage at every shape."""
+    short = {k: len(v) for k, v in STAGES_TAKEN.items()
+             if {st for half in v for st in half} != set(ALL_STAGES)}
+    require(not short, f"phase 3 comparisons that missed stages (calls): "
+            f"{short}")
 # the beta scan of BASELINE config 3 (K1c-K4c): its lattice and the CLI's
 # example grid 5.6:6.1:11; 3 chains of distinct beta at SMALL
 SCAN_DIMS = (24, 24, 24, 6)
@@ -1298,6 +1350,259 @@ def extended_phase(dev, smi, counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dense engine (dense.py; no kernel of ours on its path)
+# ---------------------------------------------------------------------------
+
+DENSE_TOL = {"complex64": 2e-5, "complex128": 1e-10}
+DENSE_THERM, DENSE_RUN = 5, 5
+
+
+def dense_stage_bytes(n, vol, itemsize):
+    """The least bytes of one dense stage: the whole field read once (the
+    staples need every direction) and the updated direction written once."""
+    return (4 + 1) * n * n * vol * itemsize
+
+
+def dense_phase(dev, smi, counters):
+    """Phase 9: (a) one dense stage per kind, card against CPU; (b) the
+    full-width main path (Simulation(cfg) at SU(3) 32^4 on the dense
+    engine): times, launches, memory, idle share; (c) validate config 6
+    and the complex128 physics gates; (d) exact resume; (e) a 3-chain
+    stream scan, each chain its Simulation."""
+    from qcdgpu_tpu_torch import SimConfig, Simulation, dense, validate
+    from qcdgpu_tpu_torch.models import BetaScan
+    from qcdgpu_tpu_torch.ops import prng_streams as ps
+    from qcdgpu_tpu_torch.ops import rng
+    from qcdgpu_tpu_torch.ops.lattice import parity_mask, site_index
+    from qcdgpu_tpu_torch.ops.samplers import stage_uniform_count, update_links
+    from qcdgpu_tpu_torch.ops.staples import staple_sum
+
+    last = [time.perf_counter()]
+
+    def mark(label):
+        now = time.perf_counter()
+        print(f"-- {label}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    # (a) one stage of each kind, SU(3)/SU(2) x complex64/complex128 x
+    # threefry/xor128, on the card and on the CPU from the same field
+    dims = STREAM_SMALL_RUN
+    cpu = torch.device("cpu")
+    for n in GROUPS:
+        for dt in ("complex64", "complex128"):
+            cfg = SimConfig(group=n, dims=dims, dtype=dt, seed=1)
+            u_gpu = dense.hot_start(cfg, rng.make_base_key(1), dev)
+            u_cpu = u_gpu.cpu()
+            worst = 0.0
+            for src in ("threefry", "xor128"):
+                for kind in ("heatbath", "overrelax", "metropolis"):
+                    mu, parity = 2, 1
+                    key2 = rng.stage_key(rng.make_base_key(1), 0, 7)
+                    out = {}
+                    for tag, d, u in (("card", dev, u_gpu),
+                                      ("cpu", cpu, u_cpu)):
+                        uu = None
+                        if src != "threefry" and kind != "overrelax":
+                            st = ps.make_stream_state(src, 5, dims, d)
+                            uu, st = ps.stream_draw(
+                                src, st, stage_uniform_count(n, kind))
+                            uu = ps.open01(uu)
+                            out[tag + "_words"] = st["x"].cpu()
+                        new = update_links(u[mu], staple_sum(u, mu), kind,
+                                           BETA_RUN[n], key2,
+                                           site_index(dims, d),
+                                           uniforms=uu)
+                        out[tag] = torch.where(
+                            parity_mask(dims, parity, d), new, u[mu]).cpu()
+                    dlt = float(torch.max(torch.abs(out["card"] - out["cpu"])))
+                    same_words = ("card_words" not in out or torch.equal(
+                        out["card_words"], out["cpu_words"]))
+                    require(dlt <= DENSE_TOL[dt] and same_words,
+                            f"dense {kind} SU({n}) {dt} {src}: card vs CPU "
+                            f"|d| {dlt}, words equal {same_words}")
+                    worst = max(worst, dlt)
+            print(f"(a) SU({n}) {dt} {dims}: heat-bath, overrelaxation, "
+                  f"Metropolis, threefry and xor128 (words bit-identical): "
+                  f"card against CPU max |d| {worst:.2e} (<= "
+                  f"{DENSE_TOL[dt]:.0e})")
+            del u_gpu, u_cpu
+    # the card's f32 sqrt and 1/sqrt (ops/samplers.py _sqrt, _rsqrt) are
+    # correctly rounded: the roots the CPU takes through f64, bit for bit
+    from qcdgpu_tpu_torch.ops import samplers
+    x = torch.rand(1 << 22, generator=torch.Generator().manual_seed(9)) \
+        .to(dev)
+    x = torch.cat([x, x * 1e-30, x * 1e30, torch.tensor(
+        [0.0, 1.0, 2.0, 3.0, float(np.finfo(np.float32).tiny)],
+        device=dev)])
+    want = torch.sqrt(x.double()).float()
+    bad = [int((samplers._sqrt(x) != want).sum()),
+           int((samplers._rsqrt(x[x > 0])
+                != (1.0 / want[x > 0].double()).float()).sum())]
+    print(f"(a) the card's f32 sqrt and 1/sqrt on {x.numel()} values: "
+          f"{bad[0]} and {bad[1]} differ from the correctly rounded ones")
+    require(bad == [0, 0], f"the card's f32 sqrt is not correctly rounded: "
+            f"{bad}")
+    mark("(a)")
+
+    # (b) the full-width main path: Simulation(cfg), no device argument
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        ev = device_events(prof)
+        if not ev:
+            return wall, None, None, {}
+        return (wall, sum(t for t, _ in ev.values()),
+                sum(c for _, c in ev.values()), ev)
+
+    results = {}
+    base = SimConfig(group=3, dims=BIG, beta=6.0, start="cold",
+                     reunit_every=10, rng_mode="threefry", engine="xla")
+    mains = (("complex128", base.replace(dtype="complex128"),
+              DENSE_THERM, DENSE_RUN),
+             ("complex64 meas_dtype=double",
+              base.replace(meas_dtype="double"), DENSE_THERM, DENSE_RUN),
+             ("complex64 prngcl:ranlux3",
+              base.replace(rng_mode="prngcl:ranlux3"), 2, 2))
+    for label, cfg, n_therm, n_run in mains:
+        for cnt in counters:
+            for k in cnt:
+                cnt[k] = 0
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        sim = Simulation(cfg)
+        require(sim.engine == "xla" and sim.device == dev,
+                f"{label}: engine {sim.engine} on {sim.device}")
+        t0 = time.perf_counter()
+        sim.warmup()
+        t_warm = time.perf_counter() - t0
+        sync()
+        t0 = time.perf_counter()
+        sim.thermalize(n_therm)
+        sim.sync()
+        t_therm = (time.perf_counter() - t0) * 1e3 / n_therm
+        t0 = time.perf_counter()
+        obs = sim.run(n_run, 1)
+        t_run = (time.perf_counter() - t0) * 1e3 / n_run
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+        ours = {k: v for cnt in counters for k, v in cnt.items() if v}
+        require(not ours, f"{label}: the dense path launched {ours}")
+        # one sweep alone and one measured sweep, on the host clock, then
+        # under the profiler (device busy time and launches)
+        w1, busy1, n1, ev1 = profiled(lambda: sim.thermalize(1))
+        w2, busy2, n2, _ = profiled(lambda: sim.run(1, 1))
+        top = sorted(ev1.items(), key=lambda kv: -kv[1][0])[:4]
+        idle = None if busy1 is None else 1.0 - busy1 / w1
+        state_gib = sim.us.numel() * sim.us.element_size() / 2 ** 30
+        itemsize = sim.us.element_size()
+        b_ms = 8 * dense_stage_bytes(3, int(np.prod(BIG)), itemsize) \
+            / HBM_BYTES_PER_S * 1e3
+        plq = obs[:, 0]
+        require(np.isfinite(obs).all() and 0.45 < plq[-1] < 0.9
+                and sim.unitarity_defect() < 1e-4,
+                f"{label}: series {obs}")
+        results[label] = dict(
+            ms_sweep=t_therm, ms_sweep_measured=t_run, launches_sweep=n1,
+            launches_measured_sweep=n2, device_busy_ms=busy1, idle=idle,
+            peak_gib=peak, state_gib=state_gib, bound_ms=b_ms,
+            plq=float(plq[-1]))
+        print(f"(b) {label} SU(3) {BIG} HB cold, engine {sim.engine}: "
+              f"warmup {t_warm:.1f} s; {t_therm:.1f} ms/sweep "
+              f"(thermalize({n_therm})), {t_run:.1f} ms/sweep measured "
+              f"(run({n_run}, 1)); one sweep: {w1:.1f} ms host, device busy "
+              + (f"{busy1:.1f} ms, {n1} launches, idle share {idle:.3f}"
+                 if busy1 is not None else "not measured (empty trace)")
+              + "; one measured sweep: "
+              + (f"{w2:.1f} ms host, device busy {busy2:.1f} ms, {n2} "
+                 "launches" if busy2 is not None else "not measured")
+              + f"; peak {peak:.3f} GiB above the start ({state_gib:.3f} "
+              f"GiB of links); bound {b_ms:.3f} ms/sweep by bytes (8 "
+              f"stages, each the field read and one direction written); "
+              f"plq {plq[-1]:.6f}; no kernel of ours launched  [{smi}]")
+        for name, (ms, calls) in top:
+            print(f"    one sweep's device time: {ms:.2f} ms in {calls} "
+                  f"launches of {name[:90]}")
+        del sim
+        mark(f"(b) {label}")
+
+    # (c) validate config 6 and the complex128 physics gates
+    r = validate.check_engines()
+    print(f"(c) {r['name']}: {r['measured']} ({r['expected']}); pass "
+          f"{r['pass']}")
+    require(r["pass"], f"config 6: {r}")
+    for check in (validate.check_su3, validate.check_su2):
+        r = check(quick=True, engine="xla", dtype="complex128")
+        print(f"(c) {r['name']}: measured {r['measured']} +- "
+              f"{r['err']:.7f}; literature {r['expected']} within "
+              f"{r['tolerance']:.2e}; pass {r['pass']}")
+        require(r["pass"], f"{r['name']}: {r}")
+    mark("(c)")
+
+    # (d) resume: a dense stream run at 8^4 saved, loaded and continued
+    cfg = SimConfig(group=3, dims=STREAM_SMALL_RUN, beta=6.0, start="hot",
+                    rng_mode="prngcl:ranlux3", engine="xla",
+                    dtype="complex128", seed=3)
+    a = Simulation(cfg)
+    a.thermalize(2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        a.save(path)
+        b = Simulation.load(path)
+    oa, ob = a.run(3, 1), b.run(3, 1)
+    same = (np.array_equal(oa, ob) and torch.equal(a.u, b.u)
+            and all(np.array_equal(v, b.stream_state[k])
+                    for k, v in a.stream_state.items()))
+    print(f"(d) {cfg.rng_mode} complex128 {cfg.dims}: saved after 2 sweeps, "
+          f"loaded, 3 more: series, links and streams bit-identical {same}")
+    require(same, "dense resume differs")
+    mark("(d)")
+
+    # (e) a 3-chain dense prngcl:xor128 scan, each chain its Simulation
+    cfg = SimConfig(group=3, dims=STREAM_SMALL_RUN, start="hot",
+                    rng_mode="prngcl:xor128", seed=4)
+    betas = CHAIN_BETAS[3]
+    scan = BetaScan(cfg, betas)
+    require(scan.engine == "xla", f"scan engine {scan.engine}")
+    obs = scan.thermalize(2).run(2, 1)
+    u = scan.u
+    for c, beta in enumerate(betas):
+        sim = Simulation(cfg.replace(seed=cfg.seed + 1000 * c,
+                                     beta=float(np.float32(beta)),
+                                     engine="xla"))
+        sim.thermalize(2)
+        o = sim.run(2, 1)
+        require(torch.equal(sim.u, u[c]) and np.array_equal(o, obs[c]),
+                f"scan chain {c} differs from its Simulation")
+    print(f"(e) {len(betas)}-chain {cfg.rng_mode} scan {cfg.dims}: every "
+          "chain's links and series bit-identical to its dense Simulation")
+    # and a complex128 threefry scan
+    cfg = cfg.replace(rng_mode="threefry", dtype="complex128")
+    scan = BetaScan(cfg, betas)
+    obs = scan.thermalize(2).run(2, 1)
+    u = scan.u
+    for c, beta in enumerate(betas):
+        sim = Simulation(cfg.replace(seed=cfg.seed + 1000 * c,
+                                     beta=float(np.float32(beta))))
+        sim.thermalize(2)
+        o = sim.run(2, 1)
+        require(torch.equal(sim.u, u[c]) and np.array_equal(o, obs[c]),
+                f"complex128 scan chain {c} differs from its Simulation")
+    print(f"(e) {len(betas)}-chain threefry complex128 scan {cfg.dims}: "
+          "every chain bit-identical to its dense Simulation")
+    mark("(e)")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1460,11 +1765,12 @@ def main():
             dev)
 
     def k1_compare(n, kind, track, dims, k_trials, gen=None, n_hit=3):
-        """The 8 stages of a sweep, in sweep order, on one hot start (and,
-        with a stream generator gen, one set of streams, so each parity's
-        words, pointer and luxury counter carry over its 4 stages; gen "hw":
-        Philox): the kernel runs on a copy of the inputs, the plain version
-        on the originals, which carry on to the next stage.  Stream words
+        """The stages of a sweep (sweep_stages: all 8 at SMALL), in sweep
+        order, on one hot start (and, with a stream generator gen, one set
+        of streams, so each parity's words, pointer and luxury counter carry
+        over its stages; gen "hw": Philox): the kernel runs on a copy of
+        the inputs, the plain version on the originals, which carry on to
+        the next stage.  Stream words
         and scalars must come out bit-identical.  -> (max |d| links, links
         beyond STAGE_TOL, links, kernel count, plain count)."""
         us = clone(hot(dims, n))
@@ -1473,46 +1779,46 @@ def main():
         names = ps.kernel_scalar_names(gen) if stream else ()
         base = rng.make_base_key(1)
         worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
-        for p in (0, 1):
+        for p, mu in sweep_stages("K1", dims):
             sfx = ("_e", "_o")[p]
-            for mu in range(4):
-                key = None if stream else rng.stage_key(base, 0, 4 * p + mu)
-                kw_p = kw_k = {"rng_mode": "hw"} if gen == "hw" else {}
-                if stream:
-                    kw_p = dict(gen=gen, words=rst["words" + sfx],
-                                scalars={k: rst[k + sfx] for k in names})
-                    kw_k = dict(kw_p, words=kw_p["words"].clone(),
-                                scalars=dict(kw_p["scalars"]))
-                ck, cp = (
-                    (torch.zeros(1, dtype=torch.int64, device=dev)
-                     for _ in range(2)) if track else (None, None))
-                uk = clone(us)
-                cupdate.stage_update(uk, mu, p, BETA_HOT[n], key, dims,
+            key = None if stream else rng.stage_key(base, 0, 4 * p + mu)
+            kw_p = kw_k = {"rng_mode": "hw"} if gen == "hw" else {}
+            if stream:
+                kw_p = dict(gen=gen, words=rst["words" + sfx],
+                            scalars={k: rst[k + sfx] for k in names})
+                kw_k = dict(kw_p, words=kw_p["words"].clone(),
+                            scalars=dict(kw_p["scalars"]))
+            ck, cp = (
+                (torch.zeros(1, dtype=torch.int64, device=dev)
+                 for _ in range(2)) if track else (None, None))
+            uk = clone(us)
+            cupdate.stage_update(uk, mu, p, BETA_HOT[n], key, dims,
+                                 k_trials, kind=kind, n_hit=n_hit,
+                                 count=ck, **kw_k)
+            cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key, dims,
                                      k_trials, kind=kind, n_hit=n_hit,
-                                     count=ck, **kw_k)
-                cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key, dims,
-                                         k_trials, kind=kind, n_hit=n_hit,
-                                         count=cp, **kw_p)
-                if stream:
-                    require(torch.equal(kw_k["words"], kw_p["words"])
-                            and kw_k["scalars"] == kw_p["scalars"],
-                            f"K1 {gen} {kind} SU({n}) {dims} (mu={mu}, "
-                            f"p={p}): stream words or scalars differ")
-                    rst.update({k + sfx: v
-                                for k, v in kw_p["scalars"].items()})
-                d = (uk[2 * mu + p] - us[2 * mu + p]).abs().reshape(
-                    4 * n, -1).amax(dim=0)
-                worst = max(worst, float(d.max()))
-                bad += int((d > STAGE_TOL).sum())
-                links += d.numel()
-                if track:
-                    cnt_k += int(ck)
-                    cnt_p += int(cp)
+                                     count=cp, **kw_p)
+            if stream:
+                require(torch.equal(kw_k["words"], kw_p["words"])
+                        and kw_k["scalars"] == kw_p["scalars"],
+                        f"K1 {gen} {kind} SU({n}) {dims} (mu={mu}, "
+                        f"p={p}): stream words or scalars differ")
+                rst.update({k + sfx: v
+                            for k, v in kw_p["scalars"].items()})
+            d = (uk[2 * mu + p] - us[2 * mu + p]).abs().reshape(
+                4 * n, -1).amax(dim=0)
+            worst = max(worst, float(d.max()))
+            bad += int((d > STAGE_TOL).sum())
+            links += d.numel()
+            if track:
+                cnt_k += int(ck)
+                cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
 
     def k1a_compare(n, kind, track, k_trials, gen, dims, mesh):
-        """K1a against its plain twin on the shards of dims on mesh: the 8
-        stages of a sweep in sweep order, each on every shard (the kernel
+        """K1a against its plain twin on the shards of dims on mesh: the
+        stages of a sweep (sweep_stages) in sweep order, each on every
+        shard (the kernel
         on a copy of the shard, the plain twin on the shard, which carries
         on), the halo refresh after each stage, stream words and scalars
         carried and bit-identical.  -> (max |d| links, links beyond
@@ -1525,50 +1831,49 @@ def main():
         names = ps.kernel_scalar_names(gen) if stream else ()
         base = rng.make_base_key(1)
         worst, bad, links, cnt_k, cnt_p = 0.0, 0, 0, 0, 0
-        for p in (0, 1):
+        for p, mu in sweep_stages("K1a", dims):
             sfx = ("_e", "_o")[p]
-            for mu in range(4):
-                key = None if stream else rng.stage_key(base, 0, 4 * p + mu)
-                scal = {k: rst[k + sfx] for k in names}
-                ck, cp = (
-                    (torch.zeros(1, dtype=torch.int64, device=dev)
-                     for _ in range(2)) if track else (None, None))
-                for i, (g, us) in enumerate(zip(grid.shards, shards)):
-                    kw_p = kw_k = {"rng_mode": "hw"} if gen == "hw" else {}
-                    if stream:
-                        kw_p = dict(gen=gen, words=rst["words" + sfx][i],
-                                    scalars=dict(scal))
-                        kw_k = dict(kw_p, words=kw_p["words"].clone(),
-                                    scalars=dict(scal))
-                    uk = clone(us)
-                    cupdate.stage_update(uk, mu, p, BETA_HOT[n], key, dims,
-                                         k_trials, kind=kind, count=ck,
-                                         shard=g, **kw_k)
-                    cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key,
-                                             dims, k_trials, kind=kind,
-                                             count=cp, shard=g, **kw_p)
-                    if stream:
-                        require(torch.equal(kw_k["words"], kw_p["words"])
-                                and kw_k["scalars"] == kw_p["scalars"],
-                                f"K1a {gen} {kind} SU({n}) {dims} mesh "
-                                f"{mesh} shard {i} (mu={mu}, p={p}): stream "
-                                "words or scalars differ")
-                    # the whole padded shard: the kernel must leave the
-                    # halos and the other arrays alone
-                    for k, (a, b) in enumerate(zip(uk, us)):
-                        d = (a - b).abs().amax(dim=(0, 1, 2))
-                        worst = max(worst, float(d.max()))
-                        if k == 2 * mu + p:  # its interior links
-                            d = sharded.interior(d, g, 0)
-                            bad += int((d > STAGE_TOL).sum())
-                            links += d.numel()
+            key = None if stream else rng.stage_key(base, 0, 4 * p + mu)
+            scal = {k: rst[k + sfx] for k in names}
+            ck, cp = (
+                (torch.zeros(1, dtype=torch.int64, device=dev)
+                 for _ in range(2)) if track else (None, None))
+            for i, (g, us) in enumerate(zip(grid.shards, shards)):
+                kw_p = kw_k = {"rng_mode": "hw"} if gen == "hw" else {}
                 if stream:
-                    rst.update({k + sfx: v
-                                for k, v in kw_p["scalars"].items()})
-                sharded.refresh_halos(shards, grid, (2 * mu + p,))
-                if track:
-                    cnt_k += int(ck)
-                    cnt_p += int(cp)
+                    kw_p = dict(gen=gen, words=rst["words" + sfx][i],
+                                scalars=dict(scal))
+                    kw_k = dict(kw_p, words=kw_p["words"].clone(),
+                                scalars=dict(scal))
+                uk = clone(us)
+                cupdate.stage_update(uk, mu, p, BETA_HOT[n], key, dims,
+                                     k_trials, kind=kind, count=ck,
+                                     shard=g, **kw_k)
+                cupdate.stage_update_ref(us, mu, p, BETA_HOT[n], key,
+                                         dims, k_trials, kind=kind,
+                                         count=cp, shard=g, **kw_p)
+                if stream:
+                    require(torch.equal(kw_k["words"], kw_p["words"])
+                            and kw_k["scalars"] == kw_p["scalars"],
+                            f"K1a {gen} {kind} SU({n}) {dims} mesh "
+                            f"{mesh} shard {i} (mu={mu}, p={p}): stream "
+                            "words or scalars differ")
+                # the whole padded shard: the kernel must leave the
+                # halos and the other arrays alone
+                for k, (a, b) in enumerate(zip(uk, us)):
+                    d = (a - b).abs().amax(dim=(0, 1, 2))
+                    worst = max(worst, float(d.max()))
+                    if k == 2 * mu + p:  # its interior links
+                        d = sharded.interior(d, g, 0)
+                        bad += int((d > STAGE_TOL).sum())
+                        links += d.numel()
+            if stream:
+                rst.update({k + sfx: v
+                            for k, v in kw_p["scalars"].items()})
+            sharded.refresh_halos(shards, grid, (2 * mu + p,))
+            if track:
+                cnt_k += int(ck)
+                cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
 
     scan_betas = cli._parse_betas(SCAN_GRID)
@@ -1587,7 +1892,8 @@ def main():
                 betas_tensor(betas, dev), keys_tensor(keys, dev), keys)
 
     def k1c_compare(n, kind, hw, dims, betas, k_trials):
-        """K1c over the 8 stages of a sweep (sweep index 3) in sweep order,
+        """K1c over the stages of a sweep (sweep index 3; sweep_stages) in
+        sweep order,
         on C hot starts: each instantiation of (n, kind, random source) --
         untracked and, where the kind draws, tracked -- on its own copy of
         the inputs, K1 (tracked where the kind draws) on each chain's view
@@ -1604,39 +1910,38 @@ def main():
             return torch.zeros(len(betas), dtype=torch.int64, device=dev)
 
         out = {t: [0.0, 0.0, ([], [], [])] for t in tracks}
-        for p in (0, 1):
-            for mu in range(4):
-                sid = 4 * p + mu
-                c_p, c_1 = (zeros(), zeros()) if draws else (None, None)
-                got = {}
-                for t in tracks:
-                    got[t] = (clone(us), zeros() if t else None)
-                    cupdate.stage_update_chains(
-                        got[t][0], mu, p, b_t, k_t, 3, sid, dims, k_trials,
-                        kind=kind, count=got[t][1], rng_mode=mode)
-                u1 = clone(us)
-                for c, beta in enumerate(b_t.tolist()):
-                    key = rng.stage_key(keys[c], 3, sid) if draws else (0, 0)
-                    cupdate.stage_update(
-                        tuple(a[c] for a in u1), mu, p, beta, key, dims,
-                        k_trials, kind=kind, rng_mode=mode,
-                        count=None if c_1 is None else c_1[c:c + 1])
-                cupdate.stage_update_chains_ref(us, mu, p, b_t, k_t, 3, sid,
-                                                dims, k_trials, kind=kind,
-                                                count=c_p, rng_mode=mode)
-                for t, (uk, c_k) in got.items():
-                    o = out[t]
-                    for a, b, c in zip(uk, us, u1):
-                        o[0] = max(o[0], float((a - b).abs().max()))
-                        o[1] = max(o[1], float((a - c).abs().max()))
-                    if t:
-                        for lst, x in zip(o[2], (c_k, c_p, c_1)):
-                            lst.append(x.tolist())
+        for p, mu in sweep_stages("K1c", dims):
+            sid = 4 * p + mu
+            c_p, c_1 = (zeros(), zeros()) if draws else (None, None)
+            got = {}
+            for t in tracks:
+                got[t] = (clone(us), zeros() if t else None)
+                cupdate.stage_update_chains(
+                    got[t][0], mu, p, b_t, k_t, 3, sid, dims, k_trials,
+                    kind=kind, count=got[t][1], rng_mode=mode)
+            u1 = clone(us)
+            for c, beta in enumerate(b_t.tolist()):
+                key = rng.stage_key(keys[c], 3, sid) if draws else (0, 0)
+                cupdate.stage_update(
+                    tuple(a[c] for a in u1), mu, p, beta, key, dims,
+                    k_trials, kind=kind, rng_mode=mode,
+                    count=None if c_1 is None else c_1[c:c + 1])
+            cupdate.stage_update_chains_ref(us, mu, p, b_t, k_t, 3, sid,
+                                            dims, k_trials, kind=kind,
+                                            count=c_p, rng_mode=mode)
+            for t, (uk, c_k) in got.items():
+                o = out[t]
+                for a, b, c in zip(uk, us, u1):
+                    o[0] = max(o[0], float((a - b).abs().max()))
+                    o[1] = max(o[1], float((a - c).abs().max()))
+                if t:
+                    for lst, x in zip(o[2], (c_k, c_p, c_1)):
+                        lst.append(x.tolist())
         return {t: tuple(o) for t, o in out.items()}
 
     def k1ac_compare(n, kind, hw, dims, betas, k_trials):
-        """K1ac on the shards of dims on MESH over the 8 stages of a sweep
-        (sweep index 3) in sweep order, C hot starts, as k1c_compare: each
+        """K1ac on the shards of dims on MESH over the stages of a sweep
+        (sweep index 3; sweep_stages) in sweep order, C hot starts, as k1c_compare: each
         instantiation (untracked and, where the kind draws, tracked) on its
         own copy of the shards, K1a (tracked where the kind draws) on each
         chain's padded arrays of another copy, the plain twin on the
@@ -1673,27 +1978,26 @@ def main():
                for t in tracks}
         one = tuple(tuple(a.clone() for a in sh) for sh in base)
         out = {t: [0.0, 0.0, ([], [], [])] for t in tracks}
-        for p in (0, 1):
-            for mu in range(4):
-                counts = {t: zeros() if t else None for t in tracks}
-                c_p, c_1 = (zeros(), zeros()) if draws else (None, None)
-                for t in tracks:
-                    stage(got[t], False, mu, p, counts[t])
-                stage(one, True, mu, p, c_1)
-                for g, sh in zip(grid.shards, base):
-                    cupdate.stage_update_chains_ref(
-                        sh, mu, p, b_t, k_t, 3, 4 * p + mu, dims, k_trials,
-                        kind=kind, count=c_p, rng_mode=mode, shard=g)
-                sharded.refresh_halos(base, grid, (2 * mu + p,))
-                for t in tracks:
-                    o = out[t]
-                    for shk, shp, sh1 in zip(got[t], base, one):
-                        for a, b, c in zip(shk, shp, sh1):
-                            o[0] = max(o[0], float((a - b).abs().max()))
-                            o[1] = max(o[1], float((a - c).abs().max()))
-                    if t:
-                        for lst, x in zip(o[2], (counts[t], c_p, c_1)):
-                            lst.append(x.tolist())
+        for p, mu in sweep_stages("K1ac", dims):
+            counts = {t: zeros() if t else None for t in tracks}
+            c_p, c_1 = (zeros(), zeros()) if draws else (None, None)
+            for t in tracks:
+                stage(got[t], False, mu, p, counts[t])
+            stage(one, True, mu, p, c_1)
+            for g, sh in zip(grid.shards, base):
+                cupdate.stage_update_chains_ref(
+                    sh, mu, p, b_t, k_t, 3, 4 * p + mu, dims, k_trials,
+                    kind=kind, count=c_p, rng_mode=mode, shard=g)
+            sharded.refresh_halos(base, grid, (2 * mu + p,))
+            for t in tracks:
+                o = out[t]
+                for shk, shp, sh1 in zip(got[t], base, one):
+                    for a, b, c in zip(shk, shp, sh1):
+                        o[0] = max(o[0], float((a - b).abs().max()))
+                        o[1] = max(o[1], float((a - c).abs().max()))
+                if t:
+                    for lst, x in zip(o[2], (counts[t], c_p, c_1)):
+                        lst.append(x.tolist())
         return {t: tuple(o) for t, o in out.items()}
 
     def k8_schedule():
@@ -2142,6 +2446,11 @@ def main():
                 require(d_twin == 0.0 and d_k1a == 0.0 and ck == cp == c1,
                         msg)
         mark("K1ac")
+        require_all_stages()
+        print("K1, K1a, K1c, K1ac: every (parity, mu) stage held against "
+              "its plain twin at every shape: "
+              + ", ".join(f"{fam} {tuple(d)} x{len(v)}"
+                          for (fam, d), v in STAGES_TAKEN.items()))
         # K5ac, K5bc against their twins (PLANE_TOL, POLY_TOL) and against
         # K5a, K5b on every chain's padded arrays (bit-identical); K2c on
         # the padded arrays against K2 per chain, at the shapes K1ac is
@@ -3270,6 +3579,9 @@ def main():
     with Phase("8 extended observables"):
         for k, v in extended_phase(dev, smi, counters).items():
             record[k]["launches"] += v
+
+    with Phase("9 dense engine"):
+        dense_phase(dev, smi, counters)
 
     idle = [k for k, r in record.items() if not r["launches"]]
     require(not idle, f"kernels no main path launched: {idle}")

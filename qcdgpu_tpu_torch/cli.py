@@ -130,7 +130,9 @@ def _add_run_args(p: argparse.ArgumentParser):
     p.add_argument("--mesh", type=_parse_mesh,
                    help="device mesh over X,Y,Z,T (e.g. 1,1,2,4)")
     p.add_argument("--engine", choices=["auto", "xla", "pallas"],
-                   help="execution engine (default auto: Pallas on TPU)")
+                   help="execution engine: auto (the packed CUDA engine for "
+                        "complex64, the dense engine for complex128), xla "
+                        "(the dense engine) or pallas (the packed engine)")
     p.add_argument("--rng-mode", dest="rng_mode",
                    help="threefry (bit-reproducible), hw (Philox here; the "
                         "TPU PRNG in the JAX package), "
@@ -220,6 +222,7 @@ def _finish_run(sim, args, timings):
 
         series = np.concatenate(sim.obs_history, axis=0)
     rec = report.build_record(sim.cfg, analysis, timings, series=series,
+                              extra={"engine": sim.engine},
                               device=sim.device)
     base = os.path.join(args.out, "results")
     report.write_json(base + ".json", rec)
@@ -357,6 +360,7 @@ def cmd_scan(args):
         rows.append(row)
     rec = {
         "config": cfg.to_dict(),
+        "engine": scan.engine,
         "device": report.device_info(args.device),
         "timings": timings,
         "scan": rows,
@@ -470,9 +474,8 @@ def main(argv=None):
 
     p = sub.add_parser("validate", help="physics acceptance suite "
                        "(BASELINE configs vs literature)")
-    p.add_argument("--configs", default="1,2,3,4,5",
-                   help="comma list of BASELINE config numbers (6 is not "
-                        "ported yet)")
+    p.add_argument("--configs", default="1,2,3,4,5,6",
+                   help="comma list of BASELINE config numbers")
     p.add_argument("--quick", action="store_true",
                    help="reduced lattices/sweeps (minutes instead of hours)")
     p.add_argument("--out", default=None, help="JSON report path")

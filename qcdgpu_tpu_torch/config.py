@@ -2,10 +2,10 @@
 
 Same field names, defaults, validation, ``replace``, ``to_dict`` and
 ``from_dict``, so a configuration dict written by the JAX package loads here
-unchanged.  Validation mirrors the reference's ValueErrors exactly; whether
-this package can RUN a valid configuration is decided by the runner factory
-(``ops.cuda.engine.check_supported``), which raises NotImplementedError for
-features the port does not have yet.
+unchanged.  Validation mirrors the reference's ValueErrors exactly;
+``resolve_engine`` picks the engine a configuration runs on, and that
+engine's runner factory raises NotImplementedError for what the port does
+not run yet (``dense.check_mesh``: the dense engine on a mesh).
 
 The PRNGCL generator names are constants here (the reference imports them
 from ops/prng_streams.py, which needs jax).
@@ -75,9 +75,10 @@ class SimConfig:
     meas_dtype: str = "same"  # "same" | "double"
 
     # --- engine ----------------------------------------------------------
-    # "auto" and "pallas" both select the hand-written GPU kernels (on a
-    # CUDA device) or their plain PyTorch versions (on the CPU); "xla", the
-    # reference's dense engine, is not ported yet.
+    # "pallas" selects the packed engine's hand-written GPU kernels (on a
+    # CUDA device) or their plain PyTorch versions (on the CPU); "xla" the
+    # dense engine (dense.py); "auto" the packed one for complex64 and the
+    # dense one for complex128 or a Z/T mesh (resolve_engine).
     engine: str = "auto"  # "auto" | "xla" | "pallas"
     rng_mode: str = "threefry"  # "threefry" | "hw" | "prngcl:<gen>"
 
@@ -208,3 +209,22 @@ class SimConfig:
             tuple(p) for p in d.get("wilson_loops", ())
         )
         return cls(**d)
+
+
+def resolve_engine(cfg: SimConfig) -> str:
+    """The engine a configuration runs on: "xla" (the dense engine,
+    dense.py) or "pallas" (the packed engine's hand-written CUDA kernels,
+    ops/cuda/).
+
+    The reference's rules (qcdgpu_tpu/sim.py:235-284) with the H100 in the
+    TPU's place: an explicit cfg.engine is kept; "auto" gives the dense
+    engine for complex128 (the packed engine is f32) and for a mesh that
+    splits Z or T; complex64 stays on the packed engine whatever
+    meas_dtype says (its K3/K4 sum in f64)."""
+    if cfg.engine != "auto":
+        return cfg.engine
+    if cfg.dtype != "complex64":
+        return "xla"
+    if cfg.mesh[2] != 1 or cfg.mesh[3] != 1:
+        return "xla"
+    return "pallas"

@@ -35,9 +35,22 @@ scan is host-bound, so each block adds its launches to a sweep (PERF.md
 Supported: threefry and rng_mode "hw" (Philox), SU(2) and SU(3), every
 update algorithm, the tracked statistics (one column per chain), the
 extended observables without a mesh (each chain's on its own joined
-field), cold and hot starts, X/Y meshes and chain blocks.  PRNGCL streams
-and Z/T meshes (M11) raise NotImplementedError; a scan on an X/Y mesh with
-extended observables raises ValueError, as the reference's does.
+field), cold and hot starts, X/Y meshes and chain blocks.  A scan on an
+X/Y mesh with extended observables raises ValueError, as the reference's
+does.
+
+The dense tier (the reference's vmap tier, ensemble.py:132-144, 181-190,
+285-310): a scan whose configuration resolves to the dense engine
+(complex128, engine="xla") or draws from PRNGCL streams runs on it
+(dense.py), unsharded: the C chains are one batched dense sweep on the
+field [4, N, N, C, X, Y, Z, T], each chain with its coupling, its key and,
+in stream mode, its streams seeded at ``cfg.seed + 1000 c`` (the words
+[..., C, X, Y, Z, T]; ranlux's nb and ranmar's c shared, as they advance
+with the draw count alone).  Chain c's links are, bit for bit, its own
+dense ``Simulation`` (engine "xla", seed ``cfg.seed + 1000 c``, beta
+``betas[c]``); each chain is measured on its own field, so its series is
+that Simulation's too.  The dense tier on a mesh or in chain blocks is
+M11b (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -47,10 +60,12 @@ import time
 import numpy as np
 import torch
 
-from ..config import SimConfig
+from .. import dense
+from ..config import SimConfig, resolve_engine, stream_mode_name
+from ..ops import prng_streams as streams
 from ..ops import rng
 from ..ops.cuda import engine, sharded
-from ..ops.measure import obs_names
+from ..ops.measure import make_measure_fn, obs_names
 from ..parallel.mesh import ChainGrid, block_cards, resolve_chain_mesh
 from ..runner import build_chunk_runner
 
@@ -130,6 +145,92 @@ def make_ensemble_runner(cfg: SimConfig, n_chains: int, device="cuda",
     return run
 
 
+def make_dense_ensemble_runner(cfg: SimConfig, betas, keys, device="cuda"):
+    """Runner of the dense tier over C = len(betas) chains, on the shared
+    chunk runner: run.packed(state, None, sweep0, n, me) with state (u,
+    rst), u the chain field [4, N, N, C, X, Y, Z, T] in cfg.dtype and rst
+    the chains' dense stream state ({} with threefry); chain c sweeps under
+    betas[c] and base key keys[c] (u32 pairs).  Rows are the C chains'
+    rows flattened chain-major, [C * n_obs], each chain measured on its
+    own field, with one tracked column per chain.  run.packed_cold_start,
+    run.packed_hot_start(keys), run.packed_stream_hot_start() (stream
+    mode), run.make_stream_state0() build the starts and streams;
+    run.field / run.chains convert between u and [C, 4, N, N, X, Y, Z,
+    T].  A mesh is refused (dense.check_mesh: M11b)."""
+    dense.check_mesh(cfg, "a scan on the dense engine")
+    dev = engine.resolve_device(device)
+    n_chains = len(betas)
+    gen = stream_mode_name(cfg.rng_mode)
+    tracking = engine.tracks(cfg)
+    sweep = dense.make_sweep_fn(cfg, with_acc=tracking)
+    meas = make_measure_fn(cfg)
+    beta = np.asarray(betas, np.float32).astype(np.float64)
+    key_list = [tuple(int(k) for k in key) for key in keys]
+    cdt = dense.cdtype(cfg)
+
+    def step(st, _key, sweep_idx):
+        u, rst = st
+        if gen is None:
+            out = sweep(u, key_list, sweep_idx, beta=beta)
+            return ((out[0], rst), out[1]) if tracking else (out, rst)
+        return sweep((u, rst), key_list, sweep_idx, beta=beta)
+
+    def measure_state(st):
+        u = st[0]
+        return torch.cat([meas(u.select(3, c).contiguous())
+                          for c in range(n_chains)])
+
+    def chain_streams(seeds):
+        """The chains' dense stream states, stacked on the chain axis; the
+        lag scalars, equal across chains, once."""
+        states = [streams.make_stream_state(gen, s, cfg.dims, dev)
+                  for s in seeds]
+        return stack_streams(states)
+
+    def hot_streams():
+        us, states = [], []
+        for c in range(n_chains):
+            u, st = dense.stream_hot_start(cfg, streams.make_stream_state(
+                gen, cfg.seed + 1000 * c, cfg.dims, dev))
+            us.append(u)
+            states.append(st)
+        return torch.stack(us, dim=3), stack_streams(states)
+
+    run = build_chunk_runner(cfg, step, measure_state, with_acc=tracking,
+                             device=dev,
+                             n_obs=n_chains * len(obs_names(cfg)))
+    run.engine = "xla"
+    run.grid = ChainGrid(cfg, n_chains, 1, [dev])
+    run.packed_cold_start = lambda: dense.cold_start(cfg, dev).unsqueeze(3) \
+        .expand((-1, -1, -1, n_chains) + tuple(cfg.dims)).contiguous()
+    run.packed_hot_start = lambda ks: torch.stack(
+        [dense.hot_start(cfg, tuple(int(k) for k in key), dev)
+         for key in ks], dim=3)
+    run.make_stream_state0 = lambda: ({} if gen is None else chain_streams(
+        [cfg.seed + 1000 * c for c in range(n_chains)]))
+    if gen is not None:
+        run.packed_stream_hot_start = hot_streams
+    run.field = lambda u: torch.as_tensor(u).to(dev, cdt).movedim(0, 3) \
+        .contiguous()
+    run.chains = lambda u: u.movedim(3, 0).contiguous()
+    return run
+
+
+def stack_streams(states):
+    """Per-chain dense stream states -> one state with the chain axis at
+    dense.CHAIN_AXIS of every word array; the scalars (nb, c) are equal
+    across chains and kept once."""
+    out = {}
+    for k, v in states[0].items():
+        if isinstance(v, torch.Tensor):
+            out[k] = torch.stack([st[k] for st in states], dim=dense.CHAIN_AXIS)
+        else:
+            if any(st[k] != v for st in states):
+                raise ValueError(f"stream scalar {k} differs across chains")
+            out[k] = v
+    return out
+
+
 def betas_tensor(betas, device):
     """Couplings as the kernels take them: f32 [C] on ``device``."""
     return torch.as_tensor(np.asarray(betas, np.float32)).to(device)
@@ -171,9 +272,18 @@ class BetaScan:
         slower than one block, since one host thread launches them one
         after the other.  devices: where the blocks go, block b on
         devices[b % len(devices)] (default: all on ``device``).  _init:
-        (u, keys, sweep_idx) of a checkpoint (load())."""
+        (u, keys, sweep_idx, stream state or None) of a checkpoint
+        (load())."""
         self.cfg = cfg
-        engine.check_supported_chains(cfg)
+        # the reference scans streams on its dense engine
+        # (qcdgpu_tpu/models/ensemble.py:132-144)
+        dense_tier = (resolve_engine(cfg) == "xla"
+                      or stream_mode_name(cfg.rng_mode) is not None)
+        self.engine = "xla" if dense_tier else "pallas"
+        if dense_tier:
+            dense.check_mesh(cfg, "a scan on the dense engine")
+        else:
+            engine.check_supported_chains(cfg)
         self.device = engine.resolve_device(device)
         self.betas = np.asarray(betas, np.float32).reshape(-1)
         c = len(self.betas)
@@ -184,11 +294,14 @@ class BetaScan:
         self.chain_mesh = resolve_chain_mesh(chain_mesh, cfg, c,
                                              block_cards(devices))
         self._n_obs = len(obs_names(cfg))
+        self.sweep_idx = 0
+        if dense_tier:
+            self._init_dense(_init)
+            return
         self._run = make_ensemble_runner(cfg, c, self.device,
                                          self.chain_mesh, devices)
-        self.sweep_idx = 0
         if _init is not None:
-            u, keys, self.sweep_idx = _init
+            u, keys, self.sweep_idx = _init[:3]
             self.keys = np.asarray(keys, np.uint32).reshape(c, 2)
             blocks = self._run.scatter(engine.split_links_chains(
                 torch.as_tensor(np.asarray(u, np.complex64)).to(self.device)))
@@ -205,17 +318,78 @@ class BetaScan:
                 blocks = self._run.packed_cold_start()
         self._st = self._run.state(blocks, self.betas, self.keys)
 
+    def _init_dense(self, init):
+        """The dense tier's state (u, rst) (make_dense_ensemble_runner)."""
+        cfg, c = self.cfg, len(self.betas)
+        if self.chain_mesh != 1:
+            raise NotImplementedError(
+                "not ported yet (see ROADMAP.md): a dense-engine scan in "
+                f"chain_mesh={self.chain_mesh} blocks (M11b: the dense "
+                "engine on a mesh)")
+        if init is not None:
+            u, keys, self.sweep_idx, rst = init
+            self.keys = np.asarray(keys, np.uint32).reshape(c, 2)
+        else:
+            self.keys = np.array([rng.make_base_key(cfg.seed + 1000 * i)
+                                  for i in range(c)], np.uint32)
+        self._run = make_dense_ensemble_runner(cfg, self.betas, self.keys,
+                                               self.device)
+        gen = stream_mode_name(cfg.rng_mode)
+        if init is not None:
+            links = self._run.field(u)
+            if gen is None:
+                self._st = (links, {})
+                return
+            if rst is None:
+                raise ValueError(
+                    "checkpoint has no PRNGCL stream state but the config "
+                    f"runs rng_mode={cfg.rng_mode!r}; cannot resume exactly")
+            rst = {k: np.moveaxis(v, 0, dense.CHAIN_AXIS) if np.ndim(v) >= 5
+                   else v for k, v in rst.items()}
+            self._st = (links, dense.stream_from_numpy(gen, rst, cfg.dims,
+                                                       self.device))
+        elif cfg.start == "hot" and gen is not None:
+            self._st = self._run.packed_stream_hot_start()
+        elif cfg.start == "hot":
+            self._st = (self._run.packed_hot_start(self.keys.tolist()),
+                        self._run.make_stream_state0())
+        elif cfg.start == "continue":
+            raise ValueError(
+                "start='continue' resumes a checkpoint: use "
+                "BetaScan.load(path) (CLI: `scan --resume-state`)")
+        else:
+            self._st = (self._run.packed_cold_start(),
+                        self._run.make_stream_state0())
+
     # -- state ------------------------------------------------------------
     @property
     def us(self):
         """The chain-stacked packed 8-tuple of all chains: the live tensors
-        with one chain block and no mesh, else gathered (new)."""
+        with one chain block and no mesh, else gathered (new).  On the
+        dense tier the chains' fields, as ``u``."""
+        if self.engine == "xla":
+            return self.u
         return self._run.gather(tuple(b[0] for b in self._st))
 
     @property
     def u(self):
-        """Canonical complex64 fields [C, 4, N, N, X, Y, Z, T] (new)."""
+        """Canonical complex fields [C, 4, N, N, X, Y, Z, T] (new):
+        complex64, or cfg.dtype on the dense tier."""
+        if self.engine == "xla":
+            return self._run.chains(self._st[0])
         return engine.join_links_chains(self.us, tuple(self.cfg.dims))
+
+    @property
+    def stream_state(self):
+        """The dense tier's stream state as numpy in the reference's
+        ``betascan`` layout (word arrays chain-leading, [C, ...]; nb, c
+        once), or None outside stream mode."""
+        gen = stream_mode_name(self.cfg.rng_mode)
+        if gen is None:
+            return None
+        out = dense.stream_to_numpy(gen, self._st[1])
+        return {k: np.moveaxis(v, dense.CHAIN_AXIS, 0) if np.ndim(v) >= 5
+                else v for k, v in out.items()}
 
     @property
     def obs_names(self):
@@ -237,8 +411,9 @@ class BetaScan:
         a CLONE of the links: the kernels update in place, so the live
         chains stay exactly as they were (Simulation.warmup)."""
         me = self.cfg.meas_every if measure_every is None else measure_every
-        scratch, _ = self._run.packed(_clone(self._st), None, self.sweep_idx,
-                                      1, 0)
+        st = (engine.clone_state(self._st) if self.engine == "xla"
+              else _clone(self._st))
+        scratch, _ = self._run.packed(st, None, self.sweep_idx, 1, 0)
         if me:
             self._run.packed(scratch, None, self.sweep_idx, me, me)
         self.sync()
@@ -267,12 +442,13 @@ class BetaScan:
     # -- checkpoint -------------------------------------------------------
     def save(self, path: str):
         """The reference's ``betascan`` .npz (utils/checkpoint.py), which
-        qcdgpu_tpu's BetaScan.load reads too.  The random source is
-        counter-based, so (keys, sweep_idx) is the whole random state."""
+        qcdgpu_tpu's BetaScan.load reads too.  With a counter-based random
+        source (keys, sweep_idx) is the whole random state; a stream scan
+        adds its chains' stream state."""
         from ..utils.checkpoint import save_betascan
 
         save_betascan(path, self.cfg, self.betas, self.keys, self.u,
-                      self.sweep_idx)
+                      self.sweep_idx, rng_stream=self.stream_state)
 
     @classmethod
     def load(cls, path: str, chain_mesh: int = 1, *, device="cuda",
@@ -281,10 +457,10 @@ class BetaScan:
         any mesh and chain blocks); every chain continues bit for bit.
         ``mesh`` puts the resumed scan on another X/Y mesh than the saved
         configuration's (the file holds the global fields)."""
-        from ..utils.checkpoint import load_betascan
+        from ..utils.checkpoint import load_betascan, load_betascan_streams
 
         cfg, betas, keys, u, sweep_idx = load_betascan(path)
         if mesh is not None:
             cfg = cfg.replace(mesh=tuple(mesh))
         return cls(cfg, betas, chain_mesh, device=device, devices=devices,
-                   _init=(u, keys, sweep_idx))
+                   _init=(u, keys, sweep_idx, load_betascan_streams(path)))

@@ -27,7 +27,7 @@ state, ``{"words_e", "words_o"}`` (each parity's per-site generator words
 numbers.  This is the reference's Pallas
 provenance: a drawing stage advances only its active parity's streams, and
 overrelaxation draws nothing; the dense XLA provenance, which draws for
-every site, is a different chain (M11).
+every site, is a different chain.
 
 The chain axis of a beta scan (models/ensemble.py; the reference's
 Pallas chain tiers, qcdgpu_tpu/models/ensemble.py:96-131): each of the 8
@@ -84,25 +84,33 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def check_supported(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for configuration values the port does not
-    run yet, naming the ROADMAP item that brings them.
+    """Raise ValueError for what the packed engine cannot run: a dtype
+    other than complex64 (its links are f32) and a mesh that splits Z or T
+    (it shards X and Y only).
 
     meas_dtype="double" runs as on the reference's packed engine, where it
     means the wide sums that are always on: K3/K4 sum in f64 whatever it
     says, so the measurement is bit-identical to "same", and the extended
     observables are computed on the complex64 join."""
-    todo = []
-    if cfg.mesh[2] != 1 or cfg.mesh[3] != 1:
-        # the reference runs Z/T meshes on its XLA engine (sim.py:273-285)
-        todo.append(f"mesh={tuple(cfg.mesh)} splits Z/T (M11, dense "
-                    "engine)")
     if cfg.dtype != "complex64":
-        todo.append("dtype='complex128' (M11, dense engine)")
-    if cfg.engine == "xla":
-        todo.append("engine='xla' (M11, dense engine)")
-    if todo:
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): " + "; ".join(todo)
+        raise ValueError(f"the packed engine is complex64 only, not "
+                         f"dtype={cfg.dtype!r}")
+    if cfg.mesh[2] != 1 or cfg.mesh[3] != 1:
+        raise ValueError(f"the packed engine shards X and Y only, not "
+                         f"mesh={tuple(cfg.mesh)}")
+
+
+def check_stream_keys(have, want) -> None:
+    """Refuse a stream state whose layout is not the resolved engine's, in
+    the reference's words (qcdgpu_tpu/sim.py:381-394): the dense and the
+    packed states are different randomness provenances."""
+    if set(have) != set(want):
+        raise ValueError(
+            "PRNGCL stream-state layout mismatch: checkpoint has "
+            f"{sorted(have)} but the resolved engine expects "
+            f"{sorted(want)} — resume with the same engine "
+            "(XLA dense vs Pallas packed states are different "
+            "randomness provenances)"
         )
 
 
@@ -305,6 +313,55 @@ def packed_stream_hot_start(cfg: SimConfig, device="cuda"):
         im = z[n * n:].reshape((n, n) + dims)
         links.append(sun.reunitarize(torch.complex(re, im)))
     return split_links(torch.stack(links)), pack_stream_state(gen, st, dims)
+
+
+def links_from_input(arrays, device):
+    """A given start state -> the unsharded packed 8-tuple on ``device``:
+    a packed 8-tuple (tensors, copied; or numpy from either package) or
+    the canonical complex field (a tensor, or numpy), split."""
+    if isinstance(arrays, (tuple, list)):
+        if all(isinstance(a, torch.Tensor) for a in arrays):
+            return tuple(a.to(device, torch.float32).contiguous().clone()
+                         for a in arrays)
+        return from_reference(tuple(arrays), device)
+    if isinstance(arrays, torch.Tensor):
+        return split_links(arrays.to(device, torch.complex64))
+    return from_reference(arrays, device)
+
+
+def stream_state_from_numpy(gen, rst, dims, device):
+    """A saved packed stream state (numpy, the reference's keys and dtypes)
+    -> the unsharded packed state on ``device``; refuses another layout
+    (check_stream_keys) or words of another shape."""
+    check_stream_keys(set(rst), stream_state_keys(gen))
+    shape = (streams.stream_word_count(gen), dims[0], dims[1],
+             dims[2] * (dims[3] // 2))
+    out = {}
+    for k, v in rst.items():
+        if k.startswith("words"):
+            out[k] = streams.words_from_numpy(gen, v, device)
+            if tuple(out[k].shape) != shape:
+                raise ValueError(f"stream {k}: shape {tuple(v.shape)}, "
+                                 f"expected {shape}")
+        elif k.startswith("c_"):
+            out[k] = float(v)
+        else:
+            out[k] = int(v)
+    return out
+
+
+def stream_state_to_numpy(gen, rst):
+    """The unsharded packed stream state as numpy in the reference's dtypes
+    (words uint32 / int32 / float32; nb, ptr int32; c float32)."""
+    out = {}
+    for k, v in rst.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = streams.words_to_numpy(gen, v)
+        elif k.startswith("c_"):
+            out[k] = np.float32(v)
+        else:
+            out[k] = np.int32(v)
+    return out
 
 
 def clone_state(st):
@@ -522,6 +579,7 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
     grid = shard_grid(cfg, dev, None if devices is None
                       else [resolve_device(d) for d in devices])
     dims = tuple(cfg.dims)
+    gen = streams.stream_mode_name(cfg.rng_mode)
 
     def meas(shards):
         # the extended columns on the global field, the shards gathered
@@ -539,8 +597,14 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
         unpack=lambda st: join_links(sharded.gather_links(st[0], grid), dims),
         with_acc=tracks(cfg), device=grid.devices[0],
     )
+    run.engine = "pallas"
     run.grid = grid
     run.scatter = lambda us: sharded.shard_links(us, grid)
+    run.adopt = lambda arrays: run.scatter(links_from_input(arrays, dev))
+    run.stream_state_keys = stream_state_keys(gen) if gen else frozenset()
+    run.adopt_streams = lambda rst: sharded.shard_streams(
+        stream_state_from_numpy(gen, rst, dims, dev), grid)
+    run.stream_to_numpy = lambda rst: stream_state_to_numpy(gen, rst)
     run.gather = lambda st: sharded.gather_state(st, grid)
     run.packed_cold_start = lambda: tuple(
         packed_cold_start(cfg, d, g) for g, d in zip(grid.shards,
@@ -563,16 +627,9 @@ def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
 
 
 def check_supported_chains(cfg: SimConfig) -> None:
-    """check_supported, and the scan forms the port does not run yet, each
-    refused with NotImplementedError naming its ROADMAP item; a scan on an
-    X/Y mesh with extended observables is refused with ValueError, in the
+    """check_supported for a scan on the packed engine, and a scan on an
+    X/Y mesh with extended observables refused with ValueError, in the
     reference's words (qcdgpu_tpu/models/ensemble.py:106-112)."""
-    if streams.stream_mode_name(cfg.rng_mode):
-        # the reference scans streams on its dense XLA engine
-        # (qcdgpu_tpu/models/ensemble.py:132-144), another provenance
-        raise NotImplementedError(
-            f"not ported yet (see ROADMAP.md): rng_mode={cfg.rng_mode!r} in "
-            "a scan (M11, dense engine)")
     check_supported(cfg)
     if int(np.prod(cfg.mesh)) > 1 and has_extended(cfg):
         raise ValueError(

@@ -1,8 +1,10 @@
 """4D lattice geometry on the dense site grid [X, Y, Z, T].
 
 Port of qcdgpu_tpu/ops/lattice.py: periodic shifts of a per-direction
-field ``[N, N, X, Y, Z, T]`` (site axes 2 + mu), parity masks and global
-site indices.
+field ``[N, N, X, Y, Z, T]``, parity masks and global site indices.  The
+lattice axes are the LAST four of a field (axis mu at -4 + mu), so a field
+with batch axes before them, such as the dense engine's chain axis of a
+beta scan ``[N, N, C, X, Y, Z, T]``, shifts every chain at once.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import torch
 
 NDIM = 4
-SITE_AXIS0 = 2  # first site axis of an [N, N, X, Y, Z, T] field
+SITE_AXIS0 = -4  # first lattice axis of a field, counted from the end
 
 
 def shift(f, mu, d):

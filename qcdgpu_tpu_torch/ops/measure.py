@@ -23,12 +23,15 @@ then, as the configuration asks for them (``measure_obs_names``):
 The series row of obs_names() may end with one engine-accumulated column:
 ``acc_rate`` (track_acceptance) or ``kp_exhaust_rate`` (track_kp_exhaust).
 
-The standard six come from the packed engine's kernels (ops/cuda/
-measure.py).  The extended columns are what the reference computes with
-XLA ops on the joined complex field (ops/pallas/engine.py:398-420): here
-PyTorch ops on the complex64 field [4, N, N, X, Y, Z, T]
-(``measure_extended``), with the reference's f32 sums, dtypes and order of
-terms.
+On the packed engine the standard six come from its kernels (ops/cuda/
+measure.py); on the dense engine (dense.py) from ``measure_all`` here,
+the reference's dense measurement (measure.py:265-357), on the complex64
+or complex128 field, and ``make_measure_fn`` evaluates them in complex128
+when cfg.meas_dtype is "double" (the reference's measure.py:397-427).  The
+extended columns are what the reference computes with XLA ops on the
+complex field (ops/pallas/engine.py:398-420): here PyTorch ops on the
+field [4, N, N, X, Y, Z, T] (``measure_extended``), with the reference's
+f32 sums, dtypes and order of terms.
 """
 
 from __future__ import annotations
@@ -245,6 +248,100 @@ def topological_charge(u):
 
 
 # ---------------------------------------------------------------------------
+# the standard six on the dense field (the dense engine's measurement)
+# ---------------------------------------------------------------------------
+
+
+def plaquette_retrace(u, mu, nu):
+    """Re tr P_{mu,nu}(x) field: [*site_dims]."""
+    return retrace(plaquette_field(u, mu, nu))
+
+
+def mean_plaquette(u):
+    """(plq_total, plq_spatial, plq_temporal) as 0-d tensors in the
+    field's real dtype."""
+    n = u.shape[1]
+    s_sum = 0.0
+    t_sum = 0.0
+    for mu in range(4):
+        for nu in range(mu + 1, 4):
+            p = torch.mean(plaquette_retrace(u, mu, nu)) / n
+            if nu == TIME_AXIS:
+                t_sum = t_sum + p
+            else:
+                s_sum = s_sum + p
+    return (s_sum + t_sum) / 6.0, s_sum / 3.0, t_sum / 3.0
+
+
+def polyakov_loop(u):
+    """Volume-averaged Polyakov loop (re, im) of the full link field."""
+    return polyakov_from_ut(u[TIME_AXIS])
+
+
+def polyakov_from_ut(ut):
+    """Volume-averaged Polyakov loop (re, im), 1/N-normalized, of the
+    temporal links ut [N, N, X, Y, Z, T]: L(xvec) = (1/N) tr prod_t
+    U_t(xvec, t), the time product a balanced recursion over contiguous T
+    ranges, P(a..b) = P(a..m) @ P(m..b), with the matrix components kept
+    as separate [X, Y, Z] tensors (the reference's order of products)."""
+    n = ut.shape[0]
+    utt = torch.movedim(ut, -1, 2)  # [N, N, T, X, Y, Z]
+    comp = [[utt[i, j] for j in range(n)] for i in range(n)]
+
+    def pairmul(a, b):
+        out = []
+        for i in range(n):
+            row = []
+            for k in range(n):
+                acc = a[i][0] * b[0][k]
+                for j in range(1, n):
+                    acc = acc + a[i][j] * b[j][k]
+                row.append(acc)
+            out.append(row)
+        return out
+
+    def prod_range(lo, hi):
+        if hi - lo == 1:
+            return [[comp[i][j][lo] for j in range(n)] for i in range(n)]
+        mid = (lo + hi) // 2
+        return pairmul(prod_range(lo, mid), prod_range(mid, hi))
+
+    prod = prod_range(0, utt.shape[2])
+    loop = prod[0][0]
+    for i in range(1, n):
+        loop = loop + prod[i][i]
+    loop = loop / n  # [X, Y, Z]
+    return torch.mean(loop.real), torch.mean(loop.imag)
+
+
+def measure_all(u):
+    """The standard observable vector (OBS_NAMES) of a dense field
+    [4, N, N, X, Y, Z, T], f32 [6]."""
+    plq, plq_s, plq_t = mean_plaquette(u)
+    pre, pim = polyakov_loop(u)
+    return torch.stack([v.to(torch.float32) for v in
+                        (plq, plq_s, plq_t, 1.0 - plq, pre, pim)])
+
+
+def make_measure_fn(cfg):
+    """u -> the observable vector of measure_obs_names(cfg), f32, on u's
+    device: the standard six, then cfg's extended columns.  With
+    cfg.meas_dtype "double" the field is widened to complex128 first (the
+    reference's PRECISION=mixed: the updates in the run's dtype, the
+    measurement sums in double)."""
+    double = getattr(cfg, "meas_dtype", "same") == "double"
+
+    def fn(u):
+        if double:
+            u = u.to(torch.complex128)
+        ext = measure_extended(u, cfg)
+        base = measure_all(u)
+        return torch.cat([base, ext]) if ext.numel() else base
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # config-aware observable vector
 # ---------------------------------------------------------------------------
 
@@ -292,7 +389,8 @@ def obs_names(cfg=None):
 
 def measure_extended(u, cfg):
     """The extended columns of cfg (Fmunu, Wilson loops, q_top, in
-    measure_obs_names order) of the complex64 field u [4, N, N, X, Y, Z, T]:
+    measure_obs_names order) of the field u [4, N, N, X, Y, Z, T]
+    (complex64, or complex128 on the dense engine):
     f32 [k] on u's device, k = 0 without extras (the reference's
     ops/pallas/engine.py:398-420)."""
     parts = []

@@ -18,11 +18,15 @@ keyed by the same stage key, with threefry's slot numbering:
 so uniforms 4b .. 4b+3 of a site are block b's four words, and the chain
 is a function of (seed, sweep index, site) as with threefry.
 
-Two forms of the same function:
+Three forms of the same function:
 
 * ``threefry2x32`` works on int64 tensors holding u32 values (torch's CPU
   ``uint32`` has no shift operators); every result is masked back to 32
   bits.
+* ``threefry2x32_i32`` works on int32 tensors holding the u32 bits: the
+  adds wrap, the rotations mask the sign bits that an arithmetic right
+  shift brings in.  The same bits with half the bytes and fewer
+  operations; ``site_uniforms`` draws with it.
 * ``threefry2x32_host`` works on Python ints.  Keys (``make_base_key``,
   ``stage_key``) are computed on the host with it and handed to the kernels
   as two ints, so deriving a stage key costs no device round trip.
@@ -121,27 +125,79 @@ def stage_key(base_key, sweep_idx: int, stage_id: int):
     return threefry2x32_host(base_key[0], base_key[1], sweep_idx, stage_id)
 
 
+def _i32(v):
+    """u32 value(s) (an int, or an int64 tensor) -> the same bits as int32
+    (an int in the int32 range, or an int32 tensor)."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.int32:
+            return v
+        return torch.where(v > 0x7FFFFFFF, v - (1 << 32), v).to(torch.int32)
+    v = int(v) & _M32
+    return v - (1 << 32) if v > 0x7FFFFFFF else v
+
+
+def _rotl32(x, r):
+    """Rotate the u32 bits of an int32 tensor left by r."""
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+
+def threefry2x32_i32(k0, k1, x0, x1):
+    """threefry2x32 on int32 tensors holding u32 bits, two's-complement
+    wrapping adds: the same bits as threefry2x32.  Keys: u32 ints, or int64
+    tensors of u32 values that broadcast with the counters (one key per
+    chain); counters x0, x1: int32 tensors.  Returns two int32 tensors."""
+    if isinstance(k0, torch.Tensor):
+        ks = [_i32(k) for k in (k0, k1, k0 ^ k1 ^ _PARITY)]
+    else:
+        ks = [int(k0) & _M32, int(k1) & _M32]
+        ks.append(ks[0] ^ ks[1] ^ _PARITY)
+    x0 = x0 + _i32(ks[0])
+    x1 = x1 + _i32(ks[1])
+    inject = 0
+    for r in range(20):
+        x0 = x0 + x1
+        x1 = _rotl32(x1, _ROT[r % 8]) ^ x0
+        if (r + 1) % 4 == 0:
+            inject += 1
+            x0 = x0 + _i32(ks[inject % 3])
+            x1 = x1 + _i32(ks[(inject + 1) % 3] + inject)
+    return x0, x1
+
+
 def bits_to_uniform(bits):
-    """u32 (in int64) -> f32 in the OPEN interval (0, 1), 24-bit grid.
+    """u32 (in int64, or its bits in int32) -> f32 in the OPEN interval
+    (0, 1), 24-bit grid.
 
     The +0.5 is added in f32 (it rounds for h >= 2**23), as the reference
     does."""
-    h = (bits >> 8).to(torch.float32)
-    return (h + 0.5) * _INV_2_24
+    h = bits >> 8
+    if bits.dtype == torch.int32:
+        h = h & 0xFFFFFF
+    return (h.to(torch.float32) + 0.5) * _INV_2_24
 
 
 def site_uniforms(key2, site_idx, n, slot0=0):
-    """n uniforms per site: f32 [n, *site_idx.shape] in (0, 1).
+    """n uniforms per site: f32 [n, *shape] in (0, 1).
 
-    site_idx: int64 tensor of GLOBAL dense site indices.  Pair p of the
+    site_idx: int64 tensor of GLOBAL dense site indices (below 2**31).
+    Pair p of the
     output comes from counter (site, slot0 + p): b0 -> u[2p], b1 -> u[2p+1].
+    key2: the stage key as two ints, or as two int64 tensors of u32 values
+    that broadcast with site_idx (one key per chain of a beta scan: keys
+    [C, 1, 1, 1, 1] with site_idx [1, X, Y, Z, T]); shape is the broadcast
+    of the keys and site_idx.
     """
     npairs = (n + 1) // 2
-    slots = (torch.arange(npairs, dtype=torch.int64, device=site_idx.device)
-             + slot0).reshape((npairs,) + (1,) * site_idx.ndim)
-    b0, b1 = threefry2x32(int(key2[0]), int(key2[1]), site_idx[None], slots)
+    k0, k1 = (k if isinstance(k, torch.Tensor) else int(k)
+              for k in key2[:2])
+    lead = site_idx.ndim
+    if isinstance(k0, torch.Tensor):
+        lead = max(lead, k0.ndim)
+    slots = (torch.arange(npairs, dtype=torch.int32, device=site_idx.device)
+             + slot0).reshape((npairs,) + (1,) * lead)
+    b0, b1 = threefry2x32_i32(k0, k1, site_idx[None].to(torch.int32), slots)
     u = torch.stack([bits_to_uniform(b0), bits_to_uniform(b1)], dim=1)
-    u = u.reshape((2 * npairs,) + tuple(site_idx.shape))
+    u = u.reshape((2 * npairs,) + tuple(b0.shape[1:]))
     return u[:n]
 
 

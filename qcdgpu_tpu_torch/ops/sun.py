@@ -1,9 +1,12 @@
 """SU(N) algebra on complex fields with matrix indices LEADING.
 
-Port of the parts of qcdgpu_tpu/ops/sun.py that the port's hot start,
-``Simulation.unitarity_defect`` and the extended observables use, for
-SU(2) and SU(3).  A field is a complex tensor ``[N, N, *sites]``; products
-are elementwise over the sites, so that site dimensions stay contiguous.
+Port of qcdgpu_tpu/ops/sun.py for SU(2) and SU(3): the field algebra
+(products, traces, reunitarization) that the start states, the extended
+observables and the dense engine use, and the SU(2) quaternion and
+Cabibbo–Marinari subgroup helpers of the dense engine's samplers
+(ops/samplers.py).  A field is a complex tensor ``[N, N, *sites]``;
+products are elementwise over the sites, so that site dimensions stay
+contiguous.  Complex64 and complex128 fields alike.
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ def mul(a, b):
     (i, k) at once, summed over j in the reference's order of terms (the
     same elementwise products and sums as its unrolled loop, in 2N - 1
     launches)."""
-    acc = a[:, 0, None] * b[None, 0]
+    cols = a.unsqueeze(2).unbind(1)  # column j of a as [N, 1, *sites]
+    rows = b.unsqueeze(0).unbind(1)  # row j of b as [1, N, *sites]
+    acc = cols[0] * rows[0]
     for j in range(1, a.shape[1]):
-        acc = acc + a[:, j, None] * b[None, j]
+        acc = acc + cols[j] * rows[j]
     return acc
 
 
@@ -123,3 +128,88 @@ def reunitarize(a):
     r1 = _normalize_row(r1)
     r2 = torch.conj(cross3(r0, r1))
     return torch.stack([r0, r1, r2], dim=0)
+
+
+def identity(n, site_dims, dtype=torch.complex64, device="cpu"):
+    """Unit field [N, N, *site_dims] (a broadcast view; clone to write)."""
+    eye = torch.eye(n, dtype=dtype, device=device)
+    return eye.reshape((n, n) + (1,) * len(site_dims)).expand(
+        (n, n) + tuple(site_dims))
+
+
+# ---------------------------------------------------------------------------
+# SU(2) quaternions ([4, *sites] real) and the Cabibbo–Marinari subgroups
+# (reference ops/sun.py:162-249).  ``*sites`` is any shape: the dense
+# engine's fields put a beta scan's chain axis there, before the lattice
+# axes, so the same helpers update every chain at once.
+# ---------------------------------------------------------------------------
+
+
+def quat_mul(p, q):
+    """Quaternion product matching M(p) @ M(q) = M(quat_mul(p, q)).  The
+    16 products p_a q_b come from one broadcast multiply, then are summed
+    in the reference's order (r0 = p0 q0 - p1 q1 - p2 q2 - p3 q3; the
+    vector part p0 qv + q0 pv - pv x qv), the same values."""
+    pq = [t.unbind(0) for t in (p.unsqueeze(1) * q.unsqueeze(0)).unbind(0)]
+    return torch.stack([
+        pq[0][0] - pq[1][1] - pq[2][2] - pq[3][3],
+        pq[0][1] + pq[1][0] - (pq[2][3] - pq[3][2]),
+        pq[0][2] + pq[2][0] - (pq[3][1] - pq[1][3]),
+        pq[0][3] + pq[3][0] - (pq[1][2] - pq[2][1]),
+    ], dim=0)
+
+
+def quat_mul0(p, q):
+    """quat_mul(p, q)[0] alone, the same terms."""
+    d0, d1, d2, d3 = (p * q).unbind(0)
+    return d0 - d1 - d2 - d3
+
+
+def quat_conj(q):
+    """Conjugate (the inverse of a unit quaternion; M(q)^dag)."""
+    q0, q1, q2, q3 = q.unbind(0)
+    return torch.stack([q0, -q1, -q2, -q3], dim=0)
+
+
+def quat_norm2(q):
+    """|q|^2, the components' squares summed in order."""
+    q0, q1, q2, q3 = q.unbind(0)
+    return q0 * q0 + q1 * q1 + q2 * q2 + q3 * q3
+
+
+def quat_norm(q):
+    return torch.sqrt(quat_norm2(q))
+
+
+def subgroups(n):
+    """The SU(2) subgroup index pairs swept by Cabibbo–Marinari."""
+    if n == 2:
+        return ((0, 1),)
+    if n == 3:
+        return ((0, 1), (0, 2), (1, 2))
+    return tuple((i, j) for i in range(n) for j in range(i + 1, n))
+
+
+def extract_block_quat(w, i, j):
+    """Project the (i, j) 2x2 block of a [N, N, *sites] field onto a
+    quaternion [4, *sites]: Re tr(u_emb W) = 2 (u * q)_0 + const."""
+    return torch.stack([
+        0.5 * (w[i, i].real + w[j, j].real),
+        0.5 * (w[i, j].imag + w[j, i].imag),
+        0.5 * (w[i, j].real - w[j, i].real),
+        0.5 * (w[i, i].imag - w[j, j].imag),
+    ], dim=0)
+
+
+def subgroup_left_mul(q, i, j, m):
+    """embed(M(q); rows/cols i, j) @ m for a [N, N, *sites] field m, as a
+    new field: only rows i and j change (8 complex products a site).  q is
+    real in m's real dtype; M(q)'s entries q0 + i q3 etc. are exact."""
+    u00 = torch.complex(q[0], q[3])
+    u01 = torch.complex(q[2], q[1])
+    u10 = torch.complex(-q[2], q[1])
+    u11 = torch.complex(q[0], -q[3])
+    rows = list(m.unbind(0))
+    rows[i] = u00 * m[i] + u01 * m[j]
+    rows[j] = u10 * m[i] + u11 * m[j]
+    return torch.stack(rows, dim=0)

@@ -6,19 +6,29 @@
     sim.measure(); sim.analysis(); sim.unitarity_defect()
     sim.save(path); sim = Simulation.load(path)   # exact resume
 
-The state is the packed 8-tuple on ``device`` (ops/cuda/engine.py), held as
-the runner's shards, and the stage and reunitarization kernels update it
-in place.  The canonical
-complex field [4, N, N, X, Y, Z, T] is built only when something asks for
-it (``sim.u``, ``unitarity_defect``).  With ``rng_mode="prngcl:<gen>"`` the
-Simulation also owns the packed PRNGCL stream state (``stream_state``),
-which the drawing stages advance in place.  With ``cfg.mesh = (mx, my, 1,
-1)`` the lattice is split over X/Y shards (ops/cuda/sharded.py), all on
-``device`` unless ``devices`` spreads them; ``us``, ``u`` and
-``stream_state`` then gather the shards into the global state (without a
-mesh the one shard is the whole lattice).  Checkpoints
-(utils/checkpoint.py) are the JAX package's: ``save`` writes the packed
-directory, ``load`` reads either format from either package.
+``resolve_engine(cfg)`` (config.py, the reference's rules) picks the
+engine, and ``make_chunk_runner`` builds its runner:
+
+* the packed engine ("pallas", ops/cuda/engine.py): the state is the
+  packed 8-tuple on ``device``, held as the runner's shards, and the stage
+  and reunitarization kernels update it in place.  The canonical complex
+  field [4, N, N, X, Y, Z, T] is built only when something asks for it
+  (``sim.u``, ``unitarity_defect``).  With ``rng_mode="prngcl:<gen>"`` the
+  Simulation also owns the packed PRNGCL stream state (``stream_state``),
+  which the drawing stages advance in place.  With ``cfg.mesh = (mx, my,
+  1, 1)`` the lattice is split over X/Y shards (ops/cuda/sharded.py), all
+  on ``device`` unless ``devices`` spreads them; ``us``, ``u`` and
+  ``stream_state`` then gather the shards into the global state (without
+  a mesh the one shard is the whole lattice).  ``save`` writes the packed
+  directory.
+* the dense engine ("xla", dense.py: complex128, engine="xla"): the state
+  is the complex field itself, in cfg.dtype, and in stream mode the dense
+  stream state; ``us`` and ``u`` are the field, ``save`` writes the
+  reference's single .npz (links_ri and the dense stream state).
+
+Checkpoints (utils/checkpoint.py) are the JAX package's: ``load`` reads
+either format from either package; a stream state of the other engine's
+layout is refused, as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -29,18 +39,30 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import SimConfig, stream_mode_name
-from .ops import prng_streams as streams
+from . import dense
+from .config import SimConfig, resolve_engine, stream_mode_name
+from .dense import (cold_start, hot_start, make_sweep_fn,  # noqa: F401
+                    stream_hot_start)
 from .ops import rng, sun
-from .ops.cuda import engine, sharded
+from .ops.cuda import engine
 from .ops.measure import measure_obs_names, obs_names
 
 NDIM = 4
 
 
+def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
+    """The runner of the engine cfg resolves to (qcdgpu_tpu/sim.py:309-373):
+    the dense engine's (dense.make_chunk_runner) or the packed engine's
+    (ops/cuda/engine.make_chunk_runner, its shards on ``devices``)."""
+    if resolve_engine(cfg) == "xla":
+        return dense.make_chunk_runner(cfg, device)
+    return engine.make_chunk_runner(cfg, device, devices)
+
+
 class Simulation:
-    """Owns (packed links, base key, sweep counter) on one device, and in
-    PRNGCL stream mode the packed stream state.
+    """Owns (links, base key, sweep counter) on one device, and in PRNGCL
+    stream mode the stream state, in the layout of the engine cfg resolves
+    to (``self.engine``: "pallas" packed, "xla" dense).
 
     ``device`` is 'cuda' (the default) or 'cpu'; 'cuda' without a card
     raises — there is no silent fallback to the CPU.  ``init_u``
@@ -49,8 +71,9 @@ class Simulation:
     fresh streams from cfg.seed in stream mode; otherwise cfg.start picks a
     cold or hot start (a stream-mode hot start draws from the streams).
     ``devices``: where the shards of an X/Y mesh go (default: all on
-    ``device``).  ``_stream_rst``: the packed stream state, as numpy in the
-    reference's keys and dtypes, that goes with ``init_us`` (``load``).
+    ``device``).  ``_stream_rst``: the stream state, as numpy in the
+    reference's keys and dtypes, that goes with ``init_u`` / ``init_us``
+    (``load``); a layout of the other engine is refused.
     """
 
     def __init__(self, cfg: SimConfig, init_u=None, init_us=None, *,
@@ -58,15 +81,16 @@ class Simulation:
         self.cfg = cfg
         self.device = engine.resolve_device(device)
         self.base_key = rng.make_base_key(cfg.seed)
-        self._run = engine.make_chunk_runner(cfg, self.device, devices)
+        self._run = make_chunk_runner(cfg, self.device, devices)
+        self.engine = self._run.engine
         self.sweep_idx = 0
         self.obs_history: list[np.ndarray] = []
         self._gen = stream_mode_name(cfg.rng_mode)
-        self._rst = None  # packed stream state ({} with threefry)
+        self._rst = None  # stream state ({} with threefry)
         if init_u is not None:
-            self._us = self._run.scatter(self._adopt_input(init_u))
+            self._us = self._run.adopt(init_u)
         elif init_us is not None:
-            self._us = self._run.scatter(self._adopt_input(tuple(init_us)))
+            self._us = self._run.adopt(tuple(init_us))
         elif cfg.start == "hot" and self._gen:
             self._us, self._rst = self._run.packed_stream_hot_start()
         elif cfg.start == "hot":
@@ -79,73 +103,26 @@ class Simulation:
         else:
             self._us = self._run.packed_cold_start()
         if _stream_rst is not None and self._gen:
-            self._rst = self._adopt_streams(_stream_rst)
+            self._rst = self._run.adopt_streams(_stream_rst)
         if self._rst is None:
             self._rst = self._run.make_stream_state0()
-
-    def _adopt_streams(self, rst):
-        """A saved packed stream state (numpy, the reference's keys and
-        dtypes) -> the runner's sharded state on this device; refuses a
-        layout this engine does not run, as the reference does."""
-        want = engine.stream_state_keys(self._gen)
-        if set(rst) != want:
-            raise ValueError(
-                "PRNGCL stream-state layout mismatch: checkpoint has "
-                f"{sorted(rst)} but the resolved engine expects "
-                f"{sorted(want)} — resume with the same engine "
-                "(XLA dense vs Pallas packed states are different "
-                "randomness provenances)"
-            )
-        dims = tuple(self.cfg.dims)
-        shape = (streams.stream_word_count(self._gen), dims[0], dims[1],
-                 dims[2] * (dims[3] // 2))
-        out = {}
-        for k, v in rst.items():
-            if k.startswith("words"):
-                out[k] = streams.words_from_numpy(self._gen, v, self.device)
-                if tuple(out[k].shape) != shape:
-                    raise ValueError(f"stream {k}: shape {tuple(v.shape)}, "
-                                     f"expected {shape}")
-            elif k.startswith("c_"):
-                out[k] = float(v)
-            else:
-                out[k] = int(v)
-        return sharded.shard_streams(out, self._run.grid)
-
-    def _adopt_input(self, arrays):
-        if isinstance(arrays, tuple):
-            if all(isinstance(a, torch.Tensor) for a in arrays):
-                return tuple(a.to(self.device, torch.float32).contiguous()
-                             .clone() for a in arrays)
-            return engine.from_reference(arrays, self.device)
-        if isinstance(arrays, torch.Tensor):
-            return engine.split_links(arrays.to(self.device,
-                                                torch.complex64))
-        return engine.from_reference(arrays, self.device)
 
     # -- state ------------------------------------------------------------
     @property
     def us(self):
-        """The packed 8-tuple: the live state (updated in place by the
-        sweeps), or on a mesh the shards gathered into a new one."""
+        """The engine-layout links: the packed 8-tuple (the live state,
+        updated in place by the sweeps; on a mesh the shards gathered into
+        a new one), or on the dense engine the live complex field."""
         return self._run.gather(self._state())[0]
 
     @property
     def stream_state(self):
-        """The packed PRNGCL stream state as numpy in the reference's
-        dtypes (words uint32 / int32 / float32; nb, ptr int32; c float32),
-        or None outside stream mode."""
+        """The stream state as numpy in the reference's keys and dtypes
+        (packed: words uint32 / int32 / float32, nb, ptr int32, c float32;
+        dense: the reference's dense keys), or None outside stream mode."""
         if self._gen is None:
             return None
-        out = {}
-        for k, v in self._run.gather(self._state())[1].items():
-            if isinstance(v, torch.Tensor):
-                out[k] = streams.words_to_numpy(self._gen, v)
-            elif k.startswith("c_"):
-                out[k] = np.float32(v)
-            else:
-                out[k] = np.int32(v)
-        return out
+        return self._run.stream_to_numpy(self._run.gather(self._state())[1])
 
     def _state(self):
         return self._us, self._rst
@@ -155,7 +132,8 @@ class Simulation:
 
     @property
     def u(self):
-        """Canonical complex64 field [4, N, N, X, Y, Z, T] (a new tensor)."""
+        """Canonical complex field [4, N, N, X, Y, Z, T] (a new tensor):
+        complex64 on the packed engine, cfg.dtype on the dense one."""
         return self._run.unpack(self._state())
 
     def sync(self) -> float:
@@ -237,8 +215,9 @@ class Simulation:
 
     # -- measurement ------------------------------------------------------
     def measure(self) -> dict:
-        """One measurement of the live state: the standard six through
-        the packed kernels, then cfg's extended columns."""
+        """One measurement of the live state: the standard six (through
+        the packed kernels, or the dense engine's measurement), then cfg's
+        extended columns."""
         vals = self._run.measure_packed(self._us).cpu().numpy()
         return dict(zip(measure_obs_names(self.cfg), vals.tolist()))
 
@@ -264,11 +243,16 @@ class Simulation:
 
     # -- checkpoint -------------------------------------------------------
     def save(self, path: str):
-        """Write the packed checkpoint directory at ``path`` (links, and the
-        packed stream state in stream mode), readable by the JAX package's
-        load_state too."""
+        """Write the checkpoint at ``path``, readable by the JAX package's
+        load_state too: the packed directory (links, and the packed stream
+        state in stream mode), or on the dense engine the single .npz of
+        the canonical field in cfg.dtype and the dense stream state."""
         from .utils.checkpoint import save_state
 
+        if self.engine == "xla":
+            save_state(path, self.cfg, self.u, self.sweep_idx,
+                       self.obs_history, rng_stream=self.stream_state)
+            return
         save_state(path, self.cfg, None, self.sweep_idx, self.obs_history,
                    rng_stream=self.stream_state, us=self.us)
 
@@ -276,7 +260,8 @@ class Simulation:
     def load(cls, path: str, *, device="cuda", devices=None):
         """Resume a checkpoint of either format, written by either package;
         the chain continues bit for bit (a TPU ``hw`` run's links are
-        exact, and it continues on Philox)."""
+        exact, and it continues on Philox).  A stream state of the other
+        engine's layout (dense vs packed) is refused."""
         from .utils.checkpoint import load_state
 
         cfg, u, sweep_idx, obs_history, rng_stream = load_state(path)

@@ -21,7 +21,9 @@ A beta scan (models/ensemble.py BetaScan) writes the reference's
 ``betascan`` .npz (qcdgpu_tpu/models/ensemble.py:515-583): ``kind =
 betascan``, the header, ``betas`` (f32 [C]), ``keys`` (u32 [C, 2], each
 chain's base key), ``us_ri`` (the canonical fields as float [2, C, 4, N,
-N, X, Y, Z, T]) and ``sweep_idx``; ``save_betascan`` / ``load_betascan``.
+N, X, Y, Z, T]), ``sweep_idx`` and, for a stream scan, the chains' stream
+state under the same prefix; ``save_betascan`` / ``load_betascan`` /
+``load_betascan_streams``.
 ``load_state`` refuses it, as the reference does.
 
 Arrays travel as numpy; a tensor argument is copied to the host first.
@@ -180,10 +182,13 @@ def load_state(path):
 BETASCAN_KIND = b"betascan"
 
 
-def save_betascan(path, cfg: SimConfig, betas, keys, u, sweep_idx: int):
+def save_betascan(path, cfg: SimConfig, betas, keys, u, sweep_idx: int,
+                  rng_stream=None):
     """Write a beta scan's state as the reference's ``betascan`` .npz (".npz"
     appended when missing, as numpy does): betas [C], base keys [C, 2],
-    the canonical complex fields u [C, 4, N, N, X, Y, Z, T].  Written to a
+    the canonical complex fields u [C, 4, N, N, X, Y, Z, T] (float32, or
+    float64 for complex128), and a stream scan's chain-stacked dense
+    stream state (rng_stream, the reference's layout).  Written to a
     sibling file first and moved into place."""
     final = str(path) if str(path).endswith(".npz") else str(path) + ".npz"
     tmp = final + ".tmp.npz"
@@ -194,8 +199,10 @@ def save_betascan(path, cfg: SimConfig, betas, keys, u, sweep_idx: int):
         config_json=np.bytes_(json.dumps(cfg.to_dict()).encode()),
         betas=np.asarray(_host(betas), np.float32),
         keys=np.asarray(_host(keys), np.uint32),
-        us_ri=links_to_host(u).astype(np.float32),
+        us_ri=links_to_host(u).astype(
+            np.float64 if cfg.dtype == "complex128" else np.float32),
         sweep_idx=np.int64(sweep_idx),
+        **pack_rng_stream(rng_stream),
     )
     os.replace(tmp, final)
 
@@ -218,3 +225,10 @@ def load_betascan(path):
         return (cfg, np.asarray(z["betas"], np.float32),
                 np.asarray(z["keys"], np.uint32),
                 links_from_host(z["us_ri"], cdtype), int(z["sweep_idx"]))
+
+
+def load_betascan_streams(path):
+    """The stream state of a ``betascan`` .npz (numpy, the reference's
+    chain-stacked layout), or None for a counter-based scan."""
+    with np.load(path, allow_pickle=False) as z:
+        return unpack_rng_stream(z)

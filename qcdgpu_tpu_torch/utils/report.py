@@ -121,6 +121,9 @@ def format_text(record: dict) -> str:
     for k, v in record["config"].items():
         lines.append(f"  {k} = {v}")
     lines.append("")
+    if "engine" in record:
+        lines.append(f"[engine]  {record['engine']}")
+        lines.append("")
     lines.append("[device]")
     for k, v in record["device"].items():
         lines.append(f"  {k} = {v}")

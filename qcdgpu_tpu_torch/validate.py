@@ -13,8 +13,10 @@ literature and against the reference's self-regression anchors:
      attached; sharded == unsharded bit equality runs in
      tests/test_torch_sharded.py and chip_smoke.py)
 
-Config 6 (XLA vs Pallas engine) needs the dense engine (M11); asking for
-it raises NotImplementedError.  ``check_su2`` / ``check_su3`` /
+  6. engine cross-validation: the dense engine (dense.py) against the
+     packed CUDA engine, threefry, over 2 sweeps and one heat-bath stage
+
+``check_su2`` / ``check_su3`` /
 ``check_deconfinement`` take config overrides (``rng_mode="hw"``, another generator, ...) so that the same
 gates hold every random source.  Each check reports measured / expected /
 deviation and PASS/FAIL; the criterion is agreement within
@@ -302,9 +304,63 @@ def check_multichip(quick=False, device="cuda"):
 
 
 def check_engines(quick=False, device="cuda"):
-    raise NotImplementedError(
-        "validate config 6 (XLA vs Pallas engine) needs the dense engine, "
-        "not ported yet (ROADMAP M11)")
+    """The dense engine against the packed one, identical threefry streams
+    (the reference's config 6, validate.py:321-413): SU(3) 8^4, beta 6.0,
+    n_or 1, a hot start, seed 21, 2 sweeps, no reunitarization.  Both
+    engines sample the same chain up to f32 rounding order; the packed
+    kernels and torch's ops round differently (-fmad=false kernels, the
+    two-row codec's third row), and 2 sweeps x 16 dependent stages amplify
+    that, so the chain bars are |dlinks| < 1e-2 and |dobs| < 1e-4, where a
+    flipped Monte Carlo decision moves a whole SU(3) matrix (O(1)).  One
+    heat-bath stage (mu 1, parity 0) on identical inputs must agree to
+    2e-5.  ``quick`` changes nothing (the check is one size)."""
+    import torch
+
+    from . import dense
+    from .ops import rng
+    from .ops.cuda import engine
+    from .ops.cuda import update as cupdate
+    from .ops.lattice import parity_mask, site_index
+    from .ops.samplers import update_links
+    from .ops.staples import staple_sum
+
+    del quick
+    dev = engine.resolve_device(device)
+    cfg = SimConfig(group=3, dims=(8, 8, 8, 8), beta=6.0, n_or=1,
+                    rng_mode="threefry", reunit_every=0, seed=21,
+                    start="hot")
+    key = rng.make_base_key(cfg.seed)
+    u0 = dense.hot_start(cfg, key, dev)
+    outs = {
+        "xla": dense.make_chunk_runner(cfg.replace(engine="xla"), dev)(
+            u0, key, 0, 2, 2),
+        "pallas": engine.make_chunk_runner(cfg.replace(engine="pallas"),
+                                           dev)(u0, key, 0, 2, 2),
+    }
+    dlinks = float(torch.max(torch.abs(outs["xla"][0] - outs["pallas"][0])))
+    dobs = float(torch.max(torch.abs(outs["xla"][1] - outs["pallas"][1])))
+
+    mu, parity = 1, 0
+    key2 = rng.stage_key(key, 0, 5)
+    us = engine.split_links(u0)
+    cupdate.stage_update(us, mu, parity, cfg.beta, key2, cfg.dims,
+                         cfg.kp_trials, kind="heatbath", n_hit=cfg.n_hit,
+                         metro_delta=cfg.metro_delta)
+    got = engine.join_dir((us[2 * mu], us[2 * mu + 1]), cfg.dims, cfg.group)
+    ref = update_links(u0[mu], staple_sum(u0, mu), "heatbath", cfg.beta,
+                       key2, site_index(cfg.dims, dev),
+                       k_trials=cfg.kp_trials)
+    ref = torch.where(parity_mask(cfg.dims, parity, dev), ref, u0[mu])
+    dstage = float(torch.max(torch.abs(got - ref)))
+    return {
+        "name": "engine cross-validation (dense vs packed, threefry, "
+                "2 sweeps + single stage)",
+        "measured": {"max_dlinks": dlinks, "max_dobs": dobs,
+                     "max_dstage": dstage},
+        "expected": "chain: |dlinks| < 1e-2, |dobs| < 1e-4; "
+                    "single stage: |dstage| < 2e-5",
+        "pass": bool(dlinks < 1e-2 and dobs < 1e-4 and dstage < 2e-5),
+    }
 
 
 CHECKS = {
@@ -317,7 +373,7 @@ CHECKS = {
 }
 
 
-def run_validation(configs=(1, 2, 3, 4, 5), quick=False, out_path=None,
+def run_validation(configs=(1, 2, 3, 4, 5, 6), quick=False, out_path=None,
                    device="cuda"):
     results = []
     for c in configs:

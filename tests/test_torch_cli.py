@@ -99,19 +99,22 @@ def test_scan_then_resume_is_one_scan(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["scan", "--betas", "5.6,6.0", "--rng-mode", "prngcl:ranlux3"], "M11"),
-    (["scan", "--betas", "5.6,6.0", "--mesh", "1,1,1,2"], "M11"),
-    (["validate", "--configs", "6"], "M11"),
-    (["run", "--get-qtop", "--dtype", "complex128"], "M11"),
-    (["run", "--wilson-loops", "1x1", "--mesh", "1,1,1,2"], "M11"),
-    (["run", "--meas-dtype", "double", "--dtype", "complex128"], "M11"),
-    (["run", "--engine", "xla"], "M11"),
+    (["scan", "--betas", "5.6,6.0", "--rng-mode", "prngcl:ranlux3",
+      "--mesh", "2,1,1,1"], "M11b"),
+    (["scan", "--betas", "5.6,6.0", "--mesh", "1,1,1,2"], "M11b"),
+    (["scan", "--betas", "5.6,6.0", "--engine", "xla", "--mesh",
+      "2,1,1,1"], "M11b"),
+    (["run", "--get-qtop", "--dtype", "complex128", "--mesh", "2,1,1,1"],
+     "M11b"),
+    (["run", "--wilson-loops", "1x1", "--mesh", "1,1,1,2"], "M11b"),
+    (["run", "--meas-dtype", "double", "--dtype", "complex128", "--mesh",
+      "2,2,1,1"], "M11b"),
+    (["run", "--engine", "xla", "--mesh", "1,2,1,1"], "M11b"),
 ])
 def test_unported_features_name_their_item(args, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         cli.main([*args, "--dims", "4,4,2,4", "--device", "cpu", "--out",
-                  str(tmp_path)] if args[0] != "validate"
-                 else [*args, "--device", "cpu"])
+                  str(tmp_path)])
 
 
 def test_validate_skips_multicard_without_cards(capsys):

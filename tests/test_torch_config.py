@@ -1,5 +1,6 @@
 """qcdgpu_tpu_torch.config mirrors qcdgpu_tpu.config; features outside the
-ported slices are refused; the package never imports jax."""
+ported slices (the dense engine on a mesh) are refused; the package never
+imports jax."""
 
 import dataclasses
 import subprocess
@@ -13,6 +14,7 @@ import torch
 from qcdgpu_tpu.config import SimConfig as RefConfig
 from qcdgpu_tpu_torch import SimConfig, Simulation
 from qcdgpu_tpu_torch.ops.cuda import engine
+from qcdgpu_tpu_torch.sim import make_chunk_runner
 
 torch.set_num_threads(1)
 
@@ -56,32 +58,35 @@ def test_validation_matches_reference(kw):
         SimConfig(**kw)
 
 
-# each ported feature paired with an unported one: the pair is still refused
+# each feature on the dense engine (complex128, engine="xla", a Z/T split)
+# paired with a mesh: the dense engine on a mesh is still refused (M11b)
 @pytest.mark.parametrize("kw", [
     dict(algorithm="metropolis", rng_mode="prngcl:ranmar", get_qtop=True,
-         dtype="complex128"),
+         dtype="complex128", mesh=(2, 1, 1, 1)),
     dict(algorithm="metropolis", track_acceptance=True, get_qtop=True,
-         engine="xla"),
-    dict(track_kp_exhaust=True, meas_dtype="double", dtype="complex128"),
-    dict(get_fmunu=True, engine="xla"),
+         engine="xla", mesh=(1, 2, 1, 1)),
+    dict(track_kp_exhaust=True, meas_dtype="double", dtype="complex128",
+         mesh=(2, 2, 1, 1)),
+    dict(get_fmunu=True, engine="xla", mesh=(2, 1, 1, 1)),
     dict(wilson_loops=((1, 1),), mesh=(1, 1, 1, 2)),
-    dict(get_qtop=True, dtype="complex128"),
+    dict(get_qtop=True, dtype="complex128", mesh=(2, 1, 1, 2)),
     dict(mesh=(2, 2, 1, 1), get_qtop=True, dtype="complex128"),
-    dict(dtype="complex128"),
-    dict(meas_dtype="double", engine="xla"),
-    dict(engine="xla"),
+    dict(dtype="complex128", mesh=(2, 1, 1, 1)),
+    dict(meas_dtype="double", engine="xla", mesh=(1, 2, 1, 1)),
+    dict(engine="xla", mesh=(2, 1, 1, 1)),
 ])
 def test_unported_features_raise(kw):
     cfg = SimConfig(**{**TINY, **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.make_chunk_runner(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*M11b"):
+        make_chunk_runner(cfg, "cpu")
 
 
-# Z/T splits run on the reference's XLA engine, which is not ported
+# Z/T splits run on the reference's XLA engine, here the dense engine,
+# which runs on one device only (M11b)
 @pytest.mark.parametrize("mesh", [(1, 1, 2, 1), (2, 1, 1, 2), (1, 1, 1, 2)])
 def test_zt_meshes_raise(mesh):
     cfg = SimConfig(dims=(4, 4, 4, 4), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(NotImplementedError, match="M11b"):
         Simulation(cfg, device="cpu")
 
 
@@ -140,6 +145,8 @@ def test_default_device_is_the_card():
 
 def test_import_leaves_jax_out():
     code = ("import sys, qcdgpu_tpu_torch, qcdgpu_tpu_torch.sim, "
+            "qcdgpu_tpu_torch.dense, qcdgpu_tpu_torch.ops.samplers, "
+            "qcdgpu_tpu_torch.ops.measure, qcdgpu_tpu_torch.ops.sun, "
             "qcdgpu_tpu_torch.ops.cuda.engine, "
             "qcdgpu_tpu_torch.ops.cuda.sharded, "
             "qcdgpu_tpu_torch.parallel.mesh, "

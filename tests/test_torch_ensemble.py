@@ -209,10 +209,10 @@ def test_presets():
 
 
 @pytest.mark.parametrize("kw,chain_mesh,item", [
-    (dict(rng_mode="prngcl:ranlux3"), 1, "M11"),
-    (dict(mesh=(1, 1, 2, 1)), 1, "M11"),
-    (dict(rng_mode="prngcl:ranlux3", mesh=(2, 1, 1, 1)), 2, "M11"),
-    (dict(get_qtop=True, dtype="complex128"), 1, "M11"),
+    (dict(rng_mode="prngcl:ranlux3", mesh=(1, 2, 1, 1)), 1, "M11b"),
+    (dict(mesh=(1, 1, 2, 1)), 1, "M11b"),
+    (dict(rng_mode="prngcl:ranlux3", mesh=(2, 1, 1, 1)), 2, "M11b"),
+    (dict(get_qtop=True, dtype="complex128"), 2, "M11b"),
 ])
 def test_refusals_name_their_item(kw, chain_mesh, item):
     cfg = SimConfig(**{**SU2, **kw})

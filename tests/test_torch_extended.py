@@ -23,6 +23,7 @@ from qcdgpu_tpu.ops import measure as jmeas
 from qcdgpu_tpu.ops import smear as jsmear
 from qcdgpu_tpu.ops import staples as jstaples
 from qcdgpu_tpu_torch import SimConfig
+from qcdgpu_tpu_torch import sim as tsim
 from qcdgpu_tpu_torch.ops import measure as tmeas
 from qcdgpu_tpu_torch.ops import smear as tsmear
 from qcdgpu_tpu_torch.ops import staples as tstaples
@@ -363,15 +364,15 @@ def test_line_product_and_obs_names_match_reference():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(dtype="complex128", get_qtop=True),
-    dict(dtype="complex128", meas_dtype="double"),
+    dict(dtype="complex128", get_qtop=True, mesh=(2, 1, 1, 1)),
+    dict(dtype="complex128", meas_dtype="double", mesh=(1, 2, 1, 1)),
     dict(mesh=(1, 1, 2, 1), wilson_loops=((1, 1),)),
-    dict(engine="xla", get_fmunu=True),
+    dict(engine="xla", get_fmunu=True, mesh=(2, 2, 1, 1)),
 ])
 def test_refusals_name_m11(kw):
     cfg = SimConfig(dims=DIMS, **kw)
-    with pytest.raises(NotImplementedError, match="M11"):
-        teng.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="M11b"):
+        tsim.make_chunk_runner(cfg, "cpu")
 
 
 @pytest.mark.parametrize("mesh", [(2, 1, 1, 1), (2, 2, 1, 1)])
