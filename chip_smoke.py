@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and run its main paths on one GPU.
 
-    python3 chip_smoke.py              # one card
-    python3 chip_smoke.py --cards 4    # the sharded path across 4 cards
+    python3 chip_smoke.py                    # one card
+    python3 chip_smoke.py --cards 4          # the sharded path across 4 cards
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a)
 and nvcc.  With ``--cards N`` it builds the kernels and runs only phase 7:
@@ -12,8 +12,11 @@ with 8 KP trials and SU(2) Metropolis with 25 hits on ranlux3 (stages past
 48 KB of shared memory), each with its shards spread over N cards, against the unsharded chain on card 0
 (links, series and streams bit-identical); then a scan of 2N chains on
 (2,2,1,1) with its N chain blocks on the N cards against one block on
-card 0 (links and series bit-identical), and one measured block of
-phase 8's main path (c) on the XY mesh across the cards against card 0.
+card 0 (links and series bit-identical), one measured block of
+phase 8's main path (c) on the XY mesh across the cards against card 0,
+and the dense engine's complex128 SU(3) 32^4 run on (1,1,2,2) with its
+shards on the cards against card 0's unsharded dense run (links
+bit-identical).
 With no argument, phases 1-6, 8 and 9, each timed:
 
   1. device     — card name and power limit, torch / CUDA / nvcc versions;
@@ -223,7 +226,23 @@ With no argument, phases 1-6, 8 and 9, each timed:
                   the SU(3) and SU(2) quick gates in complex128; (d) a
                   ranlux3 complex128 run at 8^4 saved, loaded and
                   continued bit-identical; (e) a 3-chain xor128 scan at
-                  8^4, each chain bit-identical to its Simulation.
+                  8^4, each chain bit-identical to its Simulation; (f)
+                  the dense engine on a mesh, every shard on the card:
+                  (b)'s complex128 run on (1,1,2,2) (5 + 5 sweeps) with
+                  links torch.equal to (b)'s and the series within 1e-5,
+                  its ms/sweep, launches, device busy time, idle share,
+                  peak memory and halo copies; at 8^4, 2 sweeps each
+                  against the unsharded dense run bit for bit, a Z/T mesh
+                  under engine "auto", engine "xla" complex64 on
+                  (2,2,1,1), ranlux3 and mrg32k3a on (1,2,1,1),
+                  meas_dtype "double", complex128 SU(2) Metropolis, and
+                  every extended observable on (2,1,1,2) (those columns
+                  equal); a 3-chain xor128 scan on (1,1,2,1) in one chain
+                  block and in 3, each chain its mesh Simulation; the CLI
+                  `run --mesh 1,1,2,2 --dtype complex128` resumed with
+                  `--mesh 2,1,1,1`, bit-identical to an uninterrupted
+                  run; validate config 5 (the one-device fallback) PASS;
+                  none of our kernels launched.
 
 Any failed check raises and the script exits non-zero.  The last three
 lines are the kernels' JSON record, the card's `nvidia-smi` name/power
@@ -231,6 +250,8 @@ line and {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.
 """
 
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -820,16 +841,20 @@ def profile_window(sim, n_sweeps):
     return wall, wall_prof, busy, by_name
 
 
-def device_events(prof):
-    """{name: (device ms, calls)} of a finished torch.profiler trace's
-    device events (kernels, copies, memsets)."""
+def trace_events(prof):
+    """The chrome-trace events of a finished torch.profiler trace."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
+
+
+def device_events(prof):
+    """{name: (device ms, calls)} of a finished torch.profiler trace's
+    device events (kernels, copies, memsets)."""
     by_name = {}
-    for e in events:
+    for e in trace_events(prof):
         if e.get("cat") in DEVICE_CATS:
             ms, calls = by_name.get(e["name"], (0.0, 0))
             by_name[e["name"]] = (ms + e["dur"] / 1e3, calls + 1)
@@ -863,12 +888,76 @@ def device_ms(fn, reps, match):
             sum(ms for ms, _ in by_name.values()) / reps)
 
 
+def dense_across_cards(cards, smi):
+    """The dense engine on DENSE_MESH with its shards on ``cards`` (shard k
+    on card k % N): (b)'s complex128 SU(3) 32^4 configuration, 2 + 2
+    sweeps, against card 0's unsharded dense run (links bit-identical,
+    series within 1e-5); ms/sweep, and one sweep under torch.profiler:
+    launches and device busy ms per card, and each card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qcdgpu_tpu_torch import SimConfig, Simulation
+
+    cfg = SimConfig(group=3, beta=6.0, dims=BIG, reunit_every=10,
+                    start="cold", seed=0, dtype="complex128", engine="xla")
+    out = []
+    for m, devices in (((1, 1, 1, 1), None), (DENSE_MESH, cards)):
+        sim = Simulation(cfg.replace(mesh=m), device="cuda:0",
+                         devices=devices)
+        sim.warmup()
+        t0 = time.perf_counter()
+        sim.thermalize(2)
+        obs = sim.run(2, 1)
+        sim.sync()
+        ms = (time.perf_counter() - t0) / 4 * 1e3
+        out.append((sim.u.cpu(), obs, ms,
+                    sorted({str(d) for d in sim._run.grid.devices})))
+    (u1, o1, ms1, _), (un, on, msn, used) = out
+    same = torch.equal(u1, un)
+    dobs = float(np.max(np.abs(o1 - on)))
+    # one sweep of the mesh run on the host clock, then under the profiler
+    sim.sync()
+    t0 = time.perf_counter()
+    sim.thermalize(1)
+    sim.sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.thermalize(1)
+        sim.sync()
+    busy = device_busy_by_card(prof)
+    per_card = "; ".join(
+        f"cuda:{d} {ms:.1f} ms busy in {n} launches, idle share "
+        f"{1.0 - ms / wall:.3f}" for d, (ms, n) in sorted(busy.items()))
+    print(f"dense complex128 SU(3) {BIG}: mesh {DENSE_MESH} on {used} vs "
+          f"unsharded on cuda:0, thermalize(2) + run(2, 1): links "
+          f"bit-identical {same}, series max |d| {dobs:.1e}; {msn:.1f} vs "
+          f"{ms1:.1f} ms/sweep; one mesh sweep {wall:.1f} ms host: "
+          f"{per_card or 'device time not measured (empty trace)'}  "
+          f"[{smi}]")
+    require(same and dobs < 1e-5
+            and len(used) == min(len(cards), int(np.prod(DENSE_MESH))),
+            "dense mesh across the cards differs")
+
+
+def device_busy_by_card(prof):
+    """{card index: (device ms, launches)} of a finished torch.profiler
+    trace's device events."""
+    out = {}
+    for e in trace_events(prof):
+        if e.get("cat") in DEVICE_CATS:
+            d = int(e.get("args", {}).get("device", -1))
+            ms, n = out.get(d, (0.0, 0))
+            out[d] = (ms + e["dur"] / 1e3, n + 1)
+    return out
+
+
 def multicard(n_cards):
     """``--cards N``: the sharded path with its shards spread over N cards
     (Simulation(cfg, devices=[cuda:0 .. cuda:N-1]), halo copies between
     cards) against the unsharded chain on card 0: links, series and
-    stream state bit-identical.  Prints each card's nvidia-smi line and
-    the contract's last line with count N."""
+    stream state bit-identical; then dense_across_cards.  Prints each
+    card's nvidia-smi line and the contract's last line with count N."""
     from qcdgpu_tpu_torch import SimConfig, Simulation
     from qcdgpu_tpu_torch.ops.cuda import build
 
@@ -973,6 +1062,8 @@ def multicard(n_cards):
               f"row ({out[1].shape[1]} columns) bit-identical to the "
               f"unsharded run on cuda:0: {same}")
         require(same, "extended measurement across cards differs")
+    with Phase(f"9 dense mesh on {n_cards} cards"):
+        dense_across_cards(cards, smi[0])
     print(smi[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1369,7 +1460,8 @@ def dense_phase(dev, smi, counters):
     full-width main path (Simulation(cfg) at SU(3) 32^4 on the dense
     engine): times, launches, memory, idle share; (c) validate config 6
     and the complex128 physics gates; (d) exact resume; (e) a 3-chain
-    stream scan, each chain its Simulation."""
+    stream scan, each chain its Simulation; (f) the dense engine on a
+    mesh (dense_mesh_phase)."""
     from qcdgpu_tpu_torch import SimConfig, Simulation, dense, validate
     from qcdgpu_tpu_torch.models import BetaScan
     from qcdgpu_tpu_torch.ops import prng_streams as ps
@@ -1497,6 +1589,9 @@ def dense_phase(dev, smi, counters):
         peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
         ours = {k: v for cnt in counters for k, v in cnt.items() if v}
         require(not ours, f"{label}: the dense path launched {ours}")
+        if label == "complex128":
+            # (f) holds the same run on a mesh to these links and series
+            flat = (cfg, sim.u, obs)
         # one sweep alone and one measured sweep, on the host clock, then
         # under the profiler (device busy time and launches)
         w1, busy1, n1, ev1 = profiled(lambda: sim.thermalize(1))
@@ -1600,6 +1695,251 @@ def dense_phase(dev, smi, counters):
     print(f"(e) {len(betas)}-chain threefry complex128 scan {cfg.dims}: "
           "every chain bit-identical to its dense Simulation")
     mark("(e)")
+    results.update(dense_mesh_phase(dev, smi, counters, flat, profiled, mark))
+    return results
+
+
+# the mesh of phase 9 (f)'s full-width run, and of --cards N's dense run
+DENSE_MESH = (1, 1, 2, 2)
+HALO_SPAN = "dense halo refresh"
+
+
+def traced_halo_copies(sim):
+    """One sweep of the dense mesh run ``sim`` under torch.profiler, each
+    halo refresh (dense_sharded.refresh) in a record_function span.
+    Returns (spans, {device event name: count}) of the device events whose
+    launching runtime call (joined by its correlation id) began inside a
+    span."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+
+    from qcdgpu_tpu_torch import dense_sharded as dsh
+
+    real = dsh.refresh
+
+    def refresh(plan, mu):
+        with record_function(HALO_SPAN):
+            real(plan, mu)
+
+    dsh.refresh = refresh
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim.thermalize(1)
+            sim.sync()
+    finally:
+        dsh.refresh = real
+    events = trace_events(prof)
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == HALO_SPAN
+             and e.get("cat") != "gpu_user_annotation"]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})
+              and any(a <= e["ts"] <= b for a, b in spans)}
+    copies = {}
+    for e in events:
+        if (e.get("cat") in DEVICE_CATS
+                and e.get("args", {}).get("correlation") in inside):
+            copies[e["name"]] = copies.get(e["name"], 0) + 1
+    return len(spans), copies
+
+
+def dense_mesh_phase(dev, smi, counters, flat, profiled, mark):
+    """Phase 9 (f): the dense engine on a mesh, every shard on the card.
+    The full-width run of (b)'s complex128 configuration on DENSE_MESH
+    (``flat``: (b)'s configuration, links and series after the same
+    sweeps): links torch.equal, series within 1e-5, ms/sweep, launches,
+    device busy time, idle share, peak memory and halo copies; then at 8^4
+    the dense configurations on a mesh, 2 sweeps each against its
+    unsharded dense run bit for bit; a 3-chain stream scan on a mesh and
+    in 3 chain blocks, each chain its mesh Simulation; the CLI run on one
+    mesh resumed on another; validate config 5 on the one card.  None of
+    our kernels may launch."""
+    from qcdgpu_tpu_torch import SimConfig, Simulation, cli, validate
+    from qcdgpu_tpu_torch.dense_sharded import halo_copies_per_stage
+    from qcdgpu_tpu_torch.models import BetaScan
+    from qcdgpu_tpu_torch.utils.checkpoint import load_state
+
+    for cnt in counters:
+        for k in cnt:
+            cnt[k] = 0
+    cfg, u_flat, obs_flat = flat
+    cfg = cfg.replace(mesh=DENSE_MESH)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    sim = Simulation(cfg)
+    grid = sim._run.grid
+    require(sim.engine == "xla" and len(grid) == 4
+            and set(grid.devices) == {dev},
+            f"(f) engine {sim.engine}, shards on {grid.devices}")
+    sim.warmup()
+    sync()
+    t0 = time.perf_counter()
+    sim.thermalize(DENSE_THERM)
+    sim.sync()
+    t_therm = (time.perf_counter() - t0) * 1e3 / DENSE_THERM
+    t0 = time.perf_counter()
+    obs = sim.run(DENSE_RUN, 1)
+    t_run = (time.perf_counter() - t0) * 1e3 / DENSE_RUN
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    same = torch.equal(sim.u, u_flat)
+    dobs = float(np.max(np.abs(obs - obs_flat)))
+    print(f"(f) complex128 SU(3) {cfg.dims} HB cold on mesh {cfg.mesh}, "
+          f"{len(grid)} shards on {dev}, thermalize({DENSE_THERM}) + "
+          f"run({DENSE_RUN}, 1): links torch.equal to (b)'s unsharded run "
+          f"{same}, series max |d| {dobs:.2e} (< 1e-5)")
+    require(same and dobs < 1e-5, "(f) the mesh run differs from (b)'s")
+    del u_flat
+    w1, busy1, n1, ev1 = profiled(lambda: sim.thermalize(1))
+    w2, busy2, n2, _ = profiled(lambda: sim.run(1, 1))
+    idle = None if busy1 is None else 1.0 - busy1 / w1
+    stages = 8 * (1 + cfg.n_or)
+    planned = halo_copies_per_stage(grid) * stages
+    n_spans, halo_ev = traced_halo_copies(sim)
+    halos = sum(halo_ev.values())
+    copies = sum(c for name, (_, c) in ev1.items()
+                 if "opy" in name or "Memcpy" in name)
+    print(f"(f) mesh {cfg.mesh}: {t_therm:.1f} ms/sweep (thermalize("
+          f"{DENSE_THERM})), {t_run:.1f} ms/sweep measured (run({DENSE_RUN}"
+          f", 1)); one sweep: {w1:.1f} ms host, device busy "
+          + (f"{busy1:.1f} ms, {n1} launches, idle share {idle:.3f}"
+             if busy1 is not None else "not measured (empty trace)")
+          + "; one measured sweep: "
+          + (f"{w2:.1f} ms host, device busy {busy2:.1f} ms, {n2} launches"
+             if busy2 is not None else "not measured")
+          + f"; {copies} device copy events in the trace; peak "
+          f"{peak:.3f} GiB above the start  [{smi}]")
+    print(f"(f) halo refresh in one traced sweep: {halos} device events "
+          f"launched inside the {n_spans} refreshes ({planned} slab copies "
+          f"by the plan): "
+          + ("; ".join(f"{c} x {name[:70]}" for name, c in sorted(
+              halo_ev.items(), key=lambda kv: -kv[1]))
+             or "none in the trace"))
+    require(n_spans == stages, f"(f) {n_spans} halo refreshes in a sweep "
+            f"of {stages} stages")
+    for name, (ms, calls) in sorted(ev1.items(), key=lambda kv: -kv[1][0]
+                                    )[:4]:
+        print(f"    one mesh sweep's device time: {ms:.2f} ms in {calls} "
+              f"launches of {name[:90]}")
+    results = {"mesh": dict(ms_sweep=t_therm, ms_sweep_measured=t_run,
+                            launches_sweep=n1, device_busy_ms=busy1,
+                            idle=idle, peak_gib=peak, halo_copies=halos,
+                            halo_copies_planned=planned)}
+    del sim
+    mark("(f) full width")
+
+    # the dense engine on each kind of mesh, at 8^4: 2 sweeps from a
+    # hot start against the unsharded dense run of the same configuration
+    small = SimConfig(group=3, dims=STREAM_SMALL_RUN, beta=6.0, start="hot",
+                      seed=5, reunit_every=2)
+    cases = (("Z/T mesh, engine auto", small, (1, 1, 1, 2)),
+             ("engine xla complex64", small.replace(engine="xla"),
+              (2, 2, 1, 1)),
+             ("prngcl:ranlux3", small.replace(engine="xla",
+                                              rng_mode="prngcl:ranlux3"),
+              (1, 2, 1, 1)),
+             ("prngcl:mrg32k3a", small.replace(engine="xla",
+                                               rng_mode="prngcl:mrg32k3a"),
+              (1, 2, 1, 1)),
+             ("meas_dtype double", small.replace(engine="xla",
+                                                 meas_dtype="double"),
+              (1, 1, 2, 2)),
+             ("complex128 SU(2) Metropolis, acc", small.replace(
+                 group=2, beta=2.4, dtype="complex128",
+                 algorithm="metropolis", track_acceptance=True, n_or=1),
+              (2, 1, 2, 1)),
+             ("extended observables", extended_cfg(small, smear=1),
+              (2, 1, 1, 2)))
+    for label, c, mesh in cases:
+        out = []
+        for m in (mesh, (1, 1, 1, 1)):
+            # the unsharded run pinned to the dense engine (a complex64
+            # run without a Z/T split would resolve to the packed one)
+            s = Simulation(c.replace(mesh=m) if m == mesh
+                           else c.replace(mesh=m, engine="xla"))
+            require(s.engine == "xla" and len(s._run.grid) == np.prod(m),
+                    f"{label}: engine {s.engine} on {len(s._run.grid)}")
+            o = s.run(2, 1)
+            out.append((s.u, o, s.stream_state))
+            del s
+        (u1, o1, r1), (u0, o0, r0) = out
+        same = torch.equal(u1, u0) and (r0 is None or all(
+            np.array_equal(r1[k], v) for k, v in r0.items()))
+        d_std = float(np.max(np.abs(o1[:, :6] - o0[:, :6])))
+        same_ext = np.array_equal(o1[:, 6:], o0[:, 6:])
+        print(f"(f) {label} {c.dims} on {mesh}: links"
+              + (" and streams" if r0 is not None else "")
+              + f" bit-identical to unsharded {same}; standard columns "
+              f"max |d| {d_std:.2e}; the other {o1.shape[1] - 6} columns "
+              f"equal {same_ext}")
+        require(same and d_std < 1e-5 and same_ext, f"(f) {label} differs")
+
+    # a 3-chain stream scan on a mesh, in one block and in 3
+    cfg = small.replace(rng_mode="prngcl:xor128", mesh=(1, 1, 2, 1))
+    betas = CHAIN_BETAS[3]
+    sims = []
+    for c, beta in enumerate(betas):
+        s = Simulation(cfg.replace(seed=cfg.seed + 1000 * c,
+                                   beta=float(np.float32(beta))))
+        sims.append((s.run(2, 1), s.u, s.stream_state))
+        del s
+    for blocks in (1, 3):
+        scan = BetaScan(cfg, betas, blocks)
+        require(scan.engine == "xla" and len(scan._run.grid) == blocks,
+                f"scan engine {scan.engine}")
+        obs = scan.run(2, 1)
+        u, rst = scan.u, scan.stream_state
+        for c, (o, uc, rc) in enumerate(sims):
+            require(np.array_equal(o, obs[c]) and torch.equal(uc, u[c])
+                    and all(np.array_equal(
+                        rst[k][c] if np.ndim(v) >= 4 else rst[k], v)
+                        for k, v in rc.items()),
+                    f"(f) scan chain {c} in {blocks} blocks differs")
+        del scan
+    print(f"(f) {len(betas)}-chain {cfg.rng_mode} scan {cfg.dims} on "
+          f"{cfg.mesh}, one chain block and 3: every chain's links, series "
+          "and streams bit-identical to its mesh Simulation")
+
+    # the command line: run on one mesh with checkpoints, resume on another
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--group", "3", "--dims", "8", "--dtype", "complex128",
+                  "--start", "hot", "--seed", "4", "--ckpt-every", "2",
+                  "--therm", "1"]
+        a, b, c = (os.path.join(tmp, x) for x in "abc")
+        # the runs' own reports are not this script's output
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["run", *common, "--mesh", "1,1,2,2", "--sweeps", "2",
+                      "--out", a])
+            cli.main(["resume", os.path.join(a, "state.npz"), "--mesh",
+                      "2,1,1,1", "--sweeps", "2", "--out", b])
+            cli.main(["run", *common, "--sweeps", "4", "--out", c])
+        recs, links = [], []
+        for out in (b, c):
+            with open(os.path.join(out, "results.json")) as f:
+                recs.append(json.load(f))
+            links.append(load_state(os.path.join(out, "state.npz"))[1])
+    same = np.array_equal(links[0], links[1])
+    dplq = float(np.max(np.abs(np.subtract(recs[0]["series"]["plq"],
+                                           recs[1]["series"]["plq"]))))
+    print(f"(f) CLI run --mesh 1,1,2,2 --dtype complex128 (1 + 2 sweeps), "
+          f"resume --mesh 2,1,1,1 (2): links bit-identical to an "
+          f"uninterrupted unsharded run {same}, plq series max |d| "
+          f"{dplq:.1e}; records: engine {recs[0]['engine']}, mesh "
+          f"{recs[0]['mesh']}")
+    require(same and dplq < 1e-5 and recs[0]["engine"] == "xla"
+            and recs[0]["mesh"] == [2, 1, 1, 1], "(f) CLI resume differs")
+
+    # validate config 5 on the one card: the reference's fallback
+    r = validate.check_multichip()
+    print(f"(f) {r['name']}: {r['measured']} ({r['expected']}); pass "
+          f"{r['pass']}")
+    require(r["pass"] is True, f"config 5: {r}")
+    ours = {k: v for cnt in counters for k, v in cnt.items() if v}
+    require(not ours, f"(f) the dense mesh path launched {ours}")
+    print("(f) no kernel of ours launched on the dense mesh path")
+    mark("(f) 8^4, scan, CLI, config 5")
     return results
 
 

@@ -8,7 +8,7 @@ too).  Subcommands:
 
   run       one Markov chain (thermalize + production + analysis + report)
   resume    continue a chain bit-exactly from a checkpoint (also one
-            written by the JAX package)
+            written by the JAX package; --mesh lays it out anew)
   info      device report
   validate  physics acceptance suite (BASELINE configs 1-5)
   rngtest   PRNG self-test (threefry, Philox, native and device streams)
@@ -19,8 +19,9 @@ too).  Subcommands:
 --device (default cuda) picks the card, or the CPU, where the kernels'
 plain PyTorch versions run; without a card the default raises.
 rng_mode "hw" is the TPU's hardware PRNG in the JAX package and Philox
-here.  Features not ported yet parse as in the reference and are refused
-with the ROADMAP item that brings them.
+here.  --mesh splits the lattice over shards: X/Y on the packed engine,
+any of the four axes on the dense one (--engine xla, --dtype complex128,
+a Z/T split); by default every shard sits on --device.
 
 Examples:
   python -m qcdgpu_tpu_torch run --group 3 --dims 8,8,8,8 --beta 6.0 \
@@ -29,6 +30,8 @@ Examples:
       --betas 5.6:6.1:11 --therm 200 --sweeps 400 --out scan/
   python -m qcdgpu_tpu_torch scan --dims 32 --betas 5.9,6.1 \
       --mesh 2,2,1,1 --chain-mesh 2 --therm 100 --sweeps 200 --out scan2/
+  python -m qcdgpu_tpu_torch run --dims 32 --mesh 1,1,2,2 \
+      --dtype complex128 --therm 100 --sweeps 200 --out dense/
 """
 
 from __future__ import annotations
@@ -131,8 +134,9 @@ def _add_run_args(p: argparse.ArgumentParser):
                    help="device mesh over X,Y,Z,T (e.g. 1,1,2,4)")
     p.add_argument("--engine", choices=["auto", "xla", "pallas"],
                    help="execution engine: auto (the packed CUDA engine for "
-                        "complex64, the dense engine for complex128), xla "
-                        "(the dense engine) or pallas (the packed engine)")
+                        "complex64, the dense engine for complex128 or a "
+                        "Z/T mesh), xla (the dense engine) or pallas (the "
+                        "packed engine)")
     p.add_argument("--rng-mode", dest="rng_mode",
                    help="threefry (bit-reproducible), hw (Philox here; the "
                         "TPU PRNG in the JAX package), "
@@ -222,7 +226,8 @@ def _finish_run(sim, args, timings):
 
         series = np.concatenate(sim.obs_history, axis=0)
     rec = report.build_record(sim.cfg, analysis, timings, series=series,
-                              extra={"engine": sim.engine},
+                              extra={"engine": sim.engine,
+                                     "mesh": list(sim.cfg.mesh)},
                               device=sim.device)
     base = os.path.join(args.out, "results")
     report.write_json(base + ".json", rec)
@@ -287,8 +292,10 @@ def cmd_resume(args):
     from .sim import Simulation
 
     # device placement is not part of the checkpoint; Simulation.__init__
-    # re-applies the cfg.mesh domain decomposition on load
-    sim = Simulation.load(args.checkpoint, device=args.device)
+    # re-applies the cfg.mesh domain decomposition on load (--mesh: another
+    # one; the checkpoint holds the global state)
+    sim = Simulation.load(args.checkpoint, device=args.device,
+                          mesh=args.mesh)
     t0 = time.time()
     sim.warmup()
     timings = {"compile_s": round(time.time() - t0, 3)}
@@ -361,6 +368,8 @@ def cmd_scan(args):
     rec = {
         "config": cfg.to_dict(),
         "engine": scan.engine,
+        "mesh": list(cfg.mesh),
+        "chain_mesh": scan.chain_mesh,
         "device": report.device_info(args.device),
         "timings": timings,
         "scan": rows,
@@ -448,6 +457,9 @@ def main(argv=None):
     p.add_argument("--sweeps", type=int, default=None)
     p.add_argument("--progress", type=int, default=0, metavar="N",
                    help="print a progress line every N production sweeps")
+    p.add_argument("--mesh", type=_parse_mesh, default=None,
+                   help="lay the resumed run out on this mesh over X,Y,Z,T "
+                        "instead of the checkpoint's")
     p.add_argument("--out", default="results")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_resume)
@@ -464,8 +476,9 @@ def main(argv=None):
                         "sits on --device.  Blocks are there for parity "
                         "with the reference and make a scan slower (one "
                         "host thread launches them in turn).  With --mesh "
-                        "mx,my,1,1 every chain's lattice is also split "
-                        "into X/Y shards")
+                        "every chain's lattice is also split into shards "
+                        "(X/Y on the packed engine, any axis on the dense "
+                        "one)")
     p.set_defaults(fn=cmd_scan)
 
     p = sub.add_parser("info", help="device info")

@@ -3,9 +3,7 @@
 Same field names, defaults, validation, ``replace``, ``to_dict`` and
 ``from_dict``, so a configuration dict written by the JAX package loads here
 unchanged.  Validation mirrors the reference's ValueErrors exactly;
-``resolve_engine`` picks the engine a configuration runs on, and that
-engine's runner factory raises NotImplementedError for what the port does
-not run yet (``dense.check_mesh``: the dense engine on a mesh).
+``resolve_engine`` picks the engine a configuration runs on.
 
 The PRNGCL generator names are constants here (the reference imports them
 from ops/prng_streams.py, which needs jax).
@@ -77,8 +75,9 @@ class SimConfig:
     # --- engine ----------------------------------------------------------
     # "pallas" selects the packed engine's hand-written GPU kernels (on a
     # CUDA device) or their plain PyTorch versions (on the CPU); "xla" the
-    # dense engine (dense.py); "auto" the packed one for complex64 and the
-    # dense one for complex128 or a Z/T mesh (resolve_engine).
+    # dense engine (dense.py, on any 4D mesh); "auto" the packed one for
+    # complex64 and the dense one for complex128 or a Z/T mesh
+    # (resolve_engine).
     engine: str = "auto"  # "auto" | "xla" | "pallas"
     rng_mode: str = "threefry"  # "threefry" | "hw" | "prngcl:<gen>"
 
@@ -213,8 +212,9 @@ class SimConfig:
 
 def resolve_engine(cfg: SimConfig) -> str:
     """The engine a configuration runs on: "xla" (the dense engine,
-    dense.py) or "pallas" (the packed engine's hand-written CUDA kernels,
-    ops/cuda/).
+    dense.py, on one device or any 4D mesh) or "pallas" (the packed
+    engine's hand-written CUDA kernels, ops/cuda/, on one device or an X/Y
+    mesh).
 
     The reference's rules (qcdgpu_tpu/sim.py:235-284) with the H100 in the
     TPU's place: an explicit cfg.engine is kept; "auto" gives the dense

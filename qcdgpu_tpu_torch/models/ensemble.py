@@ -40,17 +40,23 @@ X/Y mesh with extended observables raises ValueError, as the reference's
 does.
 
 The dense tier (the reference's vmap tier, ensemble.py:132-144, 181-190,
-285-310): a scan whose configuration resolves to the dense engine
-(complex128, engine="xla") or draws from PRNGCL streams runs on it
-(dense.py), unsharded: the C chains are one batched dense sweep on the
-field [4, N, N, C, X, Y, Z, T], each chain with its coupling, its key and,
-in stream mode, its streams seeded at ``cfg.seed + 1000 c`` (the words
-[..., C, X, Y, Z, T]; ranlux's nb and ranmar's c shared, as they advance
-with the draw count alone).  Chain c's links are, bit for bit, its own
-dense ``Simulation`` (engine "xla", seed ``cfg.seed + 1000 c``, beta
-``betas[c]``); each chain is measured on its own field, so its series is
-that Simulation's too.  The dense tier on a mesh or in chain blocks is
-M11b (NotImplementedError).
+285-310, and its XLA tier on the combined mesh and in chain blocks,
+:209-216 and after :242): a scan whose configuration resolves to the
+dense engine (complex128, engine="xla", a Z/T mesh) or draws from PRNGCL
+streams runs on it (dense.py): the C chains are one batched dense sweep
+on the field [4, N, N, C, X, Y, Z, T], each chain with its coupling, its
+key and, in stream mode, its streams seeded at ``cfg.seed + 1000 c`` (the
+words [..., C, X, Y, Z, T]; ranlux's nb and ranmar's c shared, as they
+advance with the draw count alone).  With ``cfg.mesh`` the lattice axes
+of that field are cut into the shards of a DenseGrid (any of the four
+axes; dense_sharded.py), and ``chain_mesh`` cuts the chains into blocks,
+each its own batched sweep on its own grid, block b on ``devices[b %
+len(devices)]``.  Chain c's links are, bit for bit, its own dense
+``Simulation`` (engine "xla", seed ``cfg.seed + 1000 c``, beta
+``betas[c]``) on the same mesh, and the unsharded one's; each chain is
+measured on its own shards, so its series is that Simulation's too.  The
+extended observables run on every mesh there (each chain's field
+gathered first).
 """
 
 from __future__ import annotations
@@ -60,12 +66,12 @@ import time
 import numpy as np
 import torch
 
-from .. import dense
+from .. import dense, dense_sharded
 from ..config import SimConfig, resolve_engine, stream_mode_name
 from ..ops import prng_streams as streams
 from ..ops import rng
 from ..ops.cuda import engine, sharded
-from ..ops.measure import make_measure_fn, obs_names
+from ..ops.measure import obs_names
 from ..parallel.mesh import ChainGrid, block_cards, resolve_chain_mesh
 from ..runner import build_chunk_runner
 
@@ -145,47 +151,81 @@ def make_ensemble_runner(cfg: SimConfig, n_chains: int, device="cuda",
     return run
 
 
-def make_dense_ensemble_runner(cfg: SimConfig, betas, keys, device="cuda"):
+def make_dense_ensemble_runner(cfg: SimConfig, betas, keys, device="cuda",
+                               chain_mesh: int = 1, devices=None):
     """Runner of the dense tier over C = len(betas) chains, on the shared
-    chunk runner: run.packed(state, None, sweep0, n, me) with state (u,
-    rst), u the chain field [4, N, N, C, X, Y, Z, T] in cfg.dtype and rst
-    the chains' dense stream state ({} with threefry); chain c sweeps under
-    betas[c] and base key keys[c] (u32 pairs).  Rows are the C chains'
-    rows flattened chain-major, [C * n_obs], each chain measured on its
-    own field, with one tracked column per chain.  run.packed_cold_start,
+    chunk runner: run.packed(state, None, sweep0, n, me); chain c sweeps
+    under betas[c] and base key keys[c] (u32 pairs).  The chains are cut
+    into ``chain_mesh`` blocks (run.grid, a ChainGrid of DenseGrids), block
+    b on ``devices[b % len(devices)]`` (default: every block on
+    ``device``).  State is one (shards, rst) per block: the block's chain
+    field [4, N, N, Cb, X, Y, Z, T] in cfg.dtype cut into the shards of
+    cfg.mesh (one shard without halo when unsharded), and its chains'
+    sharded dense stream state ({} with threefry).  Rows are the C chains'
+    rows flattened chain-major, [C * n_obs] on ``device``, each chain
+    measured on its own shards as its Simulation measures them, with one
+    tracked column per chain.  run.packed_cold_start,
     run.packed_hot_start(keys), run.packed_stream_hot_start() (stream
-    mode), run.make_stream_state0() build the starts and streams;
-    run.field / run.chains convert between u and [C, 4, N, N, X, Y, Z,
-    T].  A mesh is refused (dense.check_mesh: M11b)."""
-    dense.check_mesh(cfg, "a scan on the dense engine")
+    mode) and run.adopt(u, rst) (the global chain field, u [C, 4, N, N, X,
+    Y, Z, T], and chain-stacked stream state) build the state;
+    run.chains / run.streams gather the fields [C, 4, N, N, X, Y, Z, T]
+    and the chain-stacked stream state back."""
     dev = engine.resolve_device(device)
     n_chains = len(betas)
+    cgrid = ChainGrid(cfg, n_chains, chain_mesh, [dev] if devices is None
+                      else [engine.resolve_device(d) for d in devices],
+                      dense=True)
     gen = stream_mode_name(cfg.rng_mode)
     tracking = engine.tracks(cfg)
-    sweep = dense.make_sweep_fn(cfg, with_acc=tracking)
-    meas = make_measure_fn(cfg)
     beta = np.asarray(betas, np.float32).astype(np.float64)
     key_list = [tuple(int(k) for k in key) for key in keys]
     cdt = dense.cdtype(cfg)
+    blocks = [(chains, g, dense.make_sweep_fn(cfg, tracking, g),
+               dense_sharded.make_measure(cfg, g))
+              for chains, g in zip(cgrid.blocks, cgrid.grids)]
 
     def step(st, _key, sweep_idx):
-        u, rst = st
-        if gen is None:
-            out = sweep(u, key_list, sweep_idx, beta=beta)
-            return ((out[0], rst), out[1]) if tracking else (out, rst)
-        return sweep((u, rst), key_list, sweep_idx, beta=beta)
+        out, rates = [], []
+        for (chains, _, sweep, _), (shards, rst) in zip(blocks, st):
+            ks = key_list[chains.start:chains.stop]
+            bs = beta[chains.start:chains.stop]
+            if gen is None:
+                r = sweep(shards, ks, sweep_idx, beta=bs)
+                r = ((r[0], rst), r[1]) if tracking else (r, rst)
+            else:
+                r = sweep((shards, rst), ks, sweep_idx, beta=bs)
+            if tracking:
+                r, rate = r
+                rates.append(rate.reshape(-1).to(dev))
+            out.append(r)
+        if tracking:
+            return tuple(out), torch.cat(rates)
+        return tuple(out)
 
     def measure_state(st):
-        u = st[0]
-        return torch.cat([meas(u.select(3, c).contiguous())
-                          for c in range(n_chains)])
+        return torch.cat([
+            meas(tuple(u.select(3, c).contiguous() for u in shards)).to(dev)
+            for (chains, _, _, meas), (shards, _) in zip(blocks, st)
+            for c in range(len(chains))])
 
-    def chain_streams(seeds):
-        """The chains' dense stream states, stacked on the chain axis; the
-        lag scalars, equal across chains, once."""
-        states = [streams.make_stream_state(gen, s, cfg.dims, dev)
-                  for s in seeds]
-        return stack_streams(states)
+    def adopt(u, rst):
+        """The global chain field [4, N, N, C, X, Y, Z, T] and the
+        chain-stacked stream state -> the blocks' sharded state."""
+        out = []
+        for chains, g, _, _ in blocks:
+            part = {k: v.narrow(dense.CHAIN_AXIS, chains.start, len(chains))
+                    if isinstance(v, torch.Tensor) else v
+                    for k, v in rst.items()}
+            out.append((dense_sharded.scatter(
+                u.narrow(3, chains.start, len(chains)), g),
+                dense_sharded.scatter_streams(part, g)))
+        return tuple(out)
+
+    def streams0():
+        if gen is None:
+            return {}
+        return stack_streams([streams.make_stream_state(
+            gen, cfg.seed + 1000 * c, cfg.dims, dev) for c in range(n_chains)])
 
     def hot_streams():
         us, states = [], []
@@ -194,25 +234,40 @@ def make_dense_ensemble_runner(cfg: SimConfig, betas, keys, device="cuda"):
                 gen, cfg.seed + 1000 * c, cfg.dims, dev))
             us.append(u)
             states.append(st)
-        return torch.stack(us, dim=3), stack_streams(states)
+        return adopt(torch.stack(us, dim=3), stack_streams(states))
+
+    def chains_of(st):
+        parts = [dense_sharded.gather(shards, g).to(dev)
+                 for (_, g, _, _), (shards, _) in zip(blocks, st)]
+        return torch.cat(parts, dim=3).movedim(3, 0).contiguous()
+
+    def streams_of(st):
+        parts = [dense_sharded.gather_streams(rst, g)
+                 for (_, g, _, _), (_, rst) in zip(blocks, st)]
+        return {k: torch.cat([p[k].to(dev) for p in parts],
+                             dim=dense.CHAIN_AXIS)
+                if isinstance(v, torch.Tensor) else v
+                for k, v in parts[0].items()}
 
     run = build_chunk_runner(cfg, step, measure_state, with_acc=tracking,
                              device=dev,
                              n_obs=n_chains * len(obs_names(cfg)))
     run.engine = "xla"
-    run.grid = ChainGrid(cfg, n_chains, 1, [dev])
-    run.packed_cold_start = lambda: dense.cold_start(cfg, dev).unsqueeze(3) \
-        .expand((-1, -1, -1, n_chains) + tuple(cfg.dims)).contiguous()
-    run.packed_hot_start = lambda ks: torch.stack(
+    run.grid = cgrid
+    run.adopt = lambda u, rst: adopt(
+        torch.as_tensor(u).to(dev, cdt).movedim(0, 3).contiguous(),
+        {} if gen is None else rst)
+    run.packed_cold_start = lambda: adopt(
+        dense.cold_start(cfg, dev).unsqueeze(3).expand(
+            (-1, -1, -1, n_chains) + tuple(cfg.dims)).contiguous(),
+        streams0())
+    run.packed_hot_start = lambda ks: adopt(torch.stack(
         [dense.hot_start(cfg, tuple(int(k) for k in key), dev)
-         for key in ks], dim=3)
-    run.make_stream_state0 = lambda: ({} if gen is None else chain_streams(
-        [cfg.seed + 1000 * c for c in range(n_chains)]))
+         for key in ks], dim=3), streams0())
     if gen is not None:
         run.packed_stream_hot_start = hot_streams
-    run.field = lambda u: torch.as_tensor(u).to(dev, cdt).movedim(0, 3) \
-        .contiguous()
-    run.chains = lambda u: u.movedim(3, 0).contiguous()
+    run.chains = chains_of
+    run.streams = streams_of
     return run
 
 
@@ -280,9 +335,7 @@ class BetaScan:
         dense_tier = (resolve_engine(cfg) == "xla"
                       or stream_mode_name(cfg.rng_mode) is not None)
         self.engine = "xla" if dense_tier else "pallas"
-        if dense_tier:
-            dense.check_mesh(cfg, "a scan on the dense engine")
-        else:
+        if not dense_tier:
             engine.check_supported_chains(cfg)
         self.device = engine.resolve_device(device)
         self.betas = np.asarray(betas, np.float32).reshape(-1)
@@ -296,7 +349,7 @@ class BetaScan:
         self._n_obs = len(obs_names(cfg))
         self.sweep_idx = 0
         if dense_tier:
-            self._init_dense(_init)
+            self._init_dense(_init, devices)
             return
         self._run = make_ensemble_runner(cfg, c, self.device,
                                          self.chain_mesh, devices)
@@ -318,48 +371,41 @@ class BetaScan:
                 blocks = self._run.packed_cold_start()
         self._st = self._run.state(blocks, self.betas, self.keys)
 
-    def _init_dense(self, init):
-        """The dense tier's state (u, rst) (make_dense_ensemble_runner)."""
+    def _init_dense(self, init, devices):
+        """The dense tier's state, one (shards, rst) per chain block
+        (make_dense_ensemble_runner)."""
         cfg, c = self.cfg, len(self.betas)
-        if self.chain_mesh != 1:
-            raise NotImplementedError(
-                "not ported yet (see ROADMAP.md): a dense-engine scan in "
-                f"chain_mesh={self.chain_mesh} blocks (M11b: the dense "
-                "engine on a mesh)")
         if init is not None:
             u, keys, self.sweep_idx, rst = init
             self.keys = np.asarray(keys, np.uint32).reshape(c, 2)
         else:
             self.keys = np.array([rng.make_base_key(cfg.seed + 1000 * i)
                                   for i in range(c)], np.uint32)
-        self._run = make_dense_ensemble_runner(cfg, self.betas, self.keys,
-                                               self.device)
+        self._run = make_dense_ensemble_runner(
+            cfg, self.betas, self.keys, self.device, self.chain_mesh,
+            devices)
         gen = stream_mode_name(cfg.rng_mode)
         if init is not None:
-            links = self._run.field(u)
-            if gen is None:
-                self._st = (links, {})
-                return
-            if rst is None:
+            if gen is not None and rst is None:
                 raise ValueError(
                     "checkpoint has no PRNGCL stream state but the config "
                     f"runs rng_mode={cfg.rng_mode!r}; cannot resume exactly")
-            rst = {k: np.moveaxis(v, 0, dense.CHAIN_AXIS) if np.ndim(v) >= 5
-                   else v for k, v in rst.items()}
-            self._st = (links, dense.stream_from_numpy(gen, rst, cfg.dims,
-                                                       self.device))
+            if gen is not None:
+                rst = {k: np.moveaxis(v, 0, dense.CHAIN_AXIS)
+                       if np.ndim(v) >= 5 else v for k, v in rst.items()}
+                rst = dense.stream_from_numpy(gen, rst, cfg.dims,
+                                              self.device)
+            self._st = self._run.adopt(u, rst)
         elif cfg.start == "hot" and gen is not None:
             self._st = self._run.packed_stream_hot_start()
         elif cfg.start == "hot":
-            self._st = (self._run.packed_hot_start(self.keys.tolist()),
-                        self._run.make_stream_state0())
+            self._st = self._run.packed_hot_start(self.keys.tolist())
         elif cfg.start == "continue":
             raise ValueError(
                 "start='continue' resumes a checkpoint: use "
                 "BetaScan.load(path) (CLI: `scan --resume-state`)")
         else:
-            self._st = (self._run.packed_cold_start(),
-                        self._run.make_stream_state0())
+            self._st = self._run.packed_cold_start()
 
     # -- state ------------------------------------------------------------
     @property
@@ -376,7 +422,7 @@ class BetaScan:
         """Canonical complex fields [C, 4, N, N, X, Y, Z, T] (new):
         complex64, or cfg.dtype on the dense tier."""
         if self.engine == "xla":
-            return self._run.chains(self._st[0])
+            return self._run.chains(self._st)
         return engine.join_links_chains(self.us, tuple(self.cfg.dims))
 
     @property
@@ -387,7 +433,7 @@ class BetaScan:
         gen = stream_mode_name(self.cfg.rng_mode)
         if gen is None:
             return None
-        out = dense.stream_to_numpy(gen, self._st[1])
+        out = dense.stream_to_numpy(gen, self._run.streams(self._st))
         return {k: np.moveaxis(v, dense.CHAIN_AXIS, 0) if np.ndim(v) >= 5
                 else v for k, v in out.items()}
 
@@ -411,8 +457,8 @@ class BetaScan:
         a CLONE of the links: the kernels update in place, so the live
         chains stay exactly as they were (Simulation.warmup)."""
         me = self.cfg.meas_every if measure_every is None else measure_every
-        st = (engine.clone_state(self._st) if self.engine == "xla"
-              else _clone(self._st))
+        st = (tuple(engine.clone_state(b) for b in self._st)
+              if self.engine == "xla" else _clone(self._st))
         scratch, _ = self._run.packed(st, None, self.sweep_idx, 1, 0)
         if me:
             self._run.packed(scratch, None, self.sweep_idx, me, me)

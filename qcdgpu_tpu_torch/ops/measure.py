@@ -27,7 +27,10 @@ On the packed engine the standard six come from its kernels (ops/cuda/
 measure.py); on the dense engine (dense.py) from ``measure_all`` here,
 the reference's dense measurement (measure.py:265-357), on the complex64
 or complex128 field, and ``make_measure_fn`` evaluates them in complex128
-when cfg.meas_dtype is "double" (the reference's measure.py:397-427).  The
+when cfg.meas_dtype is "double" (the reference's measure.py:397-427).  On
+a dense mesh the shards are measured without gathering the field, from
+``plane_sums`` over each interior and ``polyakov_product`` of each
+shard's temporal links (dense_sharded.py).  The
 extended columns are what the reference computes with XLA ops on the
 complex field (ops/pallas/engine.py:398-420): here PyTorch ops on the
 field [4, N, N, X, Y, Z, T] (``measure_extended``), with the reference's
@@ -278,27 +281,31 @@ def polyakov_loop(u):
     return polyakov_from_ut(u[TIME_AXIS])
 
 
-def polyakov_from_ut(ut):
-    """Volume-averaged Polyakov loop (re, im), 1/N-normalized, of the
-    temporal links ut [N, N, X, Y, Z, T]: L(xvec) = (1/N) tr prod_t
-    U_t(xvec, t), the time product a balanced recursion over contiguous T
-    ranges, P(a..b) = P(a..m) @ P(m..b), with the matrix components kept
-    as separate [X, Y, Z] tensors (the reference's order of products)."""
+def pairmul(a, b):
+    """Matrix product of two matrices held as nested lists of [N][N]
+    component tensors (the Polyakov recursion's form), the terms in the
+    reference's order."""
+    n = len(a)
+    out = []
+    for i in range(n):
+        row = []
+        for k in range(n):
+            acc = a[i][0] * b[0][k]
+            for j in range(1, n):
+                acc = acc + a[i][j] * b[j][k]
+            row.append(acc)
+        out.append(row)
+    return out
+
+
+def polyakov_product(ut):
+    """The ordered product over T of the temporal links ut [N, N, X, Y, Z,
+    T] at every spatial site, as [N][N] component tensors [X, Y, Z]: a
+    balanced recursion over contiguous T ranges, P(a..b) = P(a..m) @
+    P(m..b) (the reference's order of products)."""
     n = ut.shape[0]
     utt = torch.movedim(ut, -1, 2)  # [N, N, T, X, Y, Z]
     comp = [[utt[i, j] for j in range(n)] for i in range(n)]
-
-    def pairmul(a, b):
-        out = []
-        for i in range(n):
-            row = []
-            for k in range(n):
-                acc = a[i][0] * b[0][k]
-                for j in range(1, n):
-                    acc = acc + a[i][j] * b[j][k]
-                row.append(acc)
-            out.append(row)
-        return out
 
     def prod_range(lo, hi):
         if hi - lo == 1:
@@ -306,12 +313,30 @@ def polyakov_from_ut(ut):
         mid = (lo + hi) // 2
         return pairmul(prod_range(lo, mid), prod_range(mid, hi))
 
-    prod = prod_range(0, utt.shape[2])
+    return prod_range(0, utt.shape[2])
+
+
+def polyakov_from_ut(ut):
+    """Volume-averaged Polyakov loop (re, im), 1/N-normalized, of the
+    temporal links ut [N, N, X, Y, Z, T]: L(xvec) = (1/N) tr prod_t
+    U_t(xvec, t) (polyakov_product), with the matrix components kept as
+    separate [X, Y, Z] tensors."""
+    n = ut.shape[0]
+    prod = polyakov_product(ut)
     loop = prod[0][0]
     for i in range(1, n):
         loop = loop + prod[i][i]
     loop = loop / n  # [X, Y, Z]
     return torch.mean(loop.real), torch.mean(loop.imag)
+
+
+def plane_sums(u, keep=lambda f: f):
+    """f64 [6]: the sums of Re tr P_{mu,nu}(x) over the sites that ``keep``
+    selects (all; or a shard's interior, dense_sharded.py), plane by plane
+    in PLANES order."""
+    return torch.stack([torch.sum(keep(plaquette_retrace(u, mu, nu)),
+                                  dtype=torch.float64)
+                        for mu, nu in PLANES])
 
 
 def measure_all(u):

@@ -113,12 +113,31 @@ def stage_uniform_count(n_colors, kind, k_trials=4, n_hit=3) -> int:
     return 2 * ((per + 1) // 2) * len(sun.subgroups(n_colors))
 
 
-def site_mean(x):
-    """f32 mean of a boolean field over the lattice axes (per chain): the
-    count is exact in f32, then divided once, as the reference's
-    jnp.mean(x.astype(f32))."""
-    vol = int(np.prod(x.shape[-4:]))
-    return torch.sum(x.to(torch.float32), dim=LATTICE_AXES) / vol
+def site_count(x):
+    """f32 count of a boolean field over the lattice axes (per chain),
+    exact below 2^24 sites."""
+    return torch.sum(x.to(torch.float32), dim=LATTICE_AXES)
+
+
+def tracked_rate(counts, vol, kind, n_hit, n_subgroups):
+    """update_links' tracked statistic from its exact counts (return_acc:
+    per subgroup, the KP exhaustions, or the acceptances of each Metropolis
+    hit in turn) over ``vol`` sites: each count divided by vol (the
+    reference's jnp.mean of the f32 flags), then the hits and subgroups
+    averaged in the reference's order, so that the counts of a lattice's
+    shards, added first, give the whole lattice's rate bit for bit."""
+    total = 0.0
+    it = iter(counts)
+    for _ in range(n_subgroups):
+        if kind == "heatbath":
+            acc = next(it) / vol
+        else:
+            frac = 0.0
+            for _ in range(n_hit):
+                frac = frac + next(it) / vol
+            acc = frac / n_hit
+        total = total + acc
+    return total / n_subgroups
 
 
 def _identity_quat_like(q):
@@ -135,7 +154,8 @@ def heatbath_flip(q_w, two_beta_over_n, u, k_trials, with_fail=False,
     u: pre-drawn uniforms [4*k_trials + 2, *sites] (unused with ``terms``,
     their kp_uniform_terms).
     Returns u [4, *sites], the identity where KP exhausted its trials; with
-    with_fail also the mean trial-exhaustion fraction over the sites."""
+    with_fail also the count of the sites that exhausted them, in a
+    one-element list (tracked_rate)."""
     # rsqrt form: one reciprocal square root and multiplies
     n2 = sun.quat_norm2(q_w)
     rk = _rsqrt(torch.clamp(n2, min=1e-38))
@@ -151,7 +171,7 @@ def heatbath_flip(q_w, two_beta_over_n, u, k_trials, with_fail=False,
     good = ok & (k > 1e-30)
     out = torch.where(good[None], unew, _identity_quat_like(unew))
     if with_fail:
-        return out, site_mean(torch.logical_not(ok))
+        return out, [site_count(torch.logical_not(ok))]
     return out
 
 
@@ -188,24 +208,24 @@ def metropolis_flip(q_w, two_beta_over_n, uu, n_hit, delta, with_acc=False,
     accept with min(1, exp(dS)), dS = two_beta_over_n * ((u*q)_0 - q_0).
     uu: pre-drawn uniforms [4*n_hit, *sites] (unused with ``terms``, their
     metropolis_terms).  Returns the composed multiplier; with with_acc also
-    the mean accepted fraction over sites and hits."""
+    each hit's count of accepting sites, a list (tracked_rate)."""
     ws, logs = metropolis_terms(uu, n_hit, delta) if terms is None else terms
     acc_u = _identity_quat_like(q_w)
     q_cur = q_w
-    acc_frac = 0.0
+    hits = []
     for h in range(n_hit):
         w = ws[:, h]
         new0 = sun.quat_mul0(w, q_cur)
         dlp = two_beta_over_n * (new0 - q_cur[0])
         accept = logs[h] < dlp
         if with_acc:
-            acc_frac = acc_frac + site_mean(accept)
+            hits.append(site_count(accept))
         w_eff = torch.where(accept[None], w.to(q_cur.dtype),
                             _identity_quat_like(q_cur))
         acc_u = sun.quat_mul(w_eff, acc_u)
         q_cur = sun.quat_mul(w_eff, q_cur)
     if with_acc:
-        return acc_u, acc_frac / n_hit
+        return acc_u, hits
     return acc_u
 
 
@@ -233,11 +253,13 @@ def update_links(u_mu, staples, kind, beta, key2, site_idx, *, k_trials=4,
     [X, Y, Z, T] site index), or ``uniforms`` ([stage_uniform_count(...),
     *sites] in (0, 1)), the PRNGCL stream mode's pre-drawn numbers.
 
-    With return_acc also the tracked statistic over sites and subgroups:
-    the mean Metropolis acceptance (over hits too), or the mean KP
-    trial-exhaustion fraction for heat-bath; a 0-d f32 tensor, or one per
-    chain.  two_beta: two_beta_over_n(beta, N, device), when the caller
-    has it (a sweep captured for replay copies nothing from the host)."""
+    With return_acc also the tracked statistic's exact counts, a list of
+    f32 tensors (0-d, or one per chain): per subgroup the KP
+    trial-exhaustions for heat-bath, or each Metropolis hit's acceptances;
+    tracked_rate turns them into the reference's rate (a sharded lattice
+    adds its shards' counts first).  two_beta: two_beta_over_n(beta, N,
+    device), when the caller has it (a sweep captured for replay copies
+    nothing from the host)."""
     n = u_mu.shape[0]
     tbn = (two_beta_over_n(beta, n, u_mu.device) if two_beta is None
            else two_beta)
@@ -278,7 +300,7 @@ def update_links(u_mu, staples, kind, beta, key2, site_idx, *, k_trials=4,
         else:
             terms = metropolis_terms(rows, n_hit, metro_delta)
     real = u_mu.real.dtype
-    acc_total = 0.0
+    counts = []
     for s, (i, j) in enumerate(sgs):
         q_w = sun.extract_block_quat(w, i, j)
         if kind == "heatbath":
@@ -294,11 +316,11 @@ def update_links(u_mu, staples, kind, beta, key2, site_idx, *, k_trials=4,
                 q_w, tbn, None, n_hit, metro_delta, with_acc=return_acc,
                 terms=(terms[0][:, :, s], terms[1][:, s]))
         if return_acc and kind != "overrelax":
-            flip, acc = flip
-            acc_total = acc_total + acc
+            flip, cnt = flip
+            counts += cnt
         flip = flip.to(real)
         u_mu = sun.subgroup_left_mul(flip, i, j, u_mu)
         w = sun.subgroup_left_mul(flip, i, j, w)
     if return_acc:
-        return u_mu, acc_total / len(sgs)
+        return u_mu, counts
     return u_mu

@@ -14,6 +14,20 @@ from __future__ import annotations
 import torch
 
 
+def cmul(a, b):
+    """The elementwise product of two complex tensors, with per element the
+    same bits whatever the tensors' layout.  On the CPU torch rounds its
+    vectorized complex product otherwise than the scalar one it takes on
+    a strided view or a short row, so that a shard's interior and the
+    whole lattice would differ in the last bit; there the product goes
+    through real operations, each rounded once.  On the card torch's own
+    product, one expression for every layout."""
+    if a.device.type != "cpu":
+        return a * b
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
 def mul(a, b):
     """Matrix product over the leading matrix dims of two [N, N, *sites]
     fields: the outer product of column j of a and row j of b for every
@@ -22,9 +36,9 @@ def mul(a, b):
     launches)."""
     cols = a.unsqueeze(2).unbind(1)  # column j of a as [N, 1, *sites]
     rows = b.unsqueeze(0).unbind(1)  # row j of b as [1, N, *sites]
-    acc = cols[0] * rows[0]
+    acc = cmul(cols[0], rows[0])
     for j in range(1, a.shape[1]):
-        acc = acc + cols[j] * rows[j]
+        acc = acc + cmul(cols[j], rows[j])
     return acc
 
 
@@ -75,7 +89,7 @@ def unitarity_defect(a):
 
 def _normalize_row(r):
     """r: [N, *sites] complex -> unit norm along the leading dim."""
-    nrm = torch.sqrt(torch.sum(torch.real(r * torch.conj(r)), dim=0))
+    nrm = torch.sqrt(torch.sum(torch.real(cmul(r, torch.conj(r))), dim=0))
     return r / nrm
 
 
@@ -83,9 +97,9 @@ def cross3(u, v):
     """Complex cross product of two [3, *sites] row fields."""
     return torch.stack(
         [
-            u[1] * v[2] - u[2] * v[1],
-            u[2] * v[0] - u[0] * v[2],
-            u[0] * v[1] - u[1] * v[0],
+            cmul(u[1], v[2]) - cmul(u[2], v[1]),
+            cmul(u[2], v[0]) - cmul(u[0], v[2]),
+            cmul(u[0], v[1]) - cmul(u[1], v[0]),
         ],
         dim=0,
     )
@@ -124,7 +138,7 @@ def reunitarize(a):
     if n != 3:
         raise ValueError(f"reunitarize: SU(2) or SU(3), got N={n}")
     r0 = _normalize_row(a[0])
-    r1 = a[1] - torch.sum(torch.conj(r0) * a[1], dim=0) * r0
+    r1 = a[1] - cmul(torch.sum(cmul(torch.conj(r0), a[1]), dim=0), r0)
     r1 = _normalize_row(r1)
     r2 = torch.conj(cross3(r0, r1))
     return torch.stack([r0, r1, r2], dim=0)
@@ -210,6 +224,6 @@ def subgroup_left_mul(q, i, j, m):
     u10 = torch.complex(-q[2], q[1])
     u11 = torch.complex(q[0], -q[3])
     rows = list(m.unbind(0))
-    rows[i] = u00 * m[i] + u01 * m[j]
-    rows[j] = u10 * m[i] + u11 * m[j]
+    rows[i] = cmul(u00, m[i]) + cmul(u01, m[j])
+    rows[j] = cmul(u10, m[i]) + cmul(u11, m[j])
     return torch.stack(rows, dim=0)

@@ -8,8 +8,14 @@ shard (i, j) of an (mx, my) mesh owns the interior
 one CUDA device (or the CPU), and its neighbours along X and Y are found by
 index arithmetic on the grid.  By default every shard sits on the
 Simulation's device, so a mesh runs on one card; ``devices=[...]`` spreads
-them, shard k on ``devices[k % len(devices)]``.  Z/T meshes are not ported
-(M11).
+them, shard k on ``devices[k % len(devices)]``.  That grid is the packed
+engine's, which splits X and Y only.
+
+The dense engine (dense.py, dense_sharded.py) splits any of the four axes:
+``DenseGrid`` is the reference's make_mesh over (X, Y, Z, T) (mesh.py:
+30-58) as an explicit grid of ``DenseShard`` geometries, each an interior
+block of the lattice with a one-site halo on each side of every split
+axis; an unsplit axis wraps inside the shard.
 
 A beta scan's chains are cut into blocks (the reference's ("c",) and
 ("c", "x", "y", "z", "t") meshes, mesh.py:75-112): ``ChainGrid`` holds each
@@ -19,7 +25,8 @@ block's chains and its ``ShardGrid``, every shard of block b on
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import itertools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +35,7 @@ from ..ops.cuda.core import Shard
 
 # mesh axis names, one per lattice site axis (X, Y, Z, T)
 AXES = ("x", "y", "z", "t")
+NDIM = len(AXES)
 
 
 def is_lattice_sharded(cfg) -> bool:
@@ -110,14 +118,86 @@ def shard_grid(cfg, device, devices=None) -> ShardGrid:
                      [device] if devices is None else list(devices))
 
 
+class DenseShard(NamedTuple):
+    """One shard of the dense field over a 4D mesh: the interior block
+    ``[offset[a], offset[a] + local[a])`` of every lattice axis a, padded
+    by ``halo[a]`` (1 where the axis is split, else 0) sites on each side.
+    A tensor of the shard has the padded extents as its last four axes."""
+
+    dims: tuple    # the global lattice (X, Y, Z, T)
+    local: tuple   # interior extents
+    offset: tuple  # global coordinates of the first interior site
+    halo: tuple    # 1 where the axis is split
+
+    def interior(self, a):
+        """The interior view of ``a``, whose last four axes are the padded
+        lattice (``a`` itself without halo)."""
+        for ax in range(NDIM):
+            if self.halo[ax]:
+                a = a.narrow(ax - NDIM, self.halo[ax], self.local[ax])
+        return a
+
+    def coords(self, axis, padded=False, device="cpu"):
+        """Global coordinates (int64) along ``axis`` of the interior sites,
+        or with ``padded`` of every padded site (wrapped)."""
+        h = self.halo[axis] if padded else 0
+        return (torch.arange(self.offset[axis] - h,
+                             self.offset[axis] + self.local[axis] + h,
+                             dtype=torch.int64, device=device)
+                % self.dims[axis])
+
+
+class DenseGrid:
+    """The shards of an (mx, my, mz, mt) mesh over ``dims`` for the dense
+    field, in order k = ((i * my + j) * mz + l) * mt + m (X-major), each
+    with its DenseShard geometry and device (shard k on ``devices[k %
+    len(devices)]``)."""
+
+    def __init__(self, dims, mesh, devices):
+        dims = tuple(int(d) for d in dims)
+        mesh = tuple(int(m) for m in mesh)
+        if len(mesh) != NDIM:
+            raise ValueError(f"a mesh over (X, Y, Z, T), got {mesh}")
+        if any(d % (2 * m) for d, m in zip(dims, mesh)):
+            raise ValueError(f"dims {dims} do not split into even shards "
+                             f"over {mesh}")
+        local = tuple(d // m for d, m in zip(dims, mesh))
+        halo = tuple(int(m > 1) for m in mesh)
+        self.dims, self.mesh, self.local, self.halo = dims, mesh, local, halo
+        self.index = tuple(itertools.product(*(range(m) for m in mesh)))
+        self.shards = tuple(
+            DenseShard(dims, local, tuple(c * l for c, l in zip(ix, local)),
+                       halo) for ix in self.index)
+        devices = [torch.device(d) for d in devices]
+        self.devices = tuple(devices[k % len(devices)]
+                             for k in range(len(self.shards)))
+
+    def __len__(self):
+        return len(self.shards)
+
+    def neighbour(self, k, axis, delta):
+        """Index of the shard next to shard k along ``axis``."""
+        ix = list(self.index[k])
+        ix[axis] = (ix[axis] + delta) % self.mesh[axis]
+        return self.index.index(tuple(ix))
+
+
+def dense_grid(cfg, device, devices=None) -> DenseGrid:
+    """The dense grid of cfg.mesh: every shard on ``device`` unless
+    ``devices`` lists the devices to spread them over."""
+    return DenseGrid(cfg.dims, cfg.mesh,
+                     [device] if devices is None else list(devices))
+
+
 class ChainGrid:
     """A beta scan's C chains in ``n_blocks`` equal blocks of consecutive
     chains (the reference's chain-mesh axis "c"), each block with the
-    ShardGrid of cfg.mesh over the lattice, all of block b's shards on
-    ``devices[b % len(devices)]``: the reference's make_chain_mesh and
-    make_chain_lattice_mesh (mesh.py:75-112) as an explicit grid."""
+    ShardGrid of cfg.mesh over the lattice (with ``dense`` its DenseGrid),
+    all of block b's shards on ``devices[b % len(devices)]``: the
+    reference's make_chain_mesh and make_chain_lattice_mesh (mesh.py:
+    75-112) as an explicit grid."""
 
-    def __init__(self, cfg, n_chains, n_blocks, devices):
+    def __init__(self, cfg, n_chains, n_blocks, devices, dense=False):
         n_chains, n_blocks = int(n_chains), int(n_blocks)
         if n_blocks < 1 or n_chains % n_blocks:
             raise ValueError(f"n_chains={n_chains} must divide evenly over "
@@ -126,8 +206,9 @@ class ChainGrid:
         devices = [torch.device(d) for d in devices]
         self.blocks = tuple(range(b * per, (b + 1) * per)
                             for b in range(n_blocks))
+        kind = DenseGrid if dense else ShardGrid
         self.grids = tuple(
-            ShardGrid(cfg.dims, cfg.mesh, [devices[b % len(devices)]])
+            kind(cfg.dims, cfg.mesh, [devices[b % len(devices)]])
             for b in range(n_blocks))
 
     def __len__(self):

@@ -21,10 +21,14 @@ engine, and ``make_chunk_runner`` builds its runner:
   ``stream_state`` then gather the shards into the global state (without
   a mesh the one shard is the whole lattice).  ``save`` writes the packed
   directory.
-* the dense engine ("xla", dense.py: complex128, engine="xla"): the state
-  is the complex field itself, in cfg.dtype, and in stream mode the dense
-  stream state; ``us`` and ``u`` are the field, ``save`` writes the
-  reference's single .npz (links_ri and the dense stream state).
+* the dense engine ("xla", dense.py: complex128, engine="xla", a mesh
+  that splits Z or T): the state is the complex field itself, in
+  cfg.dtype, and in stream mode the dense stream state; on any 4D mesh
+  the field is cut into halo-padded shards and the words into their
+  interiors (dense_sharded.py), all on ``device`` unless ``devices``
+  spreads them.  ``us`` and ``u`` are the field (gathered on a mesh),
+  ``save`` writes the reference's single .npz (links_ri and the dense
+  stream state).
 
 Checkpoints (utils/checkpoint.py) are the JAX package's: ``load`` reads
 either format from either package; a stream state of the other engine's
@@ -53,9 +57,9 @@ NDIM = 4
 def make_chunk_runner(cfg: SimConfig, device="cuda", devices=None):
     """The runner of the engine cfg resolves to (qcdgpu_tpu/sim.py:309-373):
     the dense engine's (dense.make_chunk_runner) or the packed engine's
-    (ops/cuda/engine.make_chunk_runner, its shards on ``devices``)."""
+    (ops/cuda/engine.make_chunk_runner), its shards on ``devices``."""
     if resolve_engine(cfg) == "xla":
-        return dense.make_chunk_runner(cfg, device)
+        return dense.make_chunk_runner(cfg, device, devices)
     return engine.make_chunk_runner(cfg, device, devices)
 
 
@@ -70,7 +74,7 @@ class Simulation:
     a given state — numpy arrays from the JAX package or tensors — with
     fresh streams from cfg.seed in stream mode; otherwise cfg.start picks a
     cold or hot start (a stream-mode hot start draws from the streams).
-    ``devices``: where the shards of an X/Y mesh go (default: all on
+    ``devices``: where the shards of cfg.mesh go (default: all on
     ``device``).  ``_stream_rst``: the stream state, as numpy in the
     reference's keys and dtypes, that goes with ``init_u`` / ``init_us``
     (``load``); a layout of the other engine is refused.
@@ -110,9 +114,9 @@ class Simulation:
     # -- state ------------------------------------------------------------
     @property
     def us(self):
-        """The engine-layout links: the packed 8-tuple (the live state,
-        updated in place by the sweeps; on a mesh the shards gathered into
-        a new one), or on the dense engine the live complex field."""
+        """The engine-layout links: the packed 8-tuple, or on the dense
+        engine the complex field: the live state, updated in place by the
+        sweeps, or on a mesh the shards gathered into a new one."""
         return self._run.gather(self._state())[0]
 
     @property
@@ -257,14 +261,19 @@ class Simulation:
                    rng_stream=self.stream_state, us=self.us)
 
     @classmethod
-    def load(cls, path: str, *, device="cuda", devices=None):
+    def load(cls, path: str, *, device="cuda", devices=None, mesh=None):
         """Resume a checkpoint of either format, written by either package;
         the chain continues bit for bit (a TPU ``hw`` run's links are
-        exact, and it continues on Philox).  A stream state of the other
-        engine's layout (dense vs packed) is refused."""
+        exact, and it continues on Philox).  ``mesh`` lays the resumed run
+        out on another mesh than the saved configuration's (the file holds
+        the global state; the reference re-applies cfg.mesh on load).  A
+        stream state of the other engine's layout (dense vs packed) is
+        refused."""
         from .utils.checkpoint import load_state
 
         cfg, u, sweep_idx, obs_history, rng_stream = load_state(path)
+        if mesh is not None:
+            cfg = cfg.replace(mesh=tuple(mesh))
         if stream_mode_name(cfg.rng_mode) is not None and rng_stream is None:
             raise ValueError(
                 "checkpoint has no PRNGCL stream state but the config "

@@ -9,9 +9,10 @@ literature and against the reference's self-regression anchors:
      -> <|P|> above > 3 x below and > 0.05
   4. RNG parity (moments of threefry, Philox and the native reference
      generators; the device streams bit-identical to the native ones)
-  5. multi-card 32^4 (skipped, with its reason, unless two cards are
-     attached; sharded == unsharded bit equality runs in
-     tests/test_torch_sharded.py and chip_smoke.py)
+  5. multi-card 32^4 over an X/Y mesh with two cards or more; below two,
+     the reference's fallback on the one device: a short SU(3) chain on
+     the dense engine over mesh (4, 2, 1, 1), sharded == unsharded bit
+     for bit (PASS or FAIL, never skipped)
 
   6. engine cross-validation: the dense engine (dense.py) against the
      packed CUDA engine, threefry, over 2 sweeps and one heat-bath stage
@@ -265,21 +266,55 @@ def check_rng(quick=False, device="cuda"):
     }
 
 
+def _config5_one_device(device):
+    """Config 5 below two cards: the reference's fallback
+    (qcdgpu_tpu/validate.py:215-250) on the dense engine, its shards all
+    on ``device``: a short SU(3) chain, (8, 8, 4, 8), complex64, heat-bath
+    + 1 OR, reunit_every=2, seed 3, from a hot start, 2 sweeps measured
+    once, on default_mesh_shape(8, dims) = (4, 2, 1, 1) against the same
+    chain unsharded.  Links bit-identical, observables within 1e-5."""
+    import torch
+
+    from . import dense
+    from .ops import rng
+    from .parallel.mesh import default_mesh_shape
+
+    dims = (8, 8, 4, 8)
+    shape = default_mesh_shape(8, dims)
+    cfg = SimConfig(group=3, dims=dims, beta=6.0, n_or=1, reunit_every=2,
+                    seed=3, engine="xla")
+    key = rng.make_base_key(3)
+    u0 = dense.hot_start(cfg, key, device)
+    u_ref, obs_ref = dense.make_chunk_runner(cfg, device)(u0, key, 0, 2, 2)
+    u_out, obs_sh = dense.make_chunk_runner(cfg.replace(mesh=shape),
+                                            device)(u0, key, 0, 2, 2)
+    dlinks = float(torch.max(torch.abs(u_ref - u_out)))
+    dobs = float(torch.max(torch.abs(obs_ref - obs_sh)))
+    return {"mesh": list(shape), "max_dlinks": dlinks, "max_dobs": dobs,
+            "plq": float(obs_sh[0, 0]),
+            "pass": bool(dlinks == 0.0 and dobs < 1e-5)}
+
+
 def check_multichip(quick=False, device="cuda"):
     import torch
 
     from .ops.cuda.engine import resolve_device
     from .parallel.mesh import default_mesh_shape
 
-    n_dev = (torch.cuda.device_count()
-             if resolve_device(device).type == "cuda" else 1)
+    dev = resolve_device(device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     if n_dev < 2:
+        # no second card: config 5's mechanism (domain decomposition and
+        # halo exchange) on the one device, PASS or FAIL, never SKIP
+        r = _config5_one_device(dev)
         return {
-            "name": "multi-card SU(3) 32^4 over an X/Y mesh",
-            "skipped": f"needs >= 2 cards, {n_dev} attached (sharded == "
-                       "unsharded bit equality on one device runs in "
-                       "tests/test_torch_sharded.py and chip_smoke.py)",
-            "pass": None,
+            "name": "multi-card SU(3) sharded == unsharded (mesh "
+                    f"{tuple(r['mesh'])} on one device, {dev}; only "
+                    f"{n_dev} attached)",
+            "measured": {"max_dlinks": r["max_dlinks"],
+                         "max_dobs": r["max_dobs"]},
+            "expected": "bit-identical links, obs within 1e-5",
+            "pass": r["pass"],
         }
     dims = (32, 32, 32, 32)
     k = 1 << int(np.log2(n_dev))

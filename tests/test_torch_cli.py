@@ -1,7 +1,7 @@
 """The port's command line (qcdgpu_tpu_torch/cli.py) on the CPU: run with
 periodic checkpoints, resume bit for bit, a beta scan and its resume,
-info, validate's refusals, and the unported features refused with their
-ROADMAP items."""
+info, validate, and the dense engine on a mesh (bit for bit its unsharded
+run, its record naming the engine and the mesh)."""
 
 import json
 import os
@@ -98,6 +98,14 @@ def test_scan_then_resume_is_one_scan(tmp_path):
     np.testing.assert_array_equal(u_b, u_c)
 
 
+def _mesh_args(args, mesh):
+    """args with its --mesh replaced by ``mesh`` and the engine pinned to
+    the dense one (an unsharded complex64 run would resolve to the packed
+    engine)."""
+    i = args.index("--mesh")
+    return args[:i] + ["--mesh", mesh] + args[i + 2:] + ["--engine", "xla"]
+
+
 @pytest.mark.parametrize("args,item", [
     (["scan", "--betas", "5.6,6.0", "--rng-mode", "prngcl:ranlux3",
       "--mesh", "2,1,1,1"], "M11b"),
@@ -112,14 +120,68 @@ def test_scan_then_resume_is_one_scan(tmp_path):
     (["run", "--engine", "xla", "--mesh", "1,2,1,1"], "M11b"),
 ])
 def test_unported_features_name_their_item(args, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([*args, "--dims", "4,4,2,4", "--device", "cpu", "--out",
-                  str(tmp_path)])
+    """Runs and scans on the dense engine on a mesh (``item``: its ROADMAP
+    item), 1 + 1 sweeps: the record names the engine and the mesh, the
+    links (every chain's) are bit for bit the unsharded dense run's, the
+    series within 1e-5."""
+    assert item == "M11b"
+    common = ["--dims", "4,4,2,4", "--therm", "1", "--sweeps", "1",
+              "--seed", "2", "--device", "cpu"]
+    out = {}
+    for tag, argv in (("mesh", args), ("flat", _mesh_args(args,
+                                                          "1,1,1,1"))):
+        out[tag] = _run(tmp_path, tag, *argv, *common)
+    mesh = [int(m) for m in args[args.index("--mesh") + 1].split(",")]
+    if args[0] == "scan":
+        from qcdgpu_tpu_torch.utils.checkpoint import load_betascan
+
+        recs = []
+        for tag in ("mesh", "flat"):
+            with open(os.path.join(out[tag], "scan.json")) as f:
+                recs.append(json.load(f))
+        links = [load_betascan(os.path.join(out[t], "scan_state.npz"))[3]
+                 for t in ("mesh", "flat")]
+    else:
+        recs, links = [], []
+        for tag in ("mesh", "flat"):
+            rec, u, _ = _series_and_links(out[tag])
+            recs.append(rec)
+            links.append(u)
+    assert recs[0]["engine"] == recs[1]["engine"] == "xla"
+    assert recs[0]["mesh"] == mesh and recs[1]["mesh"] == [1, 1, 1, 1]
+    np.testing.assert_array_equal(links[0], links[1])
+    for name, series in recs[1]["series"].items():
+        np.testing.assert_allclose(recs[0]["series"][name], series, rtol=0,
+                                   atol=1e-5)
+
+
+def test_dense_resume_on_another_mesh(tmp_path):
+    """run --mesh 1,1,2,2 --dtype complex128 with checkpoints, then resume
+    --mesh 2,1,1,1: the links equal an uninterrupted unsharded run's, the
+    series within 1e-5; the records name each run's mesh."""
+    args = ["--group", "2", "--dims", "4", "--dtype", "complex128",
+            "--start", "hot", "--seed", "3", "--ckpt-every", "1",
+            "--therm", "1", "--device", "cpu"]
+    a = _run(tmp_path, "a", "run", *args, "--mesh", "1,1,2,2", "--sweeps",
+             "1")
+    b = _run(tmp_path, "b", "resume", os.path.join(a, "state.npz"),
+             "--mesh", "2,1,1,1", "--sweeps", "1", "--device", "cpu")
+    c = _run(tmp_path, "c", "run", *args, "--sweeps", "2")
+    rec_b, u_b, idx_b = _series_and_links(b)
+    rec_c, u_c, idx_c = _series_and_links(c)
+    assert idx_b == idx_c == 3 and rec_b["mesh"] == [2, 1, 1, 1]
+    assert rec_b["engine"] == rec_c["engine"] == "xla"
+    np.testing.assert_array_equal(u_b, u_c)
+    np.testing.assert_allclose(rec_b["series"]["plq"],
+                               rec_c["series"]["plq"], rtol=0, atol=1e-5)
 
 
 def test_validate_skips_multicard_without_cards(capsys):
+    """Below two cards config 5 runs the reference's fallback (sharded ==
+    unsharded on one device) and PASSes; it is never skipped."""
     assert cli.main(["validate", "--configs", "5", "--device", "cpu"]) == 0
-    assert "[SKIP] #5" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "[PASS] #5" in out and "SKIP" not in out
 
 
 def test_rngtest_passes(capsys):

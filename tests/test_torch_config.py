@@ -1,6 +1,6 @@
-"""qcdgpu_tpu_torch.config mirrors qcdgpu_tpu.config; features outside the
-ported slices (the dense engine on a mesh) are refused; the package never
-imports jax."""
+"""qcdgpu_tpu_torch.config mirrors qcdgpu_tpu.config; every feature of the
+dense engine runs on a mesh too, bit for bit its unsharded run; the
+package never imports jax."""
 
 import dataclasses
 import subprocess
@@ -58,8 +58,26 @@ def test_validation_matches_reference(kw):
         SimConfig(**kw)
 
 
+def run_like_unsharded(cfg, n=1):
+    """cfg's runner on its mesh against the same engine unsharded, from one
+    hot start: n sweeps measured once, the links bit for bit, the
+    standard six within 1e-5, the extended and tracked columns equal."""
+    key = (1, 2)
+    flat = make_chunk_runner(cfg.replace(mesh=(1, 1, 1, 1), engine="xla"),
+                             "cpu")
+    u0 = flat.unpack((flat.packed_hot_start(key), flat.make_stream_state0()))
+    run = make_chunk_runner(cfg, "cpu")
+    assert run.engine == "xla" and len(run.grid) == np.prod(cfg.mesh)
+    u, obs = run(u0, key, 0, n, n)
+    u_ref, obs_ref = flat(u0, key, 0, n, n)
+    assert torch.equal(u, u_ref)
+    np.testing.assert_allclose(obs[:, :6], obs_ref[:, :6], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(obs[:, 6:], obs_ref[:, 6:])
+
+
 # each feature on the dense engine (complex128, engine="xla", a Z/T split)
-# paired with a mesh: the dense engine on a mesh is still refused (M11b)
+# paired with a mesh: the dense engine runs on any mesh, bit for bit its
+# unsharded self
 @pytest.mark.parametrize("kw", [
     dict(algorithm="metropolis", rng_mode="prngcl:ranmar", get_qtop=True,
          dtype="complex128", mesh=(2, 1, 1, 1)),
@@ -76,18 +94,25 @@ def test_validation_matches_reference(kw):
     dict(engine="xla", mesh=(2, 1, 1, 1)),
 ])
 def test_unported_features_raise(kw):
-    cfg = SimConfig(**{**TINY, **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*M11b"):
-        make_chunk_runner(cfg, "cpu")
+    """Each dense-engine feature runs a sweep on its mesh, bit for bit its
+    unsharded run."""
+    run_like_unsharded(SimConfig(**{**TINY, **kw}))
 
 
-# Z/T splits run on the reference's XLA engine, here the dense engine,
-# which runs on one device only (M11b)
+# Z/T splits run on the reference's XLA engine, here the dense engine, on
+# the Simulation's device: a sweep, bit for bit the unsharded dense run
 @pytest.mark.parametrize("mesh", [(1, 1, 2, 1), (2, 1, 1, 2), (1, 1, 1, 2)])
 def test_zt_meshes_raise(mesh):
-    cfg = SimConfig(dims=(4, 4, 4, 4), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="M11b"):
-        Simulation(cfg, device="cpu")
+    """A Z/T mesh under engine "auto" resolves to the dense engine and
+    runs there, bit for bit the unsharded dense run."""
+    cfg = SimConfig(dims=(4, 4, 4, 4), mesh=mesh, start="hot", seed=2)
+    sim = Simulation(cfg, device="cpu")
+    assert sim.engine == "xla" and len(sim._run.grid) == np.prod(mesh)
+    obs = sim.run(1, 1)
+    flat = Simulation(cfg.replace(mesh=(1, 1, 1, 1), engine="xla"),
+                      device="cpu")
+    np.testing.assert_allclose(obs, flat.run(1, 1), rtol=0, atol=1e-5)
+    assert torch.equal(sim.u, flat.u)
 
 
 @pytest.mark.parametrize("kw", [
@@ -145,7 +170,8 @@ def test_default_device_is_the_card():
 
 def test_import_leaves_jax_out():
     code = ("import sys, qcdgpu_tpu_torch, qcdgpu_tpu_torch.sim, "
-            "qcdgpu_tpu_torch.dense, qcdgpu_tpu_torch.ops.samplers, "
+            "qcdgpu_tpu_torch.dense, qcdgpu_tpu_torch.dense_sharded, "
+            "qcdgpu_tpu_torch.ops.samplers, "
             "qcdgpu_tpu_torch.ops.measure, qcdgpu_tpu_torch.ops.sun, "
             "qcdgpu_tpu_torch.ops.cuda.engine, "
             "qcdgpu_tpu_torch.ops.cuda.sharded, "

@@ -93,11 +93,20 @@ def reference_stage(n, dtype, kind, exact_rsqrt=False):
     return np.asarray(out[0]), float(out[1])
 
 
+def rate_of(counts, n, kind):
+    """update_links' counts as the reference's tracked rate."""
+    return tsamp.tracked_rate(counts, int(np.prod(DIMS)), kind, 3,
+                              len(tsun.subgroups(n)))
+
+
 def port_stage(n, dtype, kind, track):
     u = torch.from_numpy(hot(n, dtype))
     _, tkey = stage_key()
-    return tsamp.update_links(u[MU], staple_sum(u, MU), kind, BETA[n], tkey,
-                              site_index(DIMS, "cpu"), return_acc=track)
+    out = tsamp.update_links(u[MU], staple_sum(u, MU), kind, BETA[n], tkey,
+                             site_index(DIMS, "cpu"), return_acc=track)
+    if track:
+        return out[0], rate_of(out[1], n, kind)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -179,14 +188,16 @@ def test_batched_chains_are_each_chain(n):
               for i in (0, 1))
     sidx = site_index(DIMS, "cpu")
     for kind in ("heatbath", "metropolis"):
-        got, rate = tsamp.update_links(
+        got, cnt = tsamp.update_links(
             u[MU], staple_sum(u, MU), kind, np.asarray(betas), k, sidx,
             return_acc=True)
+        rate = rate_of(cnt, n, kind)
         for c in range(3):
             uc = u.select(3, c).contiguous()
-            one, r1 = tsamp.update_links(uc[MU], staple_sum(uc, MU), kind,
+            one, c1 = tsamp.update_links(uc[MU], staple_sum(uc, MU), kind,
                                          betas[c], keys[c], sidx,
                                          return_acc=True)
+            r1 = rate_of(c1, n, kind)
             assert torch.equal(got.select(2, c), one)
             assert float(rate[c]) == float(r1)
 

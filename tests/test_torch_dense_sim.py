@@ -1,8 +1,8 @@
 """The dense engine through the library and the CLI: a whole sweep and its
 measurement against the JAX reference's (eager), resolve_engine's rules,
 exact resume and dense stream checkpoints across the packages, the dense
-tier of BetaScan (each chain its own Simulation, bit for bit) and what
-stays refused (the dense engine on a mesh: M11b)."""
+tier of BetaScan (each chain its own Simulation, bit for bit) and the
+dense engine on a mesh (its unsharded run bit for bit)."""
 
 import json
 import os
@@ -190,9 +190,20 @@ def test_stream_scan_chains_are_their_simulations(tmp_path):
     dict(engine="xla", rng_mode="prngcl:ranlux3", mesh=(1, 2, 1, 1)),
 ])
 def test_dense_mesh_raises_m11b(kw):
-    cfg = SimConfig(dims=(4, 4, 4, 4), **kw)
-    with pytest.raises(NotImplementedError, match="M11b"):
-        Simulation(cfg, device="cpu")
+    """The dense engine on a mesh (M11b): 2 sweeps from a hot start, links
+    and stream state bit for bit the unsharded dense run's, the series
+    within 1e-5."""
+    cfg = SimConfig(dims=(4, 4, 4, 4), start="hot", seed=8, **kw)
+    sim = Simulation(cfg, device="cpu")
+    assert sim.engine == "xla" and len(sim._run.grid) == 2
+    obs = sim.run(2, 1)
+    flat = Simulation(cfg.replace(mesh=(1, 1, 1, 1), engine="xla"),
+                      device="cpu")
+    np.testing.assert_allclose(obs, flat.run(2, 1), rtol=0, atol=1e-5)
+    assert torch.equal(sim.u, flat.u)
+    if flat.stream_state is not None:
+        for k, v in flat.stream_state.items():
+            np.testing.assert_array_equal(sim.stream_state[k], v)
 
 
 def test_cli_run_and_resume_dense(tmp_path, capsys):

@@ -2,7 +2,8 @@
 BetaScan against the JAX reference's, each chain against its own
 single-chain Simulation bit for bit, the chain twins against the
 single-chain twins, the device key derivation, warmup and chunking,
-checkpoints in both directions, the presets, and the refusals."""
+checkpoints in both directions, the presets, dense scans on a mesh and in
+chain blocks, and the refusals."""
 
 import numpy as np
 import pytest
@@ -215,9 +216,21 @@ def test_presets():
     (dict(get_qtop=True, dtype="complex128"), 2, "M11b"),
 ])
 def test_refusals_name_their_item(kw, chain_mesh, item):
-    cfg = SimConfig(**{**SU2, **kw})
-    with pytest.raises(NotImplementedError, match=item):
-        BetaScan(cfg, BETAS[2], chain_mesh, device="cpu")
+    """Dense scans on a mesh and in chain blocks (``item``: their ROADMAP
+    item): each chain's links bit for bit the unsharded one-block dense
+    scan's, the series within 1e-5 (the extended columns equal)."""
+    assert item == "M11b"
+    cfg = SimConfig(**{**SU2, **kw}, start="hot", seed=7)
+    scan = BetaScan(cfg, BETAS[2], chain_mesh, device="cpu")
+    assert scan.engine == "xla" and scan.chain_mesh == chain_mesh
+    obs = scan.run(2, 1)
+    flat = BetaScan(cfg.replace(mesh=(1, 1, 1, 1), engine="xla"), BETAS[2],
+                    device="cpu")
+    obs_ref = flat.run(2, 1)
+    assert torch.equal(scan.u, flat.u)
+    np.testing.assert_allclose(obs[..., :6], obs_ref[..., :6], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(obs[..., 6:], obs_ref[..., 6:])
 
 
 def test_chain_mesh_auto_is_one_card():

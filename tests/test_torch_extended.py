@@ -359,7 +359,7 @@ def test_line_product_and_obs_names_match_reference():
 
 
 # ---------------------------------------------------------------------------
-# what stays refused
+# the dense engine on a mesh, and what stays refused
 # ---------------------------------------------------------------------------
 
 
@@ -370,9 +370,22 @@ def test_line_product_and_obs_names_match_reference():
     dict(engine="xla", get_fmunu=True, mesh=(2, 2, 1, 1)),
 ])
 def test_refusals_name_m11(kw):
-    cfg = SimConfig(dims=DIMS, **kw)
-    with pytest.raises(NotImplementedError, match="M11b"):
-        tsim.make_chunk_runner(cfg, "cpu")
+    """The extended observables on a dense mesh (M11b): a sweep from a hot
+    start, the links bit for bit the unsharded dense run's, the extended
+    columns equal (measured on the gathered field), the standard six
+    within 1e-5."""
+    cfg = SimConfig(dims=DIMS, start="hot", seed=3, **kw)
+    key = (3, 4)
+    flat = tsim.make_chunk_runner(cfg.replace(mesh=(1, 1, 1, 1),
+                                              engine="xla"), "cpu")
+    run = tsim.make_chunk_runner(cfg, "cpu")
+    assert run.engine == "xla" and len(run.grid) == np.prod(cfg.mesh)
+    u0 = flat.unpack((flat.packed_hot_start(key), {}))
+    u, obs = run(u0, key, 0, 1, 1)
+    u_ref, obs_ref = flat(u0, key, 0, 1, 1)
+    assert torch.equal(u, u_ref)
+    np.testing.assert_allclose(obs[:, :6], obs_ref[:, :6], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(obs[:, 6:], obs_ref[:, 6:])
 
 
 @pytest.mark.parametrize("mesh", [(2, 1, 1, 1), (2, 2, 1, 1)])
