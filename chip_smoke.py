@@ -113,11 +113,13 @@ With no argument, phases 1-6, 8 and 9, each timed:
                   on the chain views that it replaces, its bound C times
                   the single chain's; every K1ac instantiation, K5ac and
                   K5bc on shard 0 of 24^3 x 6 on (2,2,1,1) with 11 chains,
-                  beside the loop of 11 K1a (K5a, K5b) launches; K4, K5b,
-                  K4c and K5bc and every stream stage (K1, K1a) also on
-                  the device by torch.profiler (the record's device_ms),
+                  beside the loop of 11 K1a (K5a, K5b) launches; every
+                  timed row also on the device by torch.profiler (the
+                  record's device_ms: all the device work of a call, per
+                  launch of the row's kernel, the K4 family's finish
+                  kernel included; a stream stage's its stage kernel),
                   which CUDA events around back-to-back calls cannot
-                  give below ~0.05 ms;
+                  give below ~0.05 ms, with bound / device beside it;
   5. main paths — first small hot starts through the library API, CUDA
                   against the CPU path (threefry slices, and ranlux3).
                   Then Simulation(cfg) with no device argument at 32^4
@@ -148,7 +150,14 @@ With no argument, phases 1-6, 8 and 9, each timed:
                   line on the bench's hw configuration: `cli.main(["run",
                   ..., "--ckpt-every", "5"])` and `resume`, each with
                   exact launch counts, whose series and links must equal
-                  an uninterrupted run's.  Then the beta scan (BASELINE
+                  an uninterrupted run's; the native analysis library
+                  (native/analysis.cpp, g++ at the run's first
+                  analyze_series) built and loaded, g++'s message
+                  otherwise, each of its estimators within 1e-12 of its
+                  numpy twin on the run's plaquette series and a seeded
+                  AR(1) series, both records' analysis analyze_series of
+                  their series bit for bit, with the backend and its
+                  seconds.  Then the beta scan (BASELINE
                   config 3): BetaScan(baseline_config(3), 5.6:6.1:11),
                   SU(3) 24^3 x 6 HB + 2 OR cold, threefry and hw,
                   warmup(), thermalize(20), run(20, 1) with exact launch
@@ -423,6 +432,12 @@ def parse_instance(name):
     parts = name.split("_")
     fam = parts[3] if parts[3:4] and parts[3] in FAMILY_RUN_GENS else None
     return parts[1], int(parts[2][2:]), "track" in parts, fam
+
+
+def is_stream_row(name):
+    """Whether a kernel record row is a stream stage (K1 or K1a drawing from
+    a PRNGCL family)."""
+    return name.startswith("stage_") and parse_instance(name)[3] in FAMILY_GEN
 
 
 def family_source(fam):
@@ -886,6 +901,109 @@ def device_ms(fn, reps, match):
         return None, None
     return (sum(ms for k, (ms, _) in by_name.items() if match in k) / reps,
             sum(ms for ms, _ in by_name.values()) / reps)
+
+
+# ---------------------------------------------------------------------------
+# the native analysis library (native/analysis.cpp, built with g++)
+# ---------------------------------------------------------------------------
+
+ANALYSIS_RTOL = 1e-12  # native estimator against its numpy twin
+
+
+def ar1_series(n, seed=5, rho=0.8):
+    """0.6 + 0.01 x with x a seeded AR(1) chain: an autocorrelated series
+    like a Markov-chain observable."""
+    eps = np.random.default_rng(seed).normal(size=n)
+    x = np.empty(n)
+    x[0] = 0.0
+    for i in range(1, n):
+        x[i] = rho * x[i - 1] + eps[i]
+    return 0.6 + 0.01 * x
+
+
+def same_float(a, b, rtol=0.0):
+    """a == b (NaN equal to NaN), or within rtol of b."""
+    a, b = float(a), float(b)
+    return (np.isnan(a) and np.isnan(b)) or abs(a - b) <= rtol * abs(b)
+
+
+def analysis_check(recs, plq, smi):
+    """The native analysis library on this machine: it builds (g++'s
+    message otherwise) and loads; each of its estimators equals its numpy
+    twin within ANALYSIS_RTOL on the bench's plaquette series plq and a
+    seeded AR(1) series; and each CLI record's analysis (recs, written by
+    Simulation.analysis() in the CLI run) is analyze_series of the record's
+    own series bit for bit.  The library was loaded at that run's first
+    analyze_series and the load is cached, so available() now says which
+    backend the run took."""
+    from qcdgpu_tpu_torch.native import analysis as nat
+    from qcdgpu_tpu_torch.native import build as nbuild
+    from qcdgpu_tpu_torch.utils import stats
+
+    try:
+        path = nbuild.build_lib("analysis", ["analysis/analysis.cpp"])
+    except nbuild.NativeBuildError as e:
+        raise AssertionError(
+            f"the native analysis library did not build: {e}") from e
+    require(nat.available(), f"{path.name} is built but did not load when "
+            "the CLI run analysed its series")
+    bad = []
+    for label, x in (("bench hw plaquette", np.asarray(plq, np.float64)),
+                     ("AR(1) 2048", ar1_series(2048))):
+        n = len(x)
+        got = {"series_moments": nat.series_moments(x)}
+        want = {"series_moments": (x.mean(), x.var(),
+                                   np.sqrt(x.var(ddof=1) / n))}
+        for bs in (1, 2, 4, 16):
+            got[f"binned_error {bs}"] = (nat.binned_error(x, bs),)
+            want[f"binned_error {bs}"] = (stats.binned_error(x, bs),)
+        for bs in (1, 2):
+            got[f"jackknife_mean {bs}"] = nat.jackknife_mean(x, bs)
+            want[f"jackknife_mean {bs}"] = stats.jackknife(x, np.mean, bs)
+        err_naive = np.sqrt(x.var(ddof=1) / n)
+        best, best_bs, bs = err_naive, 1, 2
+        while n // bs >= 8:
+            e = stats.binned_error(x, bs)
+            if np.isfinite(e) and e > best:
+                best, best_bs = e, bs
+            bs *= 2
+        got["plateau_error"] = nat.plateau_error(x, 8)
+        want["plateau_error"] = (best, best_bs)
+        lags = min(20, n - 1)
+        xc = x - x.mean()
+        rho = nat.autocorr(x, lags)
+        rho_np = [np.dot(xc[:n - k], xc[k:]) / ((n - k) * x.var())
+                  for k in range(lags + 1)]
+        worst = 0.0
+        for k in got:
+            for a, b in zip(got[k], want[k]):
+                if not same_float(a, b, ANALYSIS_RTOL):
+                    bad.append(f"{label} {k}: {a!r} vs numpy {b!r}")
+                elif np.isfinite(b) and b:
+                    worst = max(worst, abs(a - b) / abs(b))
+        d_rho = float(np.max(np.abs(rho - rho_np)))
+        if not d_rho <= ANALYSIS_RTOL:  # rho[0] = 1
+            bad.append(f"{label} autocorr: max |d| {d_rho:.3e}")
+        print(f"analysis {label} (n {n}): the native estimators against "
+              f"numpy, worst rel {worst:.3e}, autocorr max |d| {d_rho:.3e} "
+              f"(< {ANALYSIS_RTOL})")
+    require(not bad, "native estimators differ from numpy: " + "; ".join(bad))
+    t0 = time.perf_counter()
+    n_cols = 0
+    for label, rec in zip(("run", "resume"), recs):
+        for name, series in rec["series"].items():
+            got = rec["results"][name]
+            want = stats.analyze_series(
+                np.asarray(series, np.float64)).to_dict()
+            n_cols += 1
+            require(got.keys() == want.keys() and all(
+                same_float(got[k], v) for k, v in want.items()),
+                f"CLI {label} record's analysis of {name} {got} is not "
+                f"analyze_series {want}")
+    secs = time.perf_counter() - t0
+    print(f"analysis backend: native ({path.name}, g++); the CLI run's and "
+          f"resume's records equal analyze_series of their {n_cols} series "
+          f"bit for bit, which took {secs:.4f} s on the host  [{smi}]")
 
 
 def dense_across_cards(cards, smi):
@@ -2861,6 +2979,29 @@ def main():
                   f"floor {int_ops / INT32_OPS_PER_S * 1e3:.4f} ms"
                   + (f", f64 floor {f64_ops / F64_OPS_PER_S * 1e3:.4f} ms"
                      if f64_ops else "") + f"  [{smi}]")
+            # the stream stages and the K4 family get theirs below
+            if not (is_stream_row(name) or name.startswith("polyakov")):
+                kernel_device(name, kern, r_kern, calls,
+                              f"{dims}" + (" shard 0" if shard else ""))
+
+    def kernel_device(name, fn, reps, calls, where):
+        """A row's device time by the profiler (device_ms of the record: all
+        the device work of fn, per launch of the row's kernel: fn makes
+        calls of them), beside phase 4's CUDA-event time, which on short
+        calls (up to ~0.1 ms of events) is the host's launch path."""
+        match = next(k for k in ("reunit", "plane_sums", "stage")
+                     if name.startswith(k))
+        kern, total = device_ms(fn, reps, match)
+        rec = record[name]
+        rec["device_ms"] = None if total is None else total / calls
+        print(f"{name} {where}: on the device " + (
+            "not measured (the profiler saw no device event)"
+            if kern is None else f"{kern / calls:.4f} ms {match} kernel, "
+            f"{rec['device_ms']:.4f} ms all its device work (profiler, "
+            f"{reps} calls); bound / device "
+            f"{rec['bound_ms'] / rec['device_ms']:.3f}")
+            + f"; CUDA events {rec['ms']:.4f} ms; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  [{smi}]")
 
     def k4_device(name, fn, where):
         """A K4-family call's device time by the profiler (its kernel, and
@@ -3018,8 +3159,7 @@ def main():
             stream_device(n, {name: kern
                               for name, (_, kern, *_) in itertools.chain(
                                   pairs.items(), spairs.items())
-                              if name.startswith("stage_")
-                              and parse_instance(name)[3] in FAMILY_GEN})
+                              if is_stream_row(name)})
             # a ranlux subgroup past a column's draws (K8_LONG: the chunked
             # instantiation) on the device, beside its bound
             for (kind, k_trials, n_hit, n_), gen in zip(K8_LONG,
@@ -3147,6 +3287,9 @@ def main():
                       f"({rec['bound_by']}), -fmad=false f32 floor "
                       f"{nc * f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  "
                       f"[{smi}]")
+                if not name.startswith("polyakov"):
+                    kernel_device(name, kern, reps, calls,
+                                  f"{SCAN_DIMS} x {nc} chains")
             k4_device(f"polyakov_sums_chains_su{n}",
                       lambda: cmeasure.polyakov_sums_chains(us, SCAN_DIMS),
                       f"{SCAN_DIMS} x {nc} chains")
@@ -3223,11 +3366,21 @@ def main():
                       f"-fmad=false f32 floor "
                       f"{nc * f32_ops / F32_INSTR_PER_S * 1e3:.4f} ms  "
                       f"[{smi}]")
+                if not name.startswith("polyakov"):
+                    kernel_device(name, kern, reps, 1, f"{SCAN_DIMS} mesh "
+                                  f"{MESH} shard 0 x {nc} chains")
             k4_device(f"polyakov_sums_local_chains_su{n}",
                       lambda: cmeasure.polyakov_sums_chains(s0, SCAN_DIMS,
                                                             g0),
                       f"{SCAN_DIMS} mesh {MESH} shard 0 x {nc} chains")
             del s0, views, cpairs
+        # every timed row has its device time, or the profiler saw none
+        timed = [k for k, r in record.items() if r["ms"] is not None]
+        missing = [k for k in timed if record[k]["device_ms"] is None]
+        print(f"device time by the profiler for {len(timed) - len(missing)} "
+              f"of the {len(timed)} rows timed in phase 4")
+        require(not missing or len(missing) == len(timed),
+                f"rows without a device time: {missing}")
 
     with Phase("5 main paths"):
         mark("before phase 5")
@@ -3501,9 +3654,12 @@ def main():
               f"uninterrupted run: {same_series and same_links}")
         require(same_series and same_links and len(series["plq"]) == 20,
                 "CLI run + resume differs from the uninterrupted chain")
+        mark("CLI run + resume")
+        # the native analysis library: built here, the records' backend
+        analysis_check(recs, obs[:, 0], smi)
         del sim, links_b
 
-        mark("CLI run + resume")
+        mark("native analysis")
 
         def same_chain(label, cfg, mesh, n_sweeps):
             """Simulation(cfg) unsharded and on mesh, thermalize(n_sweeps)

@@ -4,7 +4,8 @@ qcdgpu_tpu/native/prngcl.py, built into the checkout's build/ (build.py).
 
 Generator registry mirrors the PRNGCL family: ranlux0..ranlux4 (ranlux3 is
 the reference default), ranmar, xor128, xor7, mrg32k3a, parkmiller,
-constant.  `fill(name, seed, n)` returns n float64 uniforms in [0, 1).
+constant.  `fill(name, seed, n)` returns n float64 uniforms in [0, 1);
+`threefry2x32` is the native threefry that ops/rng.py is checked against.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ GENERATORS = (
 )
 
 _c_dp = ctypes.POINTER(ctypes.c_double)
+_c_u32p = ctypes.POINTER(ctypes.c_uint32)
 
 
 @lru_cache(maxsize=1)
@@ -34,6 +36,10 @@ def _lib():
               "parkmiller_fill"):
         getattr(lib, f).argtypes = [ctypes.c_uint64, _c_dp, ctypes.c_int64]
     lib.constant_fill.argtypes = [ctypes.c_double, _c_dp, ctypes.c_int64]
+    lib.threefry2x32.argtypes = [
+        ctypes.c_uint32, ctypes.c_uint32, _c_u32p, _c_u32p, _c_u32p, _c_u32p,
+        ctypes.c_int64,
+    ]
     return lib
 
 
@@ -58,3 +64,23 @@ def fill(name: str, seed: int, n: int, constant_value: float = 0.5) -> np.ndarra
         getattr(lib, f"{name}_fill")(seed, p, n)
     return out
 
+
+def threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray):
+    """Native threefry — for bitwise cross-checks against ops/rng.py."""
+    lib = _lib()
+    if lib is None:
+        raise RuntimeError("native prngcl library unavailable")
+    x0 = np.ascontiguousarray(x0, np.uint32)
+    x1 = np.ascontiguousarray(x1, np.uint32)
+    if x0.size != x1.size:
+        # n is taken from x0; a shorter x1 would be read out of bounds in C
+        raise ValueError(f"counter arrays differ in size: {x0.size} vs {x1.size}")
+    n = x0.size
+    y0 = np.empty(n, np.uint32)
+    y1 = np.empty(n, np.uint32)
+    lib.threefry2x32(
+        k0, k1,
+        x0.ctypes.data_as(_c_u32p), x1.ctypes.data_as(_c_u32p),
+        y0.ctypes.data_as(_c_u32p), y1.ctypes.data_as(_c_u32p), n,
+    )
+    return y0, y1

@@ -6,10 +6,14 @@ autocorrelated, so the acceptance gates ("within MC error") need
 autocorrelation-aware errors — we add log-binning and jackknife on top of the
 reference capabilities (SURVEY.md §7 "Hard parts" #5).
 
-A copy of the numpy-only qcdgpu_tpu/utils/stats.py (which cannot be
-imported without jax, through qcdgpu_tpu/__init__.py).  The reference's
-optional C++ estimator backend is left out: analyze_series is the numpy
-implementation.
+A copy of qcdgpu_tpu/utils/stats.py (which cannot be imported without jax,
+through qcdgpu_tpu/__init__.py).  Host-side like the reference's: the C++
+implementation of the same estimators in qcdgpu_tpu_torch/native/analysis
+(a copy of the reference's, built with g++ at first use) gives
+analyze_series its moments and binning plateau whenever the library
+builds, as in the reference, so both packages report the same bits; the
+numpy implementation below is the fallback and the parity oracle
+(tests/test_torch_native_analysis.py).
 """
 
 from __future__ import annotations
@@ -54,16 +58,22 @@ def analyze_series(x, min_bins: int = 8) -> SeriesStats:
     var = float(x.var()) if n else float("nan")
     if n < 2:
         return SeriesStats(n, mean, var, float("nan"), float("nan"), float("nan"), 1)
-    err_naive = float(np.sqrt(x.var(ddof=1) / n))
-    best = err_naive
-    bin_size = 1
-    bs = 2
-    while n // bs >= min_bins:
-        e = binned_error(x, bs)
-        if np.isfinite(e) and e > best:
-            best = e
-            bin_size = bs
-        bs *= 2
+    from ..native import analysis as native_analysis
+
+    if native_analysis.available():
+        mean, var, err_naive = native_analysis.series_moments(x)
+        best, bin_size = native_analysis.plateau_error(x, min_bins)
+    else:
+        err_naive = float(np.sqrt(x.var(ddof=1) / n))
+        best = err_naive
+        bin_size = 1
+        bs = 2
+        while n // bs >= min_bins:
+            e = binned_error(x, bs)
+            if np.isfinite(e) and e > best:
+                best = e
+                bin_size = bs
+            bs *= 2
     tau = 0.5 * (best / err_naive) ** 2 if err_naive > 0 else float("nan")
     return SeriesStats(n, mean, var, err_naive, best, float(tau), n // max(bin_size, 1))
 

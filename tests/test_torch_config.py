@@ -180,6 +180,8 @@ def test_import_leaves_jax_out():
             "qcdgpu_tpu_torch.validate, qcdgpu_tpu_torch.utils.checkpoint, "
             "qcdgpu_tpu_torch.utils.report, qcdgpu_tpu_torch.utils.profile, "
             "qcdgpu_tpu_torch.native.prngcl, "
+            "qcdgpu_tpu_torch.native.analysis, "
+            "qcdgpu_tpu_torch.utils.stats, "
             "qcdgpu_tpu_torch.models.ensemble, "
             "qcdgpu_tpu_torch.models.gauge; "
             "bad = [m for m in sys.modules if m == 'jax' or "
