@@ -145,7 +145,8 @@ def _add_run_args(p: argparse.ArgumentParser):
                         "parkmiller, constant — as device-resident streams)")
     p.add_argument("--profile", metavar="DIR",
                    help="capture a torch.profiler Chrome trace "
-                        "(per-kernel timings) into DIR/trace.json")
+                        "(per-kernel timings), with the program's spans "
+                        "on a track of their own, into DIR/trace.json")
     p.add_argument("--progress", type=int, default=0, metavar="N",
                    help="print a progress line every N production sweeps "
                         "(QCDGPU's per-ITER stdout; 0 = silent)")

@@ -74,6 +74,7 @@ from ..ops.cuda import engine, sharded
 from ..ops.measure import obs_names
 from ..parallel.mesh import ChainGrid, block_cards, resolve_chain_mesh
 from ..runner import build_chunk_runner
+from ..utils import profile
 
 
 def make_ensemble_runner(cfg: SimConfig, n_chains: int, device="cuda",
@@ -466,24 +467,37 @@ class BetaScan:
         return self
 
     def thermalize(self, n=None):
+        if profile.ON:
+            profile.begin("sim.thermalize")
         n = self.cfg.sweeps_therm if n is None else n
         if n > 0:
             self._st, _ = self._run.packed(self._st, None, self.sweep_idx,
                                            n, 0)
             self.sweep_idx += n
+        if profile.ON:
+            profile.end("sim.thermalize")
         return self
 
     def run(self, n=None, measure_every=None):
         """Production sweeps; returns numpy [C, n // me, len(obs_names)]
         (this waits for the device)."""
+        if profile.ON:
+            profile.begin("sim.run")
         n = self.cfg.sweeps if n is None else n
         me = self.cfg.meas_every if measure_every is None else measure_every
         self._st, obs = self._run.packed(self._st, None, self.sweep_idx, n,
                                          me)
         self.sweep_idx += n
+        if profile.ON:
+            profile.begin("sim.rows_to_host")
         obs = obs.cpu().numpy()  # [n_meas, C * n_obs]
+        if profile.ON:
+            profile.end("sim.rows_to_host")
         c = len(self.betas)
-        return obs.reshape(obs.shape[0], c, self._n_obs).transpose(1, 0, 2)
+        out = obs.reshape(obs.shape[0], c, self._n_obs).transpose(1, 0, 2)
+        if profile.ON:
+            profile.end("sim.run")
+        return out
 
     # -- checkpoint -------------------------------------------------------
     def save(self, path: str):
@@ -493,8 +507,12 @@ class BetaScan:
         adds its chains' stream state."""
         from ..utils.checkpoint import save_betascan
 
+        if profile.ON:
+            profile.begin("sim.save")
         save_betascan(path, self.cfg, self.betas, self.keys, self.u,
                       self.sweep_idx, rng_stream=self.stream_state)
+        if profile.ON:
+            profile.end("sim.save")
 
     @classmethod
     def load(cls, path: str, chain_mesh: int = 1, *, device="cuda",

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils import profile
 from . import build, core
 
 PLANES = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
@@ -184,9 +185,14 @@ def _scratch(n_threads, n_out, device, n_chains=None, block=PLANE_BLOCK):
 def plane_sums(us, dims):
     """f64 [6] plane sums (PLANES order).  CPU tensors take the plain
     version, CUDA tensors the kernel."""
+    if profile.ON:
+        profile.begin("k3.plane_sums")
     n, dev_type = _check(us, dims)
     if dev_type == "cpu":
-        return plane_sums_ref(us, dims)
+        out = plane_sums_ref(us, dims)
+        if profile.ON:
+            profile.end("k3.plane_sums")
+        return out
     name = f"plane_sums_su{n}"
     lib = build.library()
     x, y, z, t = (int(d) for d in dims)
@@ -199,6 +205,8 @@ def plane_sums(us, dims):
         )
     build.check(err, name)
     LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k3.plane_sums")
     return out
 
 
@@ -210,9 +218,14 @@ def polyakov_sums(us, dims):
     slots because a column's slots are contiguous: a warp loads
     neighbouring words, and a column's T - 1 products take log2(T/2) + 1
     levels of shuffles, not a chain in one thread."""
+    if profile.ON:
+        profile.begin("k4.polyakov_sums")
     n, dev_type = _check(us, dims)
     if dev_type == "cpu":
-        return polyakov_sums_ref(us, dims)
+        out = polyakov_sums_ref(us, dims)
+        if profile.ON:
+            profile.end("k4.polyakov_sums")
+        return out
     name = f"polyakov_sums_su{n}"
     lib = build.library()
     x, y, z, t = (int(d) for d in dims)
@@ -226,6 +239,8 @@ def polyakov_sums(us, dims):
         )
     build.check(err, name)
     LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k4.polyakov_sums")
     return out
 
 
@@ -245,9 +260,14 @@ def plane_sums_local(us, shard):
     tensors take the plain version, CUDA tensors the kernel."""
     if core.padded_or_none(shard) is None:
         return plane_sums(us, shard.dims)
+    if profile.ON:
+        profile.begin("k3.plane_sums")
     n, dev_type = _check(us, shard.dims, shard)
     if dev_type == "cpu":
-        return plane_sums_local_ref(us, shard)
+        out = plane_sums_local_ref(us, shard)
+        if profile.ON:
+            profile.end("k3.plane_sums")
+        return out
     name = f"plane_sums_local_su{n}"
     lib = build.library()
     dev = us[0].device
@@ -260,6 +280,8 @@ def plane_sums_local(us, shard):
             build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k3.plane_sums")
     return out
 
 
@@ -269,9 +291,14 @@ def polyakov_sums_local(us, shard):
     CPU tensors take the plain version, CUDA tensors the kernel."""
     if core.padded_or_none(shard) is None:
         return polyakov_sums(us, shard.dims)
+    if profile.ON:
+        profile.begin("k4.polyakov_sums")
     n, dev_type = _check(us, shard.dims, shard)
     if dev_type == "cpu":
-        return polyakov_sums_local_ref(us, shard)
+        out = polyakov_sums_local_ref(us, shard)
+        if profile.ON:
+            profile.end("k4.polyakov_sums")
+        return out
     name = f"polyakov_sums_local_su{n}"
     lib = build.library()
     dev = us[0].device
@@ -285,6 +312,8 @@ def polyakov_sums_local(us, shard):
             build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k4.polyakov_sums")
     return out
 
 
@@ -335,13 +364,19 @@ def plane_sums_chains(us, dims, shard=None):
     8-tuple; with ``shard`` (a ``core.Shard``: K5ac) over that shard's
     interior sites of every chain's padded arrays.  CPU tensors take the
     plain version, CUDA tensors the kernel."""
+    if profile.ON:
+        profile.begin("k3.plane_sums")
     shard = core.padded_or_none(shard)
     c, n, dev_type = core.check_chains(us, dims, shard=shard)
     if dev_type == "cpu":
-        return plane_sums_chains_ref(us, dims, shard)
-    g = shard or core.whole(dims)
-    return _chains_call("plane_sums", us, dims, shard, c, n, 6,
-                        int(np.prod(g.interior)), PLANE_BLOCK)
+        out = plane_sums_chains_ref(us, dims, shard)
+    else:
+        g = shard or core.whole(dims)
+        out = _chains_call("plane_sums", us, dims, shard, c, n, 6,
+                           int(np.prod(g.interior)), PLANE_BLOCK)
+    if profile.ON:
+        profile.end("k3.plane_sums")
+    return out
 
 
 def polyakov_sums_chains(us, dims, shard=None):
@@ -349,10 +384,16 @@ def polyakov_sums_chains(us, dims, shard=None):
     for every chain; with ``shard`` (K5bc) over that shard's interior
     columns.  CPU tensors take the plain version, CUDA tensors the
     kernel."""
+    if profile.ON:
+        profile.begin("k4.polyakov_sums")
     shard = core.padded_or_none(shard)
     c, n, dev_type = core.check_chains(us, dims, shard=shard)
     if dev_type == "cpu":
-        return polyakov_sums_chains_ref(us, dims, shard)
-    x, y, z, t = (shard or core.whole(dims)).interior
-    return _chains_call("polyakov_sums", us, dims, shard, c, n, 2,
-                        x * y * z * poly_lanes(t // 2)[2], POLY_BLOCK)
+        out = polyakov_sums_chains_ref(us, dims, shard)
+    else:
+        x, y, z, t = (shard or core.whole(dims)).interior
+        out = _chains_call("polyakov_sums", us, dims, shard, c, n, 2,
+                           x * y * z * poly_lanes(t // 2)[2], POLY_BLOCK)
+    if profile.ON:
+        profile.end("k4.polyakov_sums")
+    return out

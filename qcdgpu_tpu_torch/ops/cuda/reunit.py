@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import profile
 from . import build, core
 
 LAUNCHES = {f"reunit{c}_su{n}": 0 for c in ("", "_chains") for n in (3, 2)}
@@ -77,16 +78,21 @@ def reunitarize_dir_ref(s, dims):
 def reunitarize_dir(s, dims):
     """Project one packed (direction, parity) array back onto SU(N), in
     place.  CPU tensors take the plain version, CUDA tensors the kernel."""
+    if profile.ON:
+        profile.begin("k2.reunit")
     n, dev = _check(s, dims)
     if dev == "cpu":
-        return reunitarize_dir_ref(s, dims)
-    name = f"reunit_su{n}"
-    lib = build.library()
-    with torch.cuda.device(s.device):
-        err = lib.qg_reunit(s.data_ptr(), n, s.numel() // (4 * n),
-                            build.stream_handle(s.device))
-    build.check(err, name)
-    LAUNCHES[name] += 1
+        reunitarize_dir_ref(s, dims)
+    else:
+        name = f"reunit_su{n}"
+        lib = build.library()
+        with torch.cuda.device(s.device):
+            err = lib.qg_reunit(s.data_ptr(), n, s.numel() // (4 * n),
+                                build.stream_handle(s.device))
+        build.check(err, name)
+        LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k2.reunit")
     return s
 
 
@@ -104,14 +110,20 @@ def reunitarize_chains(s, dims):
     array extents: the lattice's, or a shard's padded ones (``Shard.padded``:
     halo slots are projected as their owners are, to the same bits).  CPU
     tensors take the plain version, CUDA tensors the kernel."""
+    if profile.ON:
+        profile.begin("k2.reunit")
     _, n, dev = core.check_chains((s,), dims, 1)
     if dev == "cpu":
-        return reunitarize_chains_ref(s, dims)
-    name = f"reunit_chains_su{n}"
-    lib = build.library()
-    with torch.cuda.device(s.device):
-        err = lib.qg_reunit_chains(s.data_ptr(), n, s[0].numel() // (4 * n),
-                                   s.shape[0], build.stream_handle(s.device))
-    build.check(err, name)
-    LAUNCHES[name] += 1
+        reunitarize_chains_ref(s, dims)
+    else:
+        name = f"reunit_chains_su{n}"
+        lib = build.library()
+        with torch.cuda.device(s.device):
+            err = lib.qg_reunit_chains(
+                s.data_ptr(), n, s[0].numel() // (4 * n), s.shape[0],
+                build.stream_handle(s.device))
+        build.check(err, name)
+        LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k2.reunit")
     return s

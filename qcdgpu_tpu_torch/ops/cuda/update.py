@@ -89,6 +89,7 @@ import torch
 from .. import fastmath as fm
 from .. import prng_streams as streams
 from .. import rng
+from ...utils import profile
 from . import build, core
 
 NDIM = 4
@@ -462,16 +463,21 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
     ``scalars`` in place.  With ``shard`` (a ``core.Shard``) us and words
     are that shard's (K1a; a shard without halo is the whole lattice:
     K1).  CPU tensors take the plain version, CUDA tensors the kernel."""
+    if profile.ON:
+        profile.begin("k1.stage")
     shard = core.padded_or_none(shard)
     n, dev = _check(us, mu, parity, dims, kind, k_trials, n_hit, count,
                     shard)
     fam = _check_stream(us, dims if shard is None else shard.interior, kind,
                         gen, words, scalars, rng_mode)
     if dev == "cpu":
-        return stage_update_ref(us, mu, parity, beta, key2, dims, k_trials,
-                                kind, n_hit, metro_delta, count, gen=gen,
-                                words=words, scalars=scalars, shard=shard,
-                                rng_mode=rng_mode)
+        out = stage_update_ref(us, mu, parity, beta, key2, dims, k_trials,
+                               kind, n_hit, metro_delta, count, gen=gen,
+                               words=words, scalars=scalars, shard=shard,
+                               rng_mode=rng_mode)
+        if profile.ON:
+            profile.end("k1.stage")
+        return out
     track = count is not None
     philox = rng_mode == "hw" and kind != "overrelax"
     name = instance_name(kind, n, track, gen, shard is not None, philox)
@@ -503,6 +509,8 @@ def stage_update(us, mu, parity, beta, key2, dims, k_trials=4,
     if fam is not None:
         scalars.update(streams.advance_kernel_scalars(
             gen, scalars, stream_draw_count(kind, k_trials, n_hit, n)))
+    if profile.ON:
+        profile.end("k1.stage")
     return us[2 * mu + parity]
 
 
@@ -577,14 +585,19 @@ def stage_update_chains(us, mu, parity, betas, base_keys, sweep_idx,
     (K1ac; a shard without halo is the whole lattice: K1c).  CPU tensors
     take the plain version, CUDA tensors the kernel: one launch for all
     chains."""
+    if profile.ON:
+        profile.begin("k1.stage")
     shard = core.padded_or_none(shard)
     c, n, dev = _check_chains(us, mu, parity, betas, base_keys, dims, kind,
                               k_trials, n_hit, count, rng_mode, shard)
     if dev == "cpu":
-        return stage_update_chains_ref(
+        out = stage_update_chains_ref(
             us, mu, parity, betas, base_keys, sweep_idx, stage_id, dims,
             k_trials, kind, n_hit, metro_delta, count, rng_mode=rng_mode,
             shard=shard)
+        if profile.ON:
+            profile.end("k1.stage")
+        return out
     track = count is not None
     philox = rng_mode == "hw" and kind != "overrelax"
     name = instance_name(kind, n, track, shard=shard is not None,
@@ -605,4 +618,6 @@ def stage_update_chains(us, mu, parity, betas, base_keys, sweep_idx,
             build.stream_handle(us[0].device))
     build.check(err, name)
     LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k1.stage")
     return us[2 * mu + parity]

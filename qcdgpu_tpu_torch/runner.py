@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .ops.measure import obs_names
+from .utils import profile
 
 
 def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
@@ -55,15 +56,28 @@ def build_chunk_runner(cfg, sweep, measure_state, pack=None, unpack=None,
         for b in range(n_blocks):
             acc = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(me):
-                st, rate = step(st, base_key, sweep0 + b * me + i)
+                s = sweep0 + b * me + i
+                if profile.ON:
+                    profile.begin("runner.sweep", s)
+                st, rate = step(st, base_key, s)
                 if with_acc:
                     acc = acc + rate
+                if profile.ON:
+                    profile.end("runner.sweep")
+            if profile.ON:
+                profile.begin("runner.measure", s)
             row = measure_state(st)
             if with_acc:
                 row = append_acc(row, acc / me)
+            if profile.ON:
+                profile.end("runner.measure")
             rows.append(row)
         for i in range(n_blocks * me, n_sweeps):
+            if profile.ON:
+                profile.begin("runner.sweep", sweep0 + i)
             st, _ = step(st, base_key, sweep0 + i)
+            if profile.ON:
+                profile.end("runner.sweep")
         obs = (torch.stack(rows) if rows
                else torch.zeros((0, n_obs), dtype=torch.float32,
                                 device=device))

@@ -50,6 +50,7 @@ from .dense import (cold_start, hot_start, make_sweep_fn,  # noqa: F401
 from .ops import rng, sun
 from .ops.cuda import engine
 from .ops.measure import measure_obs_names, obs_names
+from .utils import profile
 
 NDIM = 4
 
@@ -166,12 +167,16 @@ class Simulation:
         return self
 
     def thermalize(self, n: Optional[int] = None):
+        if profile.ON:
+            profile.begin("sim.thermalize")
         n = self.cfg.sweeps_therm if n is None else n
         if n > 0:
             st, _ = self._run.packed(self._state(), self.base_key,
                                      self.sweep_idx, n, 0)
             self._adopt(st)
             self.sweep_idx += n
+        if profile.ON:
+            profile.end("sim.thermalize")
         return self
 
     def run(self, n: Optional[int] = None,
@@ -186,6 +191,8 @@ class Simulation:
         called every progress_every sweeps.  Both cadences are rounded up
         to whole measurement blocks, so the series does not depend on
         them (the reference's chunking, qcdgpu_tpu/sim.py:589-643)."""
+        if profile.ON:
+            profile.begin("sim.run")
         n = self.cfg.sweeps if n is None else n
         me = self.cfg.meas_every if measure_every is None else measure_every
         every = self.cfg.ckpt_every if ckpt_path else 0
@@ -206,7 +213,11 @@ class Simulation:
             self._adopt(st)
             self.sweep_idx += step
             done += step
+            if profile.ON:
+                profile.begin("sim.rows_to_host")
             obs = obs.cpu().numpy()
+            if profile.ON:
+                profile.end("sim.rows_to_host")
             if obs.size:
                 rows.append(obs)
                 self.obs_history.append(obs)
@@ -214,8 +225,11 @@ class Simulation:
                 self.save(ckpt_path)
             if progress is not None:
                 progress(done, n, obs[-1] if obs.size else None)
-        return (np.concatenate(rows, axis=0) if rows
-                else np.zeros((0, len(obs_names(self.cfg))), np.float32))
+        out = (np.concatenate(rows, axis=0) if rows
+               else np.zeros((0, len(obs_names(self.cfg))), np.float32))
+        if profile.ON:
+            profile.end("sim.run")
+        return out
 
     # -- measurement ------------------------------------------------------
     def measure(self) -> dict:
@@ -253,12 +267,17 @@ class Simulation:
         the canonical field in cfg.dtype and the dense stream state."""
         from .utils.checkpoint import save_state
 
+        if profile.ON:
+            profile.begin("sim.save")
         if self.engine == "xla":
             save_state(path, self.cfg, self.u, self.sweep_idx,
                        self.obs_history, rng_stream=self.stream_state)
-            return
-        save_state(path, self.cfg, None, self.sweep_idx, self.obs_history,
-                   rng_stream=self.stream_state, us=self.us)
+        else:
+            save_state(path, self.cfg, None, self.sweep_idx,
+                       self.obs_history, rng_stream=self.stream_state,
+                       us=self.us)
+        if profile.ON:
+            profile.end("sim.save")
 
     @classmethod
     def load(cls, path: str, *, device="cuda", devices=None, mesh=None):

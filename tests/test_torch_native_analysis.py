@@ -3,7 +3,7 @@ and its copy of analysis.cpp) against the reference's
 (qcdgpu_tpu/native/analysis.py): every estimator bit for bit, the guards,
 and analyze_series on the native and on the numpy path, alone and through
 the command line's results record; the port's native threefry against
-ops/rng.py and the reference's; PhaseTimer."""
+ops/rng.py and the reference's."""
 
 import json
 import os
@@ -22,7 +22,7 @@ from qcdgpu_tpu_torch import cli
 from qcdgpu_tpu_torch.native import analysis as nat
 from qcdgpu_tpu_torch.native import prngcl
 from qcdgpu_tpu_torch.ops import rng
-from qcdgpu_tpu_torch.utils import profile, stats
+from qcdgpu_tpu_torch.utils import stats
 
 torch.set_num_threads(1)
 
@@ -180,22 +180,3 @@ def test_threefry_native_matches_rng_and_reference():
         np.testing.assert_array_equal(y1, w1.numpy().view(np.uint32))
     with pytest.raises(ValueError, match="differ in size"):
         prngcl.threefry2x32(0, 0, x0, x1[:16])
-
-
-def test_phase_timer_sums_repeated_phases(monkeypatch):
-    clock = iter([0.0, 1.25, 10.0, 10.5, 20.0, 22.0, 30.0, 30.0004])
-    monkeypatch.setattr(profile.time, "perf_counter", lambda: next(clock))
-    t = profile.PhaseTimer()
-    with t.phase("sweep"):
-        pass
-    with t.phase("measure"):
-        pass
-    with pytest.raises(RuntimeError):
-        with t.phase("sweep"):
-            raise RuntimeError("the phase's time is kept")
-    with t.phase("save"):
-        pass
-    assert t.phases == {"sweep": 3.25, "measure": 0.5,
-                        "save": pytest.approx(0.0004)}
-    assert t.as_dict() == {"sweep": 3.25, "measure": 0.5, "save": 0.0}
-    assert t.as_dict(4) == {"sweep": 3.25, "measure": 0.5, "save": 0.0004}
