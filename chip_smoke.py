@@ -68,7 +68,13 @@ With no argument, phases 1-6, 8 and 9, each timed:
                   (4,4,2,4), (8,8,8,6) (T/2 odd) and 32^4; K4 again at
                   8^4, 16^4, (2,2,2,72) (T/2 = 36: two slot pairs a
                   lane) and SU(3) 64^4, and K5b on the shards of 64^4 on
-                  (1,8,1,1), the T/2 of every phase-5 path; every K1a
+                  (1,8,1,1), the T/2 of every phase-5 path; the fused
+                  measurement (measure_row: K3, K4, both second passes
+                  and the row in one launch) against the three-step
+                  path's row bit for bit, SU(3) and SU(2) at 16^4 and
+                  32^4 hot and cold and SU(3) 64^4 hot, three launches
+                  in a row, and Simulation.run(6, 1) at 16^4 with it
+                  and without it (rows and links bit for bit); every K1a
                   instantiation (threefry and stream) on the shards of
                   (8,8,4,4) mesh (2,2,1,1) and again at the 8^4 shape,
                   X, Y or XY mesh and generator of its own phase-5 run,
@@ -105,8 +111,9 @@ With no argument, phases 1-6, 8 and 9, each timed:
                   shard only the halo columns read), f32 operations and
                   threefry's and Philox's integer operations, each
                   operation kind at its own pipe's rate, and the f32
-                  floor of a -fmad=false build;
-                  K1a, K5a and K5b on one shard of 32^4 mesh (2,2,1,1),
+                  floor of a -fmad=false build; the fused measurement
+                  beside the device time of the three-step path it
+                  replaces; K1a, K5a and K5b on one shard of 32^4 mesh (2,2,1,1),
                   and the halo refresh of one array; every K1c
                   instantiation, K2c, K3c and K4c at 24^3 x 6 with 11
                   chains, each beside the loop of 11 single-chain launches
@@ -533,8 +540,10 @@ def kernel_label(mangled, kinds):
     if not m:
         return mangled
     end = m.end() + int(m[1])
-    t = re.match(r"ILi(\d)E", mangled[end:])
-    return mangled[m.end():end] + (f"<{t[1]}>" if t else "") + shard
+    t = re.match(r"ILi(\d)E(Lb1E)?", mangled[end:])
+    # plane_sums_tile_kernel<N, true>: the fused measurement
+    return mangled[m.end():end] + (
+        f"<{t[1]}{', row' if t[2] else ''}>" if t else "") + shard
 
 
 def ptxas_summary(log, kinds):
@@ -563,9 +572,24 @@ def frame_and_spills(line):
     return num[0], num[1] + num[2]
 
 
+def measure_launches(n, dims, k, n_meas):
+    """The launch counts of n_meas measurements of an SU(n) chain at dims
+    on k shards: one fused launch each where the whole lattice tiles
+    (ops/cuda/engine.py fused_row), else K3 and K4, or K5a and K5b on each
+    shard of a mesh."""
+    from qcdgpu_tpu_torch.ops.cuda import measure as cmeasure
+
+    if k == 1 and cmeasure.tile_fits(dims):
+        return {f"measure_row_su{n}": n_meas}
+    loc = "_local" if k > 1 else ""
+    return {f"plane_sums{loc}_su{n}": n_meas * k,
+            f"polyakov_sums{loc}_su{n}": n_meas * k}
+
+
 def needs_no_frame(name):
     """The K1 (stage_*, with K1a and K1c, every random source), K3
-    (plane_sums_kernel and plane_sums_tile_kernel, with K3c and K5a) and
+    (plane_sums_kernel and plane_sums_tile_kernel, with K3c, K5a and the
+    fused measurement, plane_sums_tile_kernel<N, row>) and
     K4 (polyakov_sums_kernel, with K4c, K5b and K5bc) instantiations keep
     everything in registers and shared memory: no stack frame, no
     spills."""
@@ -801,6 +825,13 @@ def work(name, dims, k_trials=4, n_hit=3, shard=None, mu=1, parity=0):
                 v2 * int_ops, v2 * f64_ops)
     if name.startswith("reunit_"):
         return 2 * arr, v2 * (84 if n == 3 else 23), 0, 0
+    if name.startswith("measure_row"):
+        # K3's and K4's operations; K3's bytes hold K4's temporal arrays,
+        # read once, and the row's 24 bytes for their 64
+        plane = work(name.replace("measure_row", "plane_sums"), dims)
+        poly = work(name.replace("measure_row", "polyakov_sums"), dims)
+        return (plane[0] - 6 * 8 + 6 * 4,) + tuple(
+            a + b for a, b in zip(plane[1:], poly[1:]))
     if name.startswith("plane_sums"):
         per_site = (6 * (2 * mmul_ops(n) + 4 * n * n)
                     + plane_decodes(dims, shard) * codec_ops(n))
@@ -1362,12 +1393,10 @@ def extended_phase(dev, smi, counters):
         launches = {k: v for cnt in counters for k, v in cnt.items() if v}
         # each launch once per shard on a mesh, of the shard forms
         k = int(np.prod(c.mesh))
-        loc = "_local" if k > 1 else ""
         expect = {cupdate.instance_name("heatbath", 3, shard=k > 1,
                                         philox=True): 8 * (THERM + RUN) * k,
                   "reunit_su3": 8 * (THERM + RUN) // 10 * k,
-                  f"plane_sums{loc}_su3": RUN // 5 * k,
-                  f"polyakov_sums{loc}_su3": RUN // 5 * k}
+                  **measure_launches(3, c.dims, k, RUN // 5)}
         require(launches == expect,
                 f"{label}: launches {launches}, expected {expect}")
         names = list(sim.obs_names)
@@ -2142,6 +2171,10 @@ def main():
                                        "measure.py:67")
         record[f"polyakov_sums_su{n}"] = (f"polyakov_sums_su{n}",
                                           "measure.cu", "measure.py:155")
+        # K3 + K4 + both second passes + the row, one launch where the
+        # whole lattice tiles
+        record[f"measure_row_su{n}"] = (f"measure_row_su{n}", "measure.cu",
+                                        "measure.py:67")
     for key, (name, source, replaces) in record.items():
         record[key] = {
             "name": name, "route": "cuda", "source": src + source,
@@ -2272,6 +2305,77 @@ def main():
                 cnt_k += int(ck)
                 cnt_p += int(cp)
         return worst, bad, links, cnt_k, cnt_p
+
+    def fused_row_checks():
+        """The fused measurement (measure_row: K3, K4, both second passes
+        and the row in one launch) against the three-step path (K3 and K4
+        with their second passes, then obs_base_from_sums on the card), bit
+        for bit: SU(3) and SU(2) at 16^4 and 32^4, hot and cold starts, and
+        SU(3) 64^4 hot, three launches in a row on each (the last block
+        puts the ticket back to 0); within PLANE_TOL / POLY_TOL of the
+        plain row.  Then Simulation.run(6, 1) at 16^4 hot, SU(3) and SU(2),
+        against the same run with the fused path turned off
+        (engine.fused_row): rows and links bit for bit, each with exactly
+        its expected launches."""
+        for n in GROUPS:
+            for dims, start in [(d, s) for d in (GATE_DIMS, BIG)
+                                for s in ("hot", "cold")] + (
+                                    [(HUGE, "hot")] if n == 3 else []):
+                u_ = (hot(dims, n) if start == "hot"
+                      else engine.packed_cold_start(
+                          SimConfig(group=n, dims=dims), dev))
+                three = engine.obs_base_from_sums(
+                    cmeasure.plane_sums(u_, dims),
+                    cmeasure.polyakov_sums(u_, dims), n, dims)
+                rows = [cmeasure.measure_row(u_, dims) for _ in range(3)]
+                same = all(torch.equal(r, three) for r in rows)
+                plain = engine.obs_base_from_sums(
+                    cmeasure.plane_sums_ref(u_, dims),
+                    cmeasure.polyakov_sums_ref(u_, dims), n, dims)
+                d = (rows[0] - plain).abs()
+                d_plq, d_pol = float(d[:4].max()), float(d[4:].max())
+                note_err(f"measure_row_su{n}", max(d_plq, d_pol))
+                msg = (f"measure_row SU({n}) {dims} {start}: 3 rows in a "
+                       f"row == the three-step row {same}; |d| against the "
+                       f"plain row: plq/action {d_plq:.2e} (< {PLANE_TOL}), "
+                       f"poly {d_pol:.2e} (< {POLY_TOL})")
+                print(msg)
+                require(same and d_plq < PLANE_TOL and d_pol < POLY_TOL,
+                        msg)
+        for n in GROUPS:
+            cfg = SimConfig(group=n, dims=GATE_DIMS, beta=BETA_RUN[n],
+                            seed=2, start="hot")
+            runs = []
+            for fused in (True, False):
+                for cnt in counters:
+                    for k in cnt:
+                        cnt[k] = 0
+                real = engine.fused_row
+                if not fused:
+                    engine.fused_row = lambda geoms: False
+                try:
+                    sim = Simulation(cfg)
+                    obs = sim.run(6, 1)
+                finally:
+                    engine.fused_row = real
+                launches = {k: v for c in counters for k, v in c.items()
+                            if v}
+                expect = {cupdate.instance_name("heatbath", n): 48,
+                          **(measure_launches(n, GATE_DIMS, 1, 6) if fused
+                             else {f"plane_sums_su{n}": 6,
+                                   f"polyakov_sums_su{n}": 6})}
+                require(launches == expect, f"SU({n}) {GATE_DIMS} "
+                        f"run(6, 1): launches {launches}, expected {expect}")
+                for k, v in launches.items():
+                    record[k]["launches"] += v
+                runs.append((obs, sim.u))
+            same = (np.array_equal(runs[0][0], runs[1][0])
+                    and torch.equal(runs[0][1], runs[1][1]))
+            msg = (f"Simulation SU({n}) {GATE_DIMS} hot run(6, 1): rows and "
+                   f"links of the fused path == the three-step path's "
+                   f"{same}")
+            print(msg)
+            require(same, msg)
 
     def k1a_compare(n, kind, track, k_trials, gen, dims, mesh):
         """K1a against its plain twin on the shards of dims on mesh: the
@@ -2731,8 +2835,10 @@ def main():
                    f"spatial vol) {d4:.3e} (< {POLY_TOL})")
             print(msg)
             require(d4 < POLY_TOL, msg)
-        hots.pop((HUGE, 3))
         mark("K4, K5b at T/2 = 4, 8, 32, 36")
+        fused_row_checks()
+        hots.pop((HUGE, 3))
+        mark("the fused measurement against the three-step path")
         # K1a: every instantiation on the shards of SHARD_SMALL on MESH
         # (partly filled blocks), again at the shape, mesh and generator of
         # its own phase-5 run (the overrelaxation ones: of the runs whose
@@ -2989,8 +3095,9 @@ def main():
         the device work of fn, per launch of the row's kernel: fn makes
         calls of them), beside phase 4's CUDA-event time, which on short
         calls (up to ~0.1 ms of events) is the host's launch path."""
-        match = next(k for k in ("reunit", "plane_sums", "stage")
-                     if name.startswith(k))
+        match = "plane_sums" if name.startswith("measure_row") else next(
+            k for k in ("reunit", "plane_sums", "stage")
+            if name.startswith(k))
         kern, total = device_ms(fn, reps, match)
         rec = record[name]
         rec["device_ms"] = None if total is None else total / calls
@@ -3102,9 +3209,26 @@ def main():
             pairs[f"polyakov_sums_su{n}"] = (
                 lambda: cmeasure.polyakov_sums_ref(w, BIG),
                 lambda: cmeasure.polyakov_sums(w, BIG), 3, 100, 1, 0)
+            pairs[f"measure_row_su{n}"] = (
+                lambda: engine.obs_base_from_sums(
+                    cmeasure.plane_sums_ref(w, BIG),
+                    cmeasure.polyakov_sums_ref(w, BIG), n, BIG),
+                lambda: cmeasure.measure_row(w, BIG), 3, 100, 1, 0)
             time_pairs(pairs, BIG)
             k4_device(f"polyakov_sums_su{n}",
                       lambda: cmeasure.polyakov_sums(w, BIG), f"{BIG}")
+            # the fused launch beside the three-step path it replaces: K3,
+            # K4, their second passes and obs_base_from_sums's PyTorch ops
+            _, three_ms = device_ms(lambda: engine.obs_base_from_sums(
+                cmeasure.plane_sums(w, BIG), cmeasure.polyakov_sums(w, BIG),
+                n, BIG), 50, "plane_sums")
+            fused_ms = record[f"measure_row_su{n}"]["device_ms"]
+            print(f"measure_row_su{n} {BIG}: on the device " + (
+                "not measured (the profiler saw no device event)"
+                if fused_ms is None or three_ms is None else
+                f"{fused_ms:.4f} ms, one launch, against {three_ms:.4f} ms "
+                "of K3 + K4 + second passes + the row's PyTorch ops "
+                "(profiler, 50 calls)") + f"  [{smi}]")
             # K1a, K5a and K5b on shard 0 of BIG on MESH; the halo refresh
             grid = ShardGrid(BIG, MESH, [dev])
             shards = sharded.shard_links(w, grid)
@@ -3419,13 +3543,12 @@ def main():
             tracked = cfg.track_acceptance or cfg.track_kp_exhaust
             gen = ps.stream_mode_name(cfg.rng_mode)
             k = int(np.prod(cfg.mesh))
-            sh, loc = k > 1, "_local" if k > 1 else ""
+            sh = k > 1
             expect = {
                 cupdate.instance_name(cfg.algorithm, n, tracked, gen, sh,
                                       philox=cfg.rng_mode == "hw"):
                     8 * n_sweeps * k,
-                f"plane_sums{loc}_su{n}": n_meas * k,
-                f"polyakov_sums{loc}_su{n}": n_meas * k,
+                **measure_launches(n, cfg.dims, k, n_meas),
             }
             if n_reunit:
                 expect[f"reunit_su{n}"] = 8 * n_reunit * k

@@ -71,6 +71,32 @@
 // site's traces with the same operations (plane_site, plane_tile_site), so
 // only the order of the f64 sums differs.
 //
+// The fused measurement (qg_measure_row; ops/cuda/measure.py measure_row)
+// replaces no TPU kernel: it is the whole measurement of one unsharded
+// chain where tile_fits (16^4, 32^4, 64^4) in one launch, in place of four
+// (K3, its second pass, K4, its second pass) and the thirteen PyTorch ops
+// of obs_base_from_sums (ops/cuda/measure.py).  plane_sums_tile_kernel<N,
+// true> runs K3's tile blocks and after them K4's column-group blocks
+// (poly_lane), so that K4 fills K3's last, partial wave (32^4: 4096 + 2048
+// blocks).  Each block writes its partial row (block_sums) and draws a
+// ticket from a device counter, after a fence; the block that draws the
+// last one sums the [n3, 6] and [n4, 2] partials in finish_sums_kernel's
+// order (thread t adds rows t, t + 256, ..., then the same tree, all eight
+// outputs in one pass with one barrier a level), forms the six
+// observables in one thread with the f64 operations PyTorch performs on
+// the card for obs_base_from_sums (a division by a Python number is a
+// multiply by its reciprocal there), rounds them to f32, and puts the
+// counter back to 0.  So its row is the three-step path's, bit for bit
+// (chip_smoke.py checks it).  What bounds it: K3's and K4's work (above),
+// K4's blocks at 2 an SM (the launch's 128 registers and 90 KB of shared
+// memory; 3 alone), and a fence and a ticket a block.  SU(3) 32^4 on the
+// H100: 0.235 ms alone against 0.180 + 0.041 for K3 and K4 with its pass
+// (PERF.md); it saves the launches, the thirteen PyTorch ops and their
+// host time.  Slower, measured: K4's lanes in K3's blocks from the tile
+// (0.251 ms: each K3 block holds its slot while half its warps run the
+// ladder), and rows checked against a NaN sentinel in place of the fence
+// (0.247 ms).
+//
 // K3c / K4c (qg_plane_sums_chains, qg_polyakov_sums_chains) are K3 / K4 on
 // the chain-stacked arrays [C, 2, N, 2, X, Y, Z*T/2] of a beta scan, chain
 // on blockIdx.y (the reference vmaps measure_all_split over the chains,
@@ -90,8 +116,10 @@
 // blocks here run in no order, so each block reduces its threads' f64
 // values in a fixed order (block_sums: shuffles, one barrier) into a
 // [n_blocks, n_out] scratch, and a second one-block kernel sums the
-// partials in a fixed order.  No atomics: a run's measurement series is
-// reproducible bit for bit.
+// partials in a fixed order (the fused measurement: its last block).  The
+// only atomic is the fused measurement's ticket, which picks the block
+// that finishes and not the order of any sum: a run's measurement series
+// is reproducible bit for bit.
 #include <type_traits>
 
 #include "common.cuh"
@@ -268,44 +296,6 @@ __device__ __forceinline__ void plane_tile_site(const Links& L, const Dims& d,
   }
 }
 
-// K3 / K3c where tile_fits: dynamic shared memory of tile_bytes(N); chain
-// blockIdx.y as plane_sums_kernel
-template <int N>
-__global__ void __launch_bounds__(kPlaneThreads, kPlaneMinBlocks)
-plane_sums_tile_kernel(Links L, Dims d, long long chain_stride,
-                       double* __restrict__ partials) {
-  extern __shared__ float tile[];
-  const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) L.p[k] += off;
-  plane_tile_fill<N>(L, d, tile, threadIdx.x, blockIdx.x);
-  __syncthreads();
-  float tr6[6];
-  plane_tile_site<N>(L, d, tile, threadIdx.x, blockIdx.x, tr6);
-  double v[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) v[k] = (double)tr6[k];
-  block_sums(v, partials);
-}
-
-inline size_t tile_bytes(int n) {
-  return (size_t)2 * 4 * 2 * n * n * kTileLen * sizeof(float);
-}
-
-template <int N>
-cudaError_t launch_plane_tile(const Links& L, const Dims& d, dim3 grid,
-                              long long chain_stride, double* partials,
-                              cudaStream_t s) {
-  const size_t smem = tile_bytes(N);  // 90 KB at SU(3), 40 KB at SU(2)
-  cudaError_t err = cudaFuncSetAttribute(
-      plane_sums_tile_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  plane_sums_tile_kernel<N><<<grid, kPlaneThreads, smem, s>>>(
-      L, d, chain_stride, partials);
-  return cudaGetLastError();
-}
-
 // K4's lanes for a column of T/2 slots (a function of T alone): W slots a
 // lane, m = ceil(T/2 / W) lanes holding a unit each, groups of L = 2^lg
 // lanes (the smallest power of two >= m), so that a group never straddles
@@ -431,6 +421,135 @@ __global__ void polyakov_sums_kernel(const float* __restrict__ u6,
   block_sums(v, partials);
 }
 
+// The fused measurement's arguments beyond K3's: its K3 and K4 block
+// counts, K4's lanes, the ticket counter (0 between launches), the f32 [6]
+// row, and the reciprocals of obs_base_from_sums's divisors, 1 / (N V),
+// 1 / (N X Y Z) and 1 / 3, formed in f64 on the host as PyTorch forms them
+struct RowArgs {
+  int n3, n4;
+  PolyLanes pl;
+  unsigned* ticket;
+  float* row;
+  double inv_plane, inv_poly, inv3;
+};
+
+// Every thread of every block of the fused measurement, after its block's
+// block_sums: the block's ticket, and in the block that draws the last
+// one the eight sums in finish_sums_kernel's order (sh: kPlaneThreads x 8
+// doubles of shared memory, the tile's) and the row from them in thread 0
+static_assert(8 * kPlaneThreads * sizeof(double) <=
+                  (size_t)2 * 4 * 2 * 2 * 2 * kTileLen * sizeof(float),
+              "finish_row's sums fit SU(2)'s tile");
+__device__ __forceinline__ void finish_row(const double* partials,
+                                           const RowArgs& r, double* sh) {
+  __shared__ bool last;
+  __syncthreads();  // the block's partials row is written
+  const int tid = (int)fresh_tid_x();
+  if (tid == 0) {
+    __threadfence();  // ... before its ticket, for the whole block
+    last = atomicAdd(r.ticket, 1u) == gridDim.x - 1;
+    if (last) __threadfence();  // every other block's row before the reads
+  }
+  __syncthreads();
+  if (!last) return;
+  const double* poly = partials + (size_t)r.n3 * 6;
+  double s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = 0.0;
+  for (int b = tid; b < r.n3; b += kPlaneThreads)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s[k] += __ldcg(partials + (size_t)b * 6 + k);
+  for (int b = tid; b < r.n4; b += kPlaneThreads)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) s[6 + k] += __ldcg(poly + (size_t)b * 2 + k);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sh[k * kPlaneThreads + tid] = s[k];
+  for (int w = kPlaneThreads / 2; w > 0; w >>= 1) {  // block_tree_sum's
+    __syncthreads();
+    if (tid < w)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        sh[k * kPlaneThreads + tid] += sh[k * kPlaneThreads + tid + w];
+  }
+  if (tid == 0) {  // its own sh[k * kPlaneThreads] hold the sums
+    double p[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      p[k] = __dmul_rn(sh[k * kPlaneThreads], r.inv_plane);
+    // plq_s = (s0 + s1 + s3) / 3, plq_t = (s2 + s4 + s5) / 3, plq = 0.5
+    // (plq_s + plq_t): PLANES order, temporal = nu == 3
+    const double plq_s = __dmul_rn(__dadd_rn(__dadd_rn(p[0], p[1]), p[3]),
+                                   r.inv3);
+    const double plq_t = __dmul_rn(__dadd_rn(__dadd_rn(p[2], p[4]), p[5]),
+                                   r.inv3);
+    const double plq = __dmul_rn(__dadd_rn(plq_s, plq_t), 0.5);
+    r.row[0] = __double2float_rn(plq);
+    r.row[1] = __double2float_rn(plq_s);
+    r.row[2] = __double2float_rn(plq_t);
+    r.row[3] = __double2float_rn(__dsub_rn(1.0, plq));
+    r.row[4] =
+        __double2float_rn(__dmul_rn(sh[6 * kPlaneThreads], r.inv_poly));
+    r.row[5] =
+        __double2float_rn(__dmul_rn(sh[7 * kPlaneThreads], r.inv_poly));
+    *r.ticket = 0u;
+  }
+}
+
+// K3 / K3c where tile_fits: dynamic shared memory of tile_bytes(N); chain
+// blockIdx.y as plane_sums_kernel.  ROW (one chain): the fused
+// measurement; blocks r.n3 and up are K4's column groups
+// (polyakov_sums_kernel's threads, numbered from block r.n3), their
+// partials rows after K3's, and every block ends in finish_row, whose
+// sums reuse the tile
+template <int N, bool ROW>
+__global__ void __launch_bounds__(kPlaneThreads, kPlaneMinBlocks)
+plane_sums_tile_kernel(Links L, Dims d, long long chain_stride,
+                       double* __restrict__ partials, RowArgs r) {
+  extern __shared__ float tile[];
+  if (ROW && (int)blockIdx.x >= r.n3) {
+    const int g =
+        ((int)blockIdx.x - r.n3) * kPlaneThreads + (int)threadIdx.x;
+    const int col = g >> r.pl.lg;
+    float tr_re, tr_im;
+    poly_lane<N>(L.p[6], L.p[7], d, r.pl, col < d.x * d.y * d.z ? col : -1,
+                 g & ((1 << r.pl.lg) - 1), tr_re, tr_im);
+    const double v[2] = {(double)tr_re, (double)tr_im};
+    // block r.n3 + j writes row j of [n4, 2] at partials + 6 r.n3
+    block_sums(v, partials + 4 * (size_t)r.n3);
+  } else {
+    const size_t off = (size_t)blockIdx.y * (size_t)chain_stride;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) L.p[k] += off;
+    plane_tile_fill<N>(L, d, tile, threadIdx.x, blockIdx.x);
+    __syncthreads();
+    float tr6[6];
+    plane_tile_site<N>(L, d, tile, threadIdx.x, blockIdx.x, tr6);
+    double v[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = (double)tr6[k];
+    block_sums(v, partials);
+  }
+  if (ROW) finish_row(partials, r, reinterpret_cast<double*>(tile));
+}
+
+inline size_t tile_bytes(int n) {
+  return (size_t)2 * 4 * 2 * n * n * kTileLen * sizeof(float);
+}
+
+template <int N, bool ROW>
+cudaError_t launch_plane_tile(const Links& L, const Dims& d, dim3 grid,
+                              long long chain_stride, double* partials,
+                              const RowArgs& r, cudaStream_t s) {
+  const size_t smem = tile_bytes(N);  // 90 KB at SU(3), 40 KB at SU(2)
+  cudaError_t err = cudaFuncSetAttribute(
+      plane_sums_tile_kernel<N, ROW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  plane_sums_tile_kernel<N, ROW><<<grid, kPlaneThreads, smem, s>>>(
+      L, d, chain_stride, partials, r);
+  return cudaGetLastError();
+}
+
 // out[o] = sum_b partials[b * n_out + o], in a fixed order (one block per
 // chain: chain blockIdx.x reads its partials and writes its n_out sums)
 __global__ void finish_sums_kernel(const double* __restrict__ partials,
@@ -475,9 +594,10 @@ int plane_sums(const Links& L, int n, const D& d, double* partials,
   cudaError_t err;
   if (tiled) {
     if constexpr (std::is_same_v<D, Dims>)
-      err = n == 3 ? launch_plane_tile<3>(L, d, grid, chain_stride, partials, s)
-                   : launch_plane_tile<2>(L, d, grid, chain_stride, partials,
-                                          s);
+      err = n == 3 ? launch_plane_tile<3, false>(L, d, grid, chain_stride,
+                                                 partials, RowArgs{}, s)
+                   : launch_plane_tile<2, false>(L, d, grid, chain_stride,
+                                                 partials, RowArgs{}, s);
   } else {
     if (n == 3)
       plane_sums_kernel<3><<<grid, block, 0, s>>>(L, d, chain_stride,
@@ -518,7 +638,50 @@ int polyakov_sums(const float* u6, const float* u7, int n, const D& d,
   return (int)cudaGetLastError();
 }
 
+// The fused measurement of one chain where tile_fits: partials f64 [n3 * 6
+// + n4 * 2] (n3 = 2 V2 / kPlaneThreads, n4 = ceil(X Y Z L / kPlaneThreads),
+// K4's blocks of the same size as polyakov_sums' at block kPlaneThreads),
+// ticket a device counter at 0 (left at 0), row f32 [6]
+int measure_row(const Links& L, int n, const Dims& d, double* partials,
+                unsigned* ticket, float* row, cudaStream_t s) {
+  if ((n != 2 && n != 3) || !tile_fits(d)) return (int)cudaErrorInvalidValue;
+  RowArgs r;
+  r.n3 = (2 * n_sites(d) + kPlaneThreads - 1) / kPlaneThreads;
+  r.pl = poly_lanes(d.t2);
+  const long long threads = (long long)d.x * d.y * d.z << r.pl.lg;
+  r.n4 = (int)((threads + kPlaneThreads - 1) / kPlaneThreads);
+  r.ticket = ticket;
+  r.row = row;
+  // obs_base_from_sums divides by the Python numbers N V, N (V // T) and
+  // 3.0; on the card PyTorch multiplies by 1.0 / the number, in f64
+  const long long vol = (long long)d.x * d.y * d.z * d.t;
+  r.inv_plane = 1.0 / (double)(n * vol);
+  r.inv_poly = 1.0 / (double)(n * (vol / d.t));
+  r.inv3 = 1.0 / 3.0;
+  const dim3 grid(r.n3 + r.n4);
+  const cudaError_t err =
+      n == 3 ? launch_plane_tile<3, true>(L, d, grid, 0, partials, r, s)
+             : launch_plane_tile<2, true>(L, d, grid, 0, partials, r, s);
+  return (int)err;
+}
+
 }  // namespace qg
+
+// The fused measurement (K3 + K4 + both second passes + the observable
+// row) of one unsharded chain where tile_fits; n: 2 or 3; partials f64
+// [n3 * 6 + n4 * 2] (measure_row); ticket: a device unsigned counter at 0,
+// left at 0 (one per stream: launches sharing one must not overlap); row:
+// f32 [6] in ops.measure.OBS_NAMES order
+extern "C" int qg_measure_row(void* u0, void* u1, void* u2, void* u3,
+                              void* u4, void* u5, void* u6, void* u7, int n,
+                              int X, int Y, int Z, int T, void* partials,
+                              void* ticket, void* row, void* stream) {
+  const qg::Links L = {{(float*)u0, (float*)u1, (float*)u2, (float*)u3,
+                        (float*)u4, (float*)u5, (float*)u6, (float*)u7}};
+  return qg::measure_row(L, n, qg::make_dims(X, Y, Z, T), (double*)partials,
+                         (unsigned*)ticket, (float*)row,
+                         (cudaStream_t)stream);
+}
 
 // n: 2 or 3; partials: f64 [n_blocks * 6] with
 // n_blocks = ceil(2 * V2 / 256) (kPlaneThreads); out: f64 [6]

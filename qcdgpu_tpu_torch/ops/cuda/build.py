@@ -62,6 +62,7 @@ SIGNATURES = {
     "qg_reunit": [_P, _I, _I, _P],
     "qg_plane_sums": [_P] * 8 + [_I] * 5 + [_P, _P, _P],
     "qg_polyakov_sums": [_P, _P] + [_I] * 6 + [_P, _P, _P],
+    "qg_measure_row": [_P] * 8 + [_I] * 5 + [_P] * 4,
     # a shard's geometry: lx, ly, Z, T, hx, hy, x0, y0, global Y
     "qg_stage_shard": [_P] * 8 + [_I] * 14 + [
         ctypes.c_uint, ctypes.c_uint, ctypes.c_float, _I, _I,

@@ -60,6 +60,7 @@ from .. import rng, sun
 from ..measure import has_extended, measure_extended
 from . import core
 from . import measure as cmeasure
+from .measure import obs_base_from_sums
 from . import sharded
 from . import update as cupdate
 from .reunit import reunitarize_chains, reunitarize_dir
@@ -501,27 +502,23 @@ def make_sweep(cfg: SimConfig, grid):
     return sweep
 
 
-def obs_base_from_sums(sums, poly, n, dims):
-    """The standard 6-observable vector (f32) from the global f64 plane sums
-    [..., 6] and Polyakov sums [..., 2]; normalised in f64."""
-    vol = dims[0] * dims[1] * dims[2] * dims[3]
-    s = sums / (n * vol)
-    # PLANES order: (0,1),(0,2),(0,3),(1,2),(1,3),(2,3); temporal = nu == 3.
-    # Elementwise only over leading (chain) axes: a chain's row rounds as
-    # the single chain's does.
-    plq_s = (s[..., 0] + s[..., 1] + s[..., 3]) / 3.0
-    plq_t = (s[..., 2] + s[..., 4] + s[..., 5]) / 3.0
-    plq = 0.5 * (plq_s + plq_t)
-    pl = poly / (n * (vol // dims[3]))
-    return torch.stack([plq, plq_s, plq_t, 1.0 - plq, pl[..., 0],
-                        pl[..., 1]], dim=-1).to(torch.float32)
+def fused_row(geoms):
+    """Whether measure_shards takes measure_row (one launch): one shard
+    without halo, which is the whole lattice, whose dims tile_fits.
+    Meshes, and shapes that do not tile, take K3/K4 or K5a/K5b and the
+    second passes."""
+    return (len(geoms) == 1 and core.padded_or_none(geoms[0]) is None
+            and cmeasure.tile_fits(geoms[0].dims))
 
 
 def measure_shards(shards, geoms):
     """Observable vector (ops.measure.OBS_NAMES) of the lattice that the
-    shards cover (``geoms``: their core.Shard geometries): K3/K4 on a shard
-    without halo, K5a/K5b on a padded one, the f64 sums added in shard
-    order on the first shard's device; deterministic run to run."""
+    shards cover (``geoms``: their core.Shard geometries): measure_row
+    where fused_row, else K3/K4 on a shard without halo, K5a/K5b on a
+    padded one, the f64 sums added in shard order on the first shard's
+    device; deterministic run to run."""
+    if fused_row(geoms):
+        return cmeasure.measure_row(shards[0], tuple(geoms[0].dims))
     dev = shards[0][0].device
     sums = poly = None
     for g, us in zip(geoms, shards):

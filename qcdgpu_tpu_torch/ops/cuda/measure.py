@@ -23,6 +23,11 @@ reference vmaps the sharded measurement body over each device's chain
 block, models/ensemble.py:96-131), each chain's row K5a / K5b's on its
 own padded arrays, bit for bit.
 
+``measure_row`` is the whole measurement of one unsharded chain where
+``tile_fits``: K3, K4, both second passes and ``obs_base_from_sums`` in one
+launch (csrc/measure.cu, head), its f32 row the three-step path's bit for
+bit.
+
 Plane order: (0,1), (0,2), (0,3), (1,2), (1,3), (2,3).
 """
 
@@ -38,16 +43,24 @@ PLANES = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 # threads per block of the Polyakov kernels (a power of two from 32 to
 # 1024; tools/port_kernel_ab.py times 256 and 512, PERF.md), and the block
 # K3 is built for (csrc/measure.cu kPlaneThreads); the f64 partials
-# scratch holds one row per block
+# scratch holds one row per block.  measure_row runs K4's blocks at
+# PLANE_BLOCK: its sums are K4's while the two agree.
 POLY_BLOCK = 256
 PLANE_BLOCK = 256
+# slots of K3's tile (csrc/measure.cu kTileSlots), and the most slot pairs
+# of a column that the line after a tile holds
+TILE_SLOTS = PLANE_BLOCK // 2
+TILE_T2_MAX = 32
 
 LAUNCHES = {f"{k}_su{n}": 0
             for k in ("plane_sums", "polyakov_sums", "plane_sums_local",
                       "polyakov_sums_local", "plane_sums_chains",
                       "polyakov_sums_chains", "plane_sums_local_chains",
-                      "polyakov_sums_local_chains")
+                      "polyakov_sums_local_chains", "measure_row")
             for n in (3, 2)}
+# measure_row's ticket counters, one per (device, stream): made at 0 once
+# (a launch of its own) and left at 0 by every measure_row launch
+_TICKETS = {}
 
 
 def _check(us, dims, shard=None):
@@ -241,6 +254,82 @@ def polyakov_sums(us, dims):
     LAUNCHES[name] += 1
     if profile.ON:
         profile.end("k4.polyakov_sums")
+    return out
+
+
+def obs_base_from_sums(sums, poly, n, dims):
+    """The standard 6-observable vector (f32) from the global f64 plane sums
+    [..., 6] and Polyakov sums [..., 2]; normalised in f64."""
+    vol = dims[0] * dims[1] * dims[2] * dims[3]
+    s = sums / (n * vol)
+    # PLANES order: (0,1),(0,2),(0,3),(1,2),(1,3),(2,3); temporal = nu == 3.
+    # Elementwise only over leading (chain) axes: a chain's row rounds as
+    # the single chain's does.
+    plq_s = (s[..., 0] + s[..., 1] + s[..., 3]) / 3.0
+    plq_t = (s[..., 2] + s[..., 4] + s[..., 5]) / 3.0
+    plq = 0.5 * (plq_s + plq_t)
+    pl = poly / (n * (vol // dims[3]))
+    return torch.stack([plq, plq_s, plq_t, 1.0 - plq, pl[..., 0],
+                        pl[..., 1]], dim=-1).to(torch.float32)
+
+
+def tile_fits(dims):
+    """Whether K3 runs its tile kernel on the whole lattice of dims
+    (csrc/measure.cu tile_fits): whole (z, t) lines fill a tile of
+    TILE_SLOTS slots, T/2 <= TILE_T2_MAX.  16^4, 32^4 and 64^4 do; 8^4
+    and 24^3 x 6 do not."""
+    t2 = int(dims[3]) // 2
+    return (t2 <= TILE_T2_MAX and TILE_SLOTS % t2 == 0
+            and int(dims[2]) * t2 % TILE_SLOTS == 0)
+
+
+def _ticket(dev, stream):
+    """measure_row's ticket counter for the stream handle ``stream`` of
+    dev: launches that share a counter must not overlap, and launches on
+    one stream never do."""
+    key = (dev, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
+
+
+def measure_row(us, dims):
+    """f32 [6]: the standard observables (ops.measure.OBS_NAMES) of one
+    unsharded lattice, on the links' device.  CPU tensors take
+    obs_base_from_sums of the plain plane and Polyakov sums; CUDA tensors
+    one launch (dims must pass tile_fits): K3's tile blocks, then K4's
+    column groups, each writing its partial sums, and the last block to
+    finish sums them and forms the row, bit for bit obs_base_from_sums of
+    plane_sums and polyakov_sums on the card."""
+    if profile.ON:
+        profile.begin("k3.plane_sums")
+    n, dev_type = _check(us, dims)
+    if dev_type == "cpu":
+        out = obs_base_from_sums(plane_sums_ref(us, dims),
+                                 polyakov_sums_ref(us, dims), n, dims)
+        if profile.ON:
+            profile.end("k3.plane_sums")
+        return out
+    if not tile_fits(dims):
+        raise ValueError(f"measure_row: dims {tuple(dims)} do not tile "
+                         f"(tile_fits); use plane_sums and polyakov_sums")
+    name = f"measure_row_su{n}"
+    lib = build.library()
+    x, y, z, t = (int(d) for d in dims)
+    dev = us[0].device
+    n3 = -(-x * y * z * t // PLANE_BLOCK)
+    n4 = -(-x * y * z * poly_lanes(t // 2)[2] // PLANE_BLOCK)
+    partials = torch.empty(n3 * 6 + n4 * 2, dtype=torch.float64, device=dev)
+    out = torch.empty(6, dtype=torch.float32, device=dev)
+    stream = build.stream_handle(dev)
+    with torch.cuda.device(dev):
+        err = lib.qg_measure_row(
+            *[a.data_ptr() for a in us], n, x, y, z, t, partials.data_ptr(),
+            _ticket(dev, stream).data_ptr(), out.data_ptr(), stream)
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    if profile.ON:
+        profile.end("k3.plane_sums")
     return out
 
 

@@ -12,6 +12,7 @@ from qcdgpu_tpu.ops import sun as jsun
 from qcdgpu_tpu.ops.measure import mean_plaquette, measure_all, polyakov_from_ut
 from qcdgpu_tpu.sim import hot_start
 from qcdgpu_tpu_torch.ops import sun as tsun
+from qcdgpu_tpu_torch.ops.cuda import core as tcore
 from qcdgpu_tpu_torch.ops.cuda import engine as teng
 from qcdgpu_tpu_torch.ops.cuda import measure as tmeas
 from qcdgpu_tpu_torch.ops.cuda import sharded as tsh
@@ -126,3 +127,93 @@ def test_reunitarize_dir(u0):
         got = teng.join_dir(pair, DIMS, 3).numpy()
         ref = np.asarray(jsun.reunitarize(jnp.asarray(noisy[mu])))
         assert np.abs(got - ref).max() < 2e-5
+
+
+def _hot(n, dims, seed=5):
+    """A packed hot start of SU(n) at dims on the CPU."""
+    from qcdgpu_tpu_torch.config import SimConfig
+    from qcdgpu_tpu_torch.ops import rng as trng
+
+    cfg = SimConfig(group=n, dims=dims, seed=seed)
+    return teng.packed_hot_start(cfg, trng.make_base_key(seed), "cpu")
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("dims", [(4, 4, 4, 4), (8, 8, 8, 8)])
+def test_measure_row_is_obs_base_from_sums(n, dims):
+    """The fused measurement's plain version: obs_base_from_sums of the
+    plain plane and Polyakov sums, bit for bit, and the row measure_shards
+    gives the whole lattice on the three-step path."""
+    us = _hot(n, dims)
+    before = dict(tmeas.LAUNCHES)
+    row = tmeas.measure_row(us, dims)
+    assert row.dtype == torch.float32 and row.shape == (6,)
+    assert torch.equal(row, tmeas.obs_base_from_sums(
+        tmeas.plane_sums_ref(us, dims), tmeas.polyakov_sums_ref(us, dims),
+        n, dims))
+    assert torch.equal(row, teng.measure_shards((us,), (tcore.whole(dims),)))
+    assert tmeas.LAUNCHES == before  # the plain version launches nothing
+
+
+def _halo_shard(dims):
+    """Shard 0 of dims on mesh (2, 1, 1, 1): X split, so padded."""
+    return tcore.Shard(tuple(dims), (dims[0] // 2, dims[1]), (0, 0), (1, 0))
+
+
+@pytest.mark.parametrize("geoms, fused", [
+    ((tcore.whole((16, 16, 16, 16)),), True),
+    ((tcore.whole((32, 32, 32, 32)),), True),
+    ((tcore.whole((64, 64, 64, 64)),), True),
+    ((tcore.whole((2, 2, 16, 16)),), True),   # Z T/2 = 128: one tile line
+    ((tcore.whole((8, 8, 8, 8)),), False),    # Z T/2 = 32
+    ((tcore.whole((24, 24, 24, 6)),), False),  # config 3: T/2 = 3
+    ((tcore.whole((4, 4, 4, 128)),), False),  # T/2 = 64: past the tile
+    ((_halo_shard((16, 16, 16, 16)),), False),
+    ((_halo_shard((16, 16, 16, 16)),) * 2, False),
+])
+def test_fused_row_rule(geoms, fused):
+    """measure_shards takes the one-launch row exactly for one shard
+    without halo (the whole lattice) whose dims K3 tiles."""
+    assert teng.fused_row(geoms) is fused
+    assert tmeas.tile_fits(geoms[0].dims) == (
+        fused or geoms[0].halo != (0, 0))
+
+
+@pytest.mark.parametrize("case", ["whole_tiled", "whole_untiled", "mesh",
+                                  "chains"])
+def test_measure_dispatch(case, monkeypatch):
+    """Which measurements call measure_row: the whole lattice where it
+    tiles, once a measurement; never a mesh, a scan's chains or a shape
+    that does not tile.  Every path gives the three-step row."""
+    calls = []
+    real = tmeas.measure_row
+
+    def spy(us, dims):
+        calls.append(tuple(dims))
+        return real(us, dims)
+
+    monkeypatch.setattr(tmeas, "measure_row", spy)
+    dims = (4, 4, 4, 4) if case == "whole_untiled" else (2, 4, 16, 16)
+    us = _hot(2, dims)
+    three = tmeas.obs_base_from_sums(tmeas.plane_sums_ref(us, dims),
+                                     tmeas.polyakov_sums_ref(us, dims), 2,
+                                     dims)
+    if case == "mesh":
+        grid = tmesh.ShardGrid(dims, (1, 2, 1, 1), [torch.device("cpu")])
+        got = teng.measure_shards(tsh.shard_links(us, grid), grid.shards)
+        torch.testing.assert_close(got, three, rtol=1e-6, atol=1e-7)
+    elif case == "chains":
+        stacked = tuple(torch.stack([a, a]) for a in us)
+        got = teng.measure_chains((stacked,), (tcore.whole(dims),))
+        assert torch.equal(got, torch.stack([three, three]))
+    else:
+        got = teng.measure_shards((us,), (tcore.whole(dims),))
+        assert torch.equal(got, three)
+    assert calls == ([dims] if case == "whole_tiled" else [])
+
+
+def test_measure_row_launch_counters():
+    """One counter a group for the fused launch, beside K3's and K4's."""
+    for n in (2, 3):
+        assert {f"measure_row_su{n}", f"plane_sums_su{n}",
+                f"polyakov_sums_su{n}"} <= set(tmeas.LAUNCHES)
